@@ -1,6 +1,5 @@
 """Fixed-capacity instance container (port of
-``cartoonsegmentation_tpu/instances.py``, the subset the detector-free
-Ken Burns path uses).
+``cartoonsegmentation_tpu/instances.py``; ``draw`` is not ported).
 
 Masks (N, H, W) bool, boxes (N, 4) xywh, scores (N,), valid (N,);
 invalid slots are all-zero and masked out by ``valid``.
@@ -12,6 +11,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .utils.image import resize_bilinear_aa
 
 
 @dataclass
@@ -61,14 +62,83 @@ class Instances:
     def capacity(self) -> int:
         return self.masks.shape[0]
 
+    @property
+    def shape_hw(self):
+        return self.masks.shape[1], self.masks.shape[2]
+
     def count(self) -> torch.Tensor:
         return self.valid.to(torch.int32).sum()
+
+    def is_empty_host(self) -> bool:
+        """Host-side emptiness check (reads one scalar)."""
+        return int(self.count()) == 0
 
     def compose_masks(self) -> torch.Tensor:
         """Union of all valid masks, (H, W) bool."""
         return (self.masks & self.valid[:, None, None]).any(0)
 
+    def masked_areas(self) -> torch.Tensor:
+        return self.masks.sum((1, 2)).float() * self.valid.float()
+
+    def replace(self, **kw) -> 'Instances':
+        return replace(self, **kw)
+
     def to(self, device) -> 'Instances':
         return replace(self, **{k: getattr(self, k).to(device)
                                 for k in ('masks', 'bboxes', 'scores',
                                           'valid')})
+
+    def remove_duplicated(self, overlap_thr: float = 0.8) -> 'Instances':
+        """Drop masks mostly covered by the union of larger ones
+        (anime_instances.py:84-127): walk the instances by area,
+        largest first (stable, so equal areas keep slot order); a mask
+        whose overlap with the running union exceeds ``overlap_thr`` of
+        its own area is invalidated, the first is always kept; kept
+        masks join the union. Returned in that sorted order."""
+        areas = self.masked_areas()
+        order = torch.sort(-areas, stable=True).indices
+        masks, valid, areas = self.masks[order], self.valid[order], \
+            areas[order]
+        canvas = torch.zeros(self.shape_hw, dtype=torch.bool,
+                             device=masks.device)
+        keep = torch.zeros_like(valid)
+        for i in range(self.capacity):
+            inter = (canvas & masks[i]).sum().float()
+            dup = inter / areas[i].clamp(min=1.0) > overlap_thr
+            k = valid[i] & (~dup if i else torch.ones_like(dup))
+            keep[i] = k
+            canvas = canvas | (masks[i] & k)
+        return Instances(masks=masks & keep[:, None, None],
+                         bboxes=self.bboxes[order] * keep[:, None],
+                         scores=self.scores[order] * keep, valid=keep)
+
+    def resize(self, h: int, w: int, mask_thr: float = 0.3) -> 'Instances':
+        """Masks to (h, w) and boxes rescaled (instances.py:132-155):
+        upscales take the nearest source pixel as jax.image.resize
+        does (src = floor((i + 0.5)·in/out) in f32), downscales the
+        antialiased linear resize; then > mask_thr and the valid gate,
+        with the boxes rounded."""
+        oh, ow = self.shape_hw
+        if (oh, ow) == (h, w):
+            return self
+        m = self.masks.float()
+        if h >= oh and w >= ow:
+            dev = m.device
+            rows = torch.from_numpy(_nearest_src(oh, h)).to(dev)
+            cols = torch.from_numpy(_nearest_src(ow, w)).to(dev)
+            m = m.index_select(1, rows).index_select(2, cols)
+        else:
+            m = resize_bilinear_aa(m.permute(1, 2, 0), h, w).permute(2, 0, 1)
+        scale = torch.tensor([w / ow, h / oh, w / ow, h / oh],
+                             dtype=torch.float32, device=self.bboxes.device)
+        return self.replace(masks=(m > mask_thr) & self.valid[:, None, None],
+                            bboxes=torch.round(self.bboxes * scale))
+
+
+def _nearest_src(n_in: int, n_out: int) -> np.ndarray:
+    """jax.image.resize 'nearest' source rows: floor((i + 0.5)·in/out),
+    evaluated in f32 in that order."""
+    i = np.arange(n_out, dtype=np.float32)
+    src = np.floor((i + np.float32(0.5)) * np.float32(n_in)
+                   / np.float32(n_out))
+    return src.astype(np.int64)

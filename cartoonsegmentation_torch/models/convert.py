@@ -1,12 +1,14 @@
 """Carry the JAX package's Flax parameter trees into the port.
 
-``inpaint_from_flax`` and ``leres_from_flax`` turn a Flax tree (numpy
-arrays, or anything ``np.asarray`` takes) into a ``state_dict`` of the
-port's ``Inpaint`` / ``LeReS``. Each walks the port module's own keys
-and looks up the Flax path that the JAX package's converters
-(``models/convert.py:convert_inpaint``, ``models/leres.py:
-convert_leres``) write for that checkpoint key, so the two directions
-stay inverse to each other.
+``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax`` and
+``isnet_from_flax`` turn a Flax tree (numpy arrays, or anything
+``np.asarray`` takes) into a ``state_dict`` of the port's ``Inpaint``,
+``LeReS``, ``AnimeDetector`` and ``ISNetDIS``. Each walks the port
+module's own keys and looks up the Flax path that the JAX package's
+converters (``models/convert.py:convert_inpaint``, ``models/leres.py:
+convert_leres``, ``models/convert_rtmdet.py:convert_rtmdet``,
+``models/isnet.py:convert_isnet``) write for that checkpoint key, so
+the two directions stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
 PReLU 'alpha' → weight; BatchNorm scale/bias → weight/bias and
@@ -179,3 +181,101 @@ def leres_from_flax(variables: Mapping, module: Optional[nn.Module] = None
     from .leres import LeReS
     module = module or LeReS()
     return _from_flax(module, variables, leres_flax_path)
+
+
+# ---------------------------------------------------------------------------
+# RTMDet-Ins (AnimeDetector)
+# ---------------------------------------------------------------------------
+
+def _convmod(prefix: Path, rest) -> Optional[Tuple[str, Path]]:
+    """mmcv ConvModule leaf: conv.weight or bn.<attr>."""
+    if rest[0] == 'conv':
+        return 'params', prefix + ('conv', 'kernel')
+    return _bn(prefix + ('bn',), rest[1])
+
+
+def _csp(prefix: Path, rest) -> Optional[Tuple[str, Path]]:
+    """CSPLayer leaf (main/short/final conv, blocks, attention)."""
+    if rest[0] == 'blocks':
+        block = prefix + (f'block{rest[1]}',)
+        if rest[2] == 'conv1':
+            return _convmod(block + ('conv1',), rest[3:])
+        sub = {'depthwise_conv': 'dw', 'pointwise_conv': 'pw'}[rest[3]]
+        return _convmod(block + ('conv2', sub), rest[4:])
+    if rest[0] == 'attention':
+        return 'params', prefix + ('attention', 'fc', _LEAF[rest[2]])
+    return _convmod(prefix + (rest[0],), rest[1:])
+
+
+_NECK = {'reduce_layers': ('reduce', _convmod),
+         'top_down_blocks': ('top_down', _csp),
+         'downsamples': ('downsample', _convmod),
+         'bottom_up_blocks': ('bottom_up', _csp),
+         'out_convs': ('out', _convmod)}
+
+
+def rtmdet_flax_path(key: str) -> Optional[Tuple[str, Path]]:
+    """Flax location of one ``AnimeDetector`` state_dict key (None for
+    the BatchNorm step counters). A head conv shared across levels is
+    one Flax kernel under every level's key."""
+    parts = key.split('.')
+    if parts[0] == 'backbone':
+        if parts[1] == 'stem':
+            return _convmod(('backbone', f'stem{parts[2]}'), parts[3:])
+        si = int(parts[1][len('stage'):]) - 1
+        sub, rest = parts[2], parts[3:]
+        if sub == '0':
+            return _convmod(('backbone', f'stage{si}_conv'), rest)
+        if si == 3 and sub == '1':
+            return _convmod(('backbone', 'stage3_spp', rest[0]), rest[1:])
+        return _csp(('backbone', f'stage{si}_csp'), rest)
+    if parts[0] == 'neck':
+        name, fn = _NECK[parts[1]]
+        return fn(('neck', f'{name}{parts[2]}'), parts[3:])
+    rest = parts[1:]                                  # bbox_head.*
+    if rest[0] == 'mask_head':
+        if rest[1] == 'stacked_convs':
+            return _convmod(('mask_head', f'conv{rest[2]}'), rest[3:])
+        return 'params', ('mask_head', rest[1], _LEAF[rest[2]])
+    if rest[0] in ('rtm_cls', 'rtm_reg', 'rtm_kernel'):
+        return 'params', ('bbox_head', f'{rest[0]}_l{rest[1]}',
+                          _LEAF[rest[2]])
+    branch = rest[0][:-len('_convs')]                 # cls / reg / kernel
+    lv, i = rest[1], rest[2]
+    if rest[3] == 'conv':
+        return 'params', ('bbox_head', f'{branch}_conv{i}', 'kernel')
+    return _bn(('bbox_head', f'{branch}_bn_l{lv}_{i}'), rest[4])
+
+
+def rtmdet_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``AnimeDetector`` variables ({'params', 'batch_stats'}) →
+    the port's ``AnimeDetector`` state_dict (pass ``module`` for a
+    reduced one)."""
+    from .rtmdet import AnimeDetector
+    module = module or AnimeDetector()
+    return _from_flax(module, variables, rtmdet_flax_path)
+
+
+# ---------------------------------------------------------------------------
+# ISNet
+# ---------------------------------------------------------------------------
+
+def isnet_flax_path(key: str) -> Optional[Tuple[str, Path]]:
+    """Flax location of one ``ISNetDIS`` state_dict key."""
+    parts = key.split('.')
+    if len(parts) == 2:                               # conv_in / sideN
+        return 'params', (parts[0], _LEAF[parts[1]])
+    stage, block, layer, attr = parts
+    if layer == 'conv_s1':
+        return 'params', (stage, block, 'conv', _LEAF[attr])
+    return _bn((stage, block, 'bn'), attr)
+
+
+def isnet_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flax ``ISNetDIS`` variables → the port's ``ISNetDIS`` state_dict
+    (``module`` defaults to the 4-channel refine net)."""
+    from .isnet import ISNetDIS
+    module = module or ISNetDIS(in_ch=4)
+    return _from_flax(module, variables, isnet_flax_path)

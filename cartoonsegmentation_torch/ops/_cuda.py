@@ -10,8 +10,9 @@ of the sources and flags, so an edited source is rebuilt.
 the kernels repeat the plain versions' rounding step by step, and one
 ulp in a projected coordinate flips a corner or a rounded offset.
 
-Every wrapper calls ``launch``, which adds one to the kernel's count
-in ``LAUNCHES`` and raises when the C entry point returns a CUDA error.
+Each library has one C entry point. Every wrapper calls ``launch``,
+which adds one to the library's count in ``LAUNCHES`` and raises when
+the entry point returns a CUDA error.
 """
 from __future__ import annotations
 
@@ -28,11 +29,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
-KERNELS = ('splat', 'coverage', 'discfill', 'bokeh')
+KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
+           'laplacian', 'nms', 'maskhead')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
-# launches per kernel since the last reset_launches()
+# launches per kernel library since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,21 @@
 """Spatial filters (port of ``cartoonsegmentation_tpu/ops/filters.py``):
-the asymmetric laplacian validity filter and the 5x5 median.
+the asymmetric laplacian validity filter and the 5x5 median (K7).
 
-Layout (..., H, W, C), channel-last as in the JAX package. Plain
-tensor code on both devices; a Triton stencil for the card is queued
-(kernel K7 in PERF.md).
+Layout (..., H, W, C), channel-last as in the JAX package.
+
+- ``laplacian_filter_plain`` / ``median_filter_plain``: the JAX
+  versions' formulation in plain PyTorch (shifted copies; a sort over
+  the 25 taps).
+- ``csrc/laplacian.cu``, ``csrc/median5.cu``: a shared-memory tile
+  with its halo and one thread a pixel. The wrappers
+  ``laplacian_filter`` and ``median_filter`` pick by device; both
+  results are exact against the plain versions.
 """
 from __future__ import annotations
 
 import torch
+
+from . import _cuda
 
 
 def _index(n: int, d: int, mode: str, device) -> torch.Tensor:
@@ -26,7 +34,7 @@ def _shift2d(x: torch.Tensor, dy: int, dx: int, mode: str) -> torch.Tensor:
     return x.index_select(-2, _index(W, dx, mode, x.device))
 
 
-def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
+def laplacian_filter_plain(x: torch.Tensor) -> torch.Tensor:
     """out = 4·in[y,x] − in[y−1,x] − in[y−1,x+1] − in[y,x−1]
     − in[y+1,x−1], replicate padding (reference models/utils.py:13-24).
     """
@@ -37,7 +45,7 @@ def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
             - _shift2d(x, 1, -1, 'edge'))
 
 
-def median_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+def median_filter_plain(x: torch.Tensor, size: int) -> torch.Tensor:
     """size x size median with reflect padding (size odd)."""
     if size % 2 != 1:
         raise ValueError(f'median size must be odd, got {size}')
@@ -46,6 +54,42 @@ def median_filter(x: torch.Tensor, size: int) -> torch.Tensor:
                         for dy in range(-r, r + 1)
                         for dx in range(-r, r + 1)], -1)
     return taps.sort(-1).values[..., (size * size) // 2]
+
+
+def _launch_stencil(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Run the stencil of csrc/{name}.cu (entry point ``kb_{name}``) on
+    (..., H, W, C) f32."""
+    if x.ndim < 3:
+        raise ValueError(f'expected (..., H, W, C), got {tuple(x.shape)}')
+    H, W, C = x.shape[-3:]
+    if H < 3 or W < 3:
+        raise ValueError(f'the CUDA stencils need H, W >= 3, got {H}x{W}')
+    x4 = x.reshape((-1, H, W, C)).contiguous()
+    _cuda.check(x4, 'x', torch.float32, 4, x.device)
+    out = torch.empty_like(x4)
+    p, i = _cuda.P, _cuda.I
+    _cuda.launch(name, f'kb_{name}', [p, i, i, i, i, p, p], x4.data_ptr(),
+                 x4.shape[0], H, W, C, out.data_ptr(), _cuda.stream_ptr(x4))
+    return out.reshape(x.shape)
+
+
+def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
+    """K7 wrapper: the plain version on the CPU, csrc/laplacian.cu on
+    CUDA. x (..., H, W, C) f32."""
+    if x.device.type == 'cpu':
+        return laplacian_filter_plain(x)
+    return _launch_stencil('laplacian', x)
+
+
+def median_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+    """K7 wrapper: the plain version on the CPU, csrc/median5.cu on
+    CUDA, which takes size 5 only (the size the Inpaint net uses).
+    x (..., H, W, C) f32."""
+    if x.device.type == 'cpu':
+        return median_filter_plain(x, size)
+    if size != 5:
+        raise ValueError(f'the CUDA median takes size 5, got {size}')
+    return _launch_stencil('median5', x)
 
 
 def valid_depth_mask(disparity: torch.Tensor,

@@ -1,6 +1,10 @@
 """Depth post-processing (port of
 ``cartoonsegmentation_tpu/pipeline/depth.py``): instance-aware
-disparity adjustment, per-instance median and the gray_r colorize.
+disparity adjustment, per-instance median (K6) and the gray_r colorize.
+
+K6 ``masked_median_u8`` runs ``masked_median_u8_plain`` (a 256-bin
+histogram with ``index_put_``) for CPU tensors and
+``csrc/insmedian.cu`` for CUDA tensors; both are exact.
 """
 from __future__ import annotations
 
@@ -8,6 +12,7 @@ import numpy as np
 import torch
 
 from ..instances import Instances
+from ..ops import _cuda
 
 
 def adjust_disparity_by_instances(disparity: torch.Tensor,
@@ -44,8 +49,8 @@ def adjust_disparity_by_instances(disparity: torch.Tensor,
     return adjusted
 
 
-def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+def masked_median_u8_plain(values: torch.Tensor, masks: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
     """Per-instance lower median of round(values) over each mask, via a
     256-bin histogram. values (H, W) in [0, 255], masks (N, H, W) bool,
     valid (N,). Invalid or empty instances give -inf."""
@@ -62,6 +67,35 @@ def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
     med = (cum < rank[:, None]).sum(-1).float()
     return torch.where(valid & (cnt > 0), med,
                        torch.full_like(med, float('-inf')))
+
+
+def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """K6 wrapper: the plain version on the CPU, csrc/insmedian.cu on
+    CUDA. values (H, W) f32, masks (N, H, W) bool, valid (N,) bool →
+    (N,) f32 medians, -inf for invalid or empty instances."""
+    if values.device.type == 'cpu':
+        return masked_median_u8_plain(values, masks, valid)
+    dev = values.device
+    values = values.contiguous()
+    masks = masks.contiguous()
+    valid = valid.contiguous()
+    _cuda.check(values, 'values', torch.float32, 2, dev)
+    _cuda.check(masks, 'masks', torch.bool, 3, dev)
+    _cuda.check(valid, 'valid', torch.bool, 1, dev)
+    N = masks.shape[0]
+    if tuple(masks.shape[1:]) != tuple(values.shape) or valid.shape[0] != N:
+        raise ValueError(f'masks {tuple(masks.shape)}, values '
+                         f'{tuple(values.shape)} and valid '
+                         f'{tuple(valid.shape)} do not match')
+    hist = torch.empty((N, 256), dtype=torch.int32, device=dev)
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    p, i = _cuda.P, _cuda.I
+    _cuda.launch('insmedian', 'kb_masked_median', [p, p, p, i, i, p, p, p],
+                 values.data_ptr(), masks.data_ptr(), valid.data_ptr(), N,
+                 values.numel(), hist.data_ptr(), out.data_ptr(),
+                 _cuda.stream_ptr(values))
+    return out
 
 
 def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """KenBurnsPipeline — image → depth → point cloud → inpaint → video
-(PyTorch port of ``cartoonsegmentation_tpu/pipeline/kenburns.py``, the
-detector-free path).
+(PyTorch port of ``cartoonsegmentation_tpu/pipeline/kenburns.py``).
 
-The port runs the shipped default configuration with ``detector:
-none``: LeReS depth, autozoom's coverage search (kernel K2), two
-passes of the Inpaint net (whose forward splats with K1), and the
-frame loop (shift → K1 splat → K3 fill → K4 bokeh → crop/resize →
-uint8 → I420 → video). Paths this slice does not port raise
-NotImplementedError.
+The port runs the shipped default configuration: the AnimeInsSeg
+detector (RTMDet-Ins with kernels K8 NMS and K9 mask heads) with the
+ISNet refine, LeReS depth and the instance depth adjustment, autozoom's
+coverage search (kernel K2), two passes of the Inpaint net (whose
+forward splats with K1 and gates with the K7 median), the focal plane
+from the K6 per-instance median, and the frame loop (shift → K1 splat
+→ K3 fill → K4 bokeh → crop/resize → uint8 → I420 → video); the K7
+laplacian builds every validity mask. ``detector: none`` skips the
+detector. Paths this port does not run yet raise NotImplementedError.
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import KenBurnsConfig, build_kenburns_cfg
+from ..device import resolve_device, resolve_dtype
 from ..instances import Instances
 from ..models.kenburns import Inpaint
 from ..models.leres import LeReS, _normalize_leres_keys, leres_postprocess
@@ -49,22 +52,16 @@ from .state import KenBurnsState, PointCloud
 LOGGER = logging.getLogger('cartoonsegmentation_torch')
 
 
-def resolve_device(device=None) -> torch.device:
-    """The given device, or CUDA; never a quiet move to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            'KenBurnsPipeline runs on CUDA by default and no CUDA device '
-            "is available; pass device='cpu' to run on the CPU")
-    return torch.device('cuda')
-
-
 def _check_supported(cfg: KenBurnsConfig) -> None:
     """Raise for the options this slice of the port does not run."""
     todo = []
-    if cfg.detector not in ('none', ''):
-        todo.append(f"detector={cfg.detector!r} (only 'none')")
+    if cfg.detector not in ('none', '', 'animeinsseg'):
+        todo.append(f"detector={cfg.detector!r} (only 'animeinsseg', "
+                    "'none')")
+    if cfg.detector == 'animeinsseg' and \
+            cfg.refine_method not in ('none', '', 'refinenet_isnet'):
+        todo.append(f"refine_method={cfg.refine_method!r} (only "
+                    "'refinenet_isnet', 'none')")
     if cfg.depth_est != 'leres':
         todo.append(f"depth_est={cfg.depth_est!r} (only 'leres')")
     if cfg.default_depth_refine:
@@ -134,6 +131,9 @@ class KenBurnsPipeline:
         # loaded first; tests may install smaller ones here
         self.inpaint_net: Optional[Inpaint] = None
         self.leres_net: Optional[LeReS] = None
+        # an AnimeInsSeg, any img → Instances callable, or None; run()
+        # installs the configured one first (ensure_detector)
+        self._detector = None
         self.timer = StageTimer()
         # what the last run() rendered: the inpainted, compacted state
         # and its camera boxes (for re-rendering), and the video file
@@ -144,13 +144,7 @@ class KenBurnsPipeline:
     @property
     def conv_dtype(self) -> torch.dtype:
         """cfg.dtype: 'auto' → bf16 on CUDA, f32 on the CPU."""
-        d = self.cfg.dtype
-        if d == 'auto':
-            return torch.bfloat16 if self.device.type == 'cuda' \
-                else torch.float32
-        if d in ('float32', 'f32'):
-            return torch.float32
-        return getattr(torch, d)
+        return resolve_dtype(self.cfg.dtype, self.device)
 
     def _net(self, which: str) -> torch.nn.Module:
         attr = f'{which}_net'
@@ -184,9 +178,49 @@ class KenBurnsPipeline:
         net.load_state_dict(sd)
         self.leres_net = net
 
+    def load_detector_checkpoints(self, det: Optional[str] = None) -> None:
+        """Detector weights for the configured AnimeInsSeg (an mmdet
+        rtmdetl checkpoint)."""
+        self.ensure_detector()
+        if self._detector is None:
+            raise ValueError("no detector configured (cfg.detector is "
+                             "'none')")
+        if det:
+            self._detector.load_torch_checkpoint(det)
+
+    def set_detector(self, detector) -> None:
+        """Install a detector name from the config ('animeinsseg' or
+        'none'), an AnimeInsSeg, or any img → Instances callable with an
+        ``infer(img, pred_score_thr)`` method. Parity:
+        kenburns_effect.py:831-846."""
+        if isinstance(detector, str):
+            if detector in ('none', ''):
+                self._detector = None
+                return
+            if detector == 'animeinsseg':
+                from .segment import AnimeInsSeg
+                cfg = self.cfg
+                seg = AnimeInsSeg(det_size=cfg.det_size,
+                                  mask_thr=cfg.mask_thr,
+                                  max_instances=cfg.max_instances,
+                                  dtype=cfg.dtype, seed=self._seed,
+                                  device=self.device)
+                if cfg.refine_method not in ('none', ''):
+                    seg.set_refine_method(cfg.refine_method,
+                                          cfg.refine_size)
+                seg.timer = self.timer
+                self._detector = seg
+                return
+            raise NotImplementedError(
+                f'detector {detector!r} is not ported to '
+                "cartoonsegmentation_torch yet (only 'animeinsseg', "
+                "'none')")
+        self._detector = detector
+
     def ensure_detector(self) -> None:
-        """The port runs without a detector only."""
-        _check_supported(self.cfg)
+        """Instantiate the configured detector if none is installed."""
+        if self._detector is None and self.cfg.detector not in ('none', ''):
+            self.set_detector(self.cfg.detector)
 
     # -- stage 1: state generation --------------------------------------
     def generate_state(self, img: Union[str, np.ndarray],
@@ -198,15 +232,15 @@ class KenBurnsPipeline:
             import cv2
             img = cv2.imread(img)
         cfg, dev = self.cfg, self.device
+        if instances is None and self._detector is not None:
+            with self.timer.time('detector', dev):
+                instances = self._detector.infer(img, cfg.pred_score_thr)
         img = scaledown_maxsize(img, cfg.max_size)
         H, W = img.shape[:2]
         if instances is None:
             instances = Instances.empty(cfg.max_instances, H, W, dev)
-        elif tuple(instances.masks.shape[1:]) != (H, W):
-            raise NotImplementedError('instance resizing is not ported; '
-                                      'pass masks at the scaled image size')
         else:
-            instances = instances.to(dev)
+            instances = instances.to(dev).resize(H, W)
         image = torch.from_numpy(img.astype(np.float32) / 255.0).to(dev)
 
         with self.timer.time('depth_estimate', dev):

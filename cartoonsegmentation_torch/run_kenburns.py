@@ -1,12 +1,11 @@
 """3D Ken Burns CLI of the PyTorch port.
 
   python -m cartoonsegmentation_torch.run_kenburns \
-      --cfg configs/3dkenburns.yaml --input-img photo.png --no-detector
+      --cfg configs/3dkenburns.yaml --input-img photo.png
 
 Writes <save-dir>/<name>.mp4 (a raw <name>.yuv I420 stream where cv2
-is missing). The port runs the detector-free path only, so
---no-detector is required unless the config already says
-``detector: none``.
+is missing). The configured detector (AnimeInsSeg with its ISNet
+refine in the shipped config) runs unless --no-detector is given.
 """
 from __future__ import annotations
 
@@ -22,8 +21,7 @@ def main(argv=None) -> None:
     ap.add_argument('--save-dir', default='workspace/output')
     ap.add_argument('--no-depth-field', action='store_true')
     ap.add_argument('--no-detector', action='store_true',
-                    help='skip instance segmentation (the only mode the '
-                         'port runs so far)')
+                    help='skip instance segmentation')
     ap.add_argument('--device', default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          'plain versions of the kernels)')

@@ -46,20 +46,84 @@ def scaledown_size(h: int, w: int, max_size: int,
 def scaledown_maxsize(img: np.ndarray, max_size: int,
                       divisor: Optional[int] = None) -> np.ndarray:
     """Scale an HWC image so its long side is <= max_size (linear).
-    Uses cv2 where present, else a plain bilinear resize in torch."""
+    uint8 images go through ``resize_linear_u8`` (cv2.INTER_LINEAR's
+    bytes, with or without cv2); other dtypes through cv2 where present,
+    else a plain bilinear resize in torch."""
     h0, w0 = img.shape[:2]
     h, w = scaledown_size(h0, w0, max_size, divisor)
     if (h, w) == (h0, w0):
         return img
+    if img.dtype == np.uint8:
+        return resize_linear_u8(img, h, w)
     cv2 = _cv2()
     if cv2 is not None:
         return cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
     x = torch.from_numpy(np.ascontiguousarray(img)).float()
     out = resize_bilinear(x if x.ndim == 3 else x[..., None], h, w)
     out = out if img.ndim == 3 else out[..., 0]
-    if img.dtype == np.uint8:
-        out = out.round().clamp(0, 255)
     return out.numpy().astype(img.dtype)
+
+
+# OpenCV's fixed-point linear resize of 8-bit images (imgproc/resize.cpp)
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _cv2_linear_taps(n_in: int, n_out: int, columns: bool):
+    """Source indices and 11-bit weights of one axis, as cv::resize
+    computes them: the scale 1/(out/in) and the source coordinate
+    (i + 0.5)·scale − 0.5 in double, cast to float; each weight rounded
+    to nearest even on its own. Columns past an edge take the edge
+    pixel with weight 1; rows keep their weights and clip the two
+    source rows into the image."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if columns:
+        lo, hi = s < 0, s >= n_in - 1
+        f[lo | hi] = 0.0
+        s[lo] = 0
+        s[hi] = n_in - 1
+    a0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE))
+    a1 = np.rint(f * np.float32(_COEF_SCALE))
+    return (np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1),
+            a0.astype(np.int32), a1.astype(np.int32))
+
+
+def resize_linear_u8(img, h: int, w: int):
+    """cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR) for uint8
+    HW or HWC images, byte for byte, in integer torch arithmetic (a
+    numpy input gives a numpy result). The horizontal pass sums
+    src·alpha in int32; the vertical pass is OpenCV's
+    ((b0·(r0 >> 4)) >> 16) + ((b1·(r1 >> 4)) >> 16) + 2) >> 2. Exactly
+    2x down on both axes OpenCV takes its area path, the rounded mean
+    of each 2x2 block, and so does this."""
+    as_numpy = isinstance(img, np.ndarray)
+    x = torch.from_numpy(np.ascontiguousarray(img)) if as_numpy else img
+    if x.dtype != torch.uint8:
+        raise TypeError(f'resize_linear_u8 takes uint8, got {x.dtype}')
+    H, W = x.shape[:2]
+    x = x.to(torch.int32)
+    if (H, W) == (2 * h, 2 * w):
+        out = (x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2]
+               + x[1::2, 1::2] + 2) >> 2
+    else:
+        dev = x.device
+        xs0, xs1, a0, a1 = (torch.from_numpy(t).to(dev)
+                            for t in _cv2_linear_taps(W, w, True))
+        ys0, ys1, b0, b1 = (torch.from_numpy(t).to(dev)
+                            for t in _cv2_linear_taps(H, h, False))
+        extra = (None,) * (x.ndim - 2)
+        ax0, ax1 = a0[(slice(None),) + extra], a1[(slice(None),) + extra]
+        rows = x.index_select(1, xs0) * ax0 + x.index_select(1, xs1) * ax1
+        by0 = b0[(slice(None), None) + extra]
+        by1 = b1[(slice(None), None) + extra]
+        r0 = rows.index_select(0, ys0) >> 4
+        r1 = rows.index_select(0, ys1) >> 4
+        out = (((by0 * r0) >> 16) + ((by1 * r1) >> 16) + 2) >> 2
+    out = out.to(torch.uint8)
+    return out.numpy() if as_numpy else out
 
 
 # ---------------------------------------------------------------------------

@@ -3,22 +3,34 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the four CUDA
-   kernels (csrc/*.cu) with nvcc;
+1. prints the card, torch and CUDA versions, and builds the nine CUDA
+   kernel libraries (csrc/*.cu, one kernel each) with nvcc, all at once;
 2. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes (576x1024; K1 with C = 4 and C = 68) and
-   times both with CUDA events (median of runs on varied inputs);
-3. runs the detector-free Ken Burns path at its default config —
-   ``KenBurnsPipeline(KenBurnsConfig(detector='none')).run(img, video)``
-   with random nets from the seed on a 576x1024 image made from the
-   seed — and checks that every kernel's launch counter moved in that
-   run and that the 75 frames are sane;
-4. re-renders 3 frames of the same state on the CPU, where every
-   wrapper runs its plain version, and holds them against the kernel
-   frames;
-5. runs the same clip again warm, and profiles 16 frames of the render
+   the main path's shapes (576x1024; K1 with C = 4 and C = 68; K6 over
+   100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640)
+   and times both with CUDA events around one call on an idle card
+   (median of runs on varied inputs);
+3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
+   the path of the first slice), checks the launch counters of the
+   kernels it runs and re-renders 3 of its frames on the CPU, where
+   every wrapper runs its plain version, against the kernel frames;
+4. runs the main path, the shipped default config with the AnimeInsSeg
+   detector and its ISNet refine —
+   ``KenBurnsPipeline(KenBurnsConfig()).run(img, video)`` on a 576x1024
+   image made from the seed, with random nets from the seed set so that
+   the instances have edges (``edged_nets``) — and checks that all nine
+   kernels launched in that run, that it found instances with
+   non-empty masks smaller than the frame, that the adjusted disparity
+   is not flat, and that the 75 frames are sane;
+5. re-renders 3 frames of that state on the CPU the same way;
+6. runs the detector in f32 on the card and on the CPU with the same
+   weights on the same image: the head maps within the stated
+   tolerance, the CPU postprocess of the card's head maps and the whole
+   detector on the CPU against the card's (NMS keep set exact, mask
+   pixels >= 99.9%);
+7. runs the main path again warm, and profiles 16 frames of the render
    loop (host enqueue time, device busy share, device time by kernel);
-6. prints one {"kernels": [...]} line, then the card line and the
+8. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -27,6 +39,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import shutil
@@ -82,7 +95,9 @@ def make_image(seed: int) -> np.ndarray:
 
 def time_ms(fn, inputs) -> float:
     """Median CUDA-event time of fn over the varied inputs, after a
-    warm-up pass over them."""
+    warm-up pass over them. The card idles until the host has enqueued
+    fn, so this is the time of one call on an idle card, the host's
+    dispatch included (~0.05 ms for a ctypes launch)."""
     for x in inputs[:3]:
         fn(x)
     torch.cuda.synchronize()
@@ -127,6 +142,7 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     from cartoonsegmentation_torch.ops import (bokeh, camera, discfill3,
                                                pointcloud)
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
+    from cartoonsegmentation_torch.pipeline.depth import colorize_gray_r
     res = {}
     P4 = 11 * (1 << 16)                       # ~ the compacted cloud
     pts, col, depth = synthetic_cloud(gen, dev, P4)
@@ -160,16 +176,16 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
         nbytes = nv * (12 + 4 * C) + (P - nv) * 4 + H * W * 4 * (C + 2)
         # projection 10, corners 12, per corner (C + 1) mul + add
         flops = nv * (22 + 4 * 2 * (C + 1))
-        ms = time_ms(lambda x: pointcloud.splat(x, data, H, W, 512.0, 40.0),
-                     pts_in)
+        ms = time_ms(
+            lambda x: pointcloud.splat(x, data, H, W, 512.0, 40.0), pts_in)
         plain_ms = time_ms(lambda x: pointcloud.splat_plain(
             x, data, H, W, 512.0, 40.0), pts_in)
         b, by = bound(nbytes, flops)
         res[f'splat_c{C}'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b, bound_by=by, P=P)
+                                  bound_ms=b, bound_by=by)
         print(f'[kernel] splat C={C} P={P}: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err {err:.3g}',
-              flush=True)
+              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err '
+              f'{err:.3g}', flush=True)
 
     # --- K2 coverage: 256 candidates on the stride-2 miniature --------
     mini = pts[:H * W].reshape(H, W, 3)[::2, ::2].reshape(-1, 3).contiguous()
@@ -188,8 +204,8 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     N, K = mini.shape[0], 256
     nbytes = N * 12 + K * 12 + K * 4
     flops = K * N * 25   # shift 7, projection 8, corners 10
-    ms = time_ms(lambda s: pointcloud.coverage(mini, s, H // 2, W // 2,
-                                               256.0, 40.0), cand)
+    ms = time_ms(lambda s: pointcloud.coverage(
+        mini, s, H // 2, W // 2, 256.0, 40.0), cand)
     plain_ms = time_ms(lambda s: pointcloud.coverage_plain(
         mini, s, H // 2, W // 2, 256.0, 40.0), cand)
     b, by = bound(nbytes, flops)
@@ -223,7 +239,6 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
           f'bit-exact', flush=True)
 
     # --- K4 bokeh: filled frames, weights from their depth ------------
-    from cartoonsegmentation_torch.pipeline.depth import colorize_gray_r
     bok = []
     for i, (r, _) in enumerate(fills):
         f = discfill3.fill_disocclusion(r, fills[i][1])
@@ -248,6 +263,159 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     print(f'[kernel] bokeh {H}x{W}: kernel {ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err {err:.3g}',
           flush=True)
+
+    depth_maps = [colorize_gray_r(discfill3.fill_disocclusion(*f)[..., 3])
+                  .contiguous() for f in fills]
+    existing = [(w > 0).float()[..., None].contiguous()
+                for _, w in fills]
+    res.update(check_detector_kernels(dev, gen, depth_maps, existing))
+    return res
+
+
+def instance_masks(gen: torch.Generator, dev, n: int, n_valid: int):
+    """n ellipse masks at 576x1024 (n_valid valid; the invalid slots get
+    masks too, which must not count)."""
+    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    p = torch.rand((n, 4), generator=gen).to(dev)
+    cx, cy = p[:, 0, None, None] * W, p[:, 1, None, None] * H
+    rx, ry = 20 + p[:, 2, None, None] * 400, 20 + p[:, 3, None, None] * 250
+    masks = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 < 1.0
+    valid = torch.arange(n, device=dev) < n_valid
+    return masks.contiguous(), valid
+
+
+def nms_case(gen: torch.Generator, K: int = 512):
+    """Top-512-like candidates: clusters of heavily overlapping boxes,
+    exact duplicates, bf16-valued (tied) scores."""
+    centres = torch.rand((K // 8, 2), generator=gen) * 600
+    pick = torch.randint(0, K // 8, (K,), generator=gen)
+    c = centres[pick] + torch.randn((K, 2), generator=gen) * 4
+    wh = 10 + torch.rand((K, 2), generator=gen) * 60
+    boxes = torch.cat([c - wh / 2, c + wh / 2], 1)
+    boxes[K // 2:K // 2 + 5] = boxes[K // 2]
+    scores = torch.rand((K,), generator=gen).bfloat16().float()
+    return boxes, scores
+
+
+def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
+    """K6-K9 against their plain versions at the main path's shapes."""
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.ops import filters
+    from cartoonsegmentation_torch.pipeline import depth
+    res = {}
+
+    # --- K6: 100 instance slots, 60 valid (one of them empty) ---------
+    masks, valid = instance_masks(gen, dev, 100, 60)
+    masks[3] = False
+    got = depth.masked_median_u8(depth_maps[0], masks, valid)
+    want = depth.masked_median_u8_plain(depth_maps[0], masks, valid)
+    if not torch.equal(got, want):
+        fail(f'masked median differs at {int((got != want).sum())} of 100 '
+             f'instances')
+    n_valid = int(valid.sum())
+    nbytes = H * W * 4 + n_valid * H * W + 100 + 100 * 4
+    ms = time_ms(
+        lambda v: depth.masked_median_u8(v, masks, valid), depth_maps)
+    plain_ms = time_ms(
+        lambda v: depth.masked_median_u8_plain(v, masks, valid), depth_maps)
+    b, by = bound(nbytes, n_valid * H * W * 3)   # round, clamp, count
+    res['insmedian'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b, bound_by=by)
+    print(f'[kernel] insmedian 100 slots ({n_valid} valid) at {H}x{W}: '
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+          f'({by}), exact', flush=True)
+
+    # --- K7: the median-5 of `existing`, the laplacian of a disparity --
+    disp = [(d / 255.0)[..., None].contiguous() for d in depth_maps]
+    for x in existing[:2] + disp[:2]:
+        if not torch.equal(filters.median_filter(x, 5),
+                           filters.median_filter_plain(x, 5)):
+            fail('median-5 differs from the plain version')
+        if not torch.equal(filters.laplacian_filter(x),
+                           filters.laplacian_filter_plain(x)):
+            fail('laplacian differs from the plain version')
+    # the median of 25 needs 99 compare-exchanges (a selection network:
+    # Paeth's, as in Devillard's opt_med25), a min and a max each; the
+    # kernel's full sort does 300. The laplacian: 1 multiply, 4 subtracts
+    for name, fn, plain, xs, ops in (
+            ('median5', lambda x: filters.median_filter(x, 5),
+             lambda x: filters.median_filter_plain(x, 5), existing, 99 * 2),
+            ('laplacian', filters.laplacian_filter,
+             filters.laplacian_filter_plain, disp, 5)):
+        b, by = bound(H * W * 8, H * W * ops)
+        ms, plain_ms = time_ms(fn, xs), time_ms(plain, xs)
+        res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by)
+        print(f'[kernel] {name} {H}x{W}: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), exact',
+              flush=True)
+    # the laplacian as one library call: a cuDNN convolution with
+    # replicate padding, f32 without TF32
+    conv = torch.nn.Conv2d(1, 1, 3, padding=1, padding_mode='replicate',
+                           bias=False).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        conv.weight.copy_(torch.tensor([[0.0, -1.0, -1.0], [-1.0, 4.0, 0.0],
+                                        [-1.0, 0.0, 0.0]]))
+        lib_err = float((conv(disp[0].view(1, 1, H, W)).view(H, W, 1)
+                         - filters.laplacian_filter_plain(disp[0]))
+                        .abs().max())
+        res['laplacian']['library_ms'] = time_ms(
+            lambda x: conv(x.view(1, 1, H, W)), disp)
+    print(f'[kernel] laplacian as a cuDNN convolution: '
+          f'{res["laplacian"]["library_ms"]:.4f} ms, max err {lib_err:.3g}',
+          flush=True)
+
+    # --- K8: the top 512 candidates, ties and overlaps -----------------
+    cases = [tuple(t.to(dev) for t in nms_case(gen)) for _ in range(RUNS)]
+    kept = []
+    for bx, sc in cases[:3]:
+        for max_out in (100, 512):
+            ki, km = rtmdet.nms_fixed(bx, sc, 0.6, max_out)
+            pi, pm = rtmdet.nms_fixed_plain(bx, sc, 0.6, max_out)
+            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
+                fail('NMS keep set differs from the plain version')
+        kept.append(int(km.sum()))
+    ms = time_ms(lambda c: rtmdet.nms_fixed(*c, 0.6, 100), cases)
+    plain_ms = time_ms(lambda c: rtmdet.nms_fixed_plain(*c, 0.6, 100), cases)
+    # the IoUs of the upper triangle, ~12 operations each
+    b, by = bound(512 * 20 + 100 * 9, 512 * 511 / 2 * 12)
+    res['nms'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=b, bound_by=by)
+    print(f'[kernel] nms K=512 (kept of 512: {kept}): kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}), keep sets '
+          f'exact', flush=True)
+
+    # --- K9: 100 instances, 80x80 prototypes → 640x640 masks -----------
+    N, h = 100, 80
+
+    def heads_case():
+        feat = torch.randn((h, h, 8), generator=gen)
+        kern = torch.randn((N, 169), generator=gen)
+        pri = torch.randint(0, h, (N, 2), generator=gen).float() * 8
+        st = torch.tensor([8.0, 16.0, 32.0])[
+            torch.randint(0, 3, (N,), generator=gen)]
+        val = torch.rand((N,), generator=gen) < 0.8
+        return tuple(t.to(dev) for t in (feat, kern, pri, st, val))
+    heads = [heads_case() for _ in range(RUNS)]
+    mk, pk = rtmdet.dynamic_masks(*heads[0], 640, 640, 0.3)
+    mp, pp = rtmdet.dynamic_masks_plain(*heads[0], 640, 640, 0.3)
+    err = float((pk - pp).abs().max())
+    same = float((mk == mp).float().mean())
+    if err > 1e-6 or same < 0.9999:
+        fail(f'mask heads: probs differ by {err}, masks agree on {same}')
+    ms = time_ms(lambda x: rtmdet.dynamic_masks(*x, 640, 640, 0.3), heads)
+    plain_ms = time_ms(lambda x: rtmdet.dynamic_masks_plain(*x, 640, 640,
+                                                            0.3), heads)
+    nbytes = h * h * 8 * 4 + N * (169 + 2 + 1) * 4 + N + N * 640 * 640
+    flops = N * h * h * 2 * (10 * 8 + 8 * 8 + 8 + 20) + N * 640 * 640 * 12
+    b, by = bound(nbytes, flops)
+    res['maskhead'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by, masks_equal=same)
+    print(f'[kernel] maskhead N={N} {h}x{h} → 640x640: kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), probs max err '
+          f'{err:.3g}, masks equal {same:.6f}', flush=True)
     return res
 
 
@@ -289,6 +457,194 @@ def profile_frame_loop(pipe, state, obj_from, obj_to, n: int = 16) -> None:
               f'{key[:90]}', flush=True)
 
 
+def run_clip(pipe, img, tag: str):
+    """pipe.run(img, video) with the launch counters set to 0 just
+    before and read just after; checks the frames. Returns the launches."""
+    from cartoonsegmentation_torch.ops import _cuda
+    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        frames = pipe.run(img, os.path.join(tmp, 'smoke.mp4'))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        size = os.path.getsize(pipe.last_video_path)
+        kind = 'raw I420 (cv2 is missing)' \
+            if pipe.last_video_path.endswith('.yuv') else 'mp4'
+        print(f'[{tag}] video: {size} bytes, {kind}', flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if frames.shape != (pipe.cfg.num_frame, H, W, 3) or \
+            frames.dtype != np.uint8:
+        fail(f'{tag}: frames are {frames.shape} {frames.dtype}')
+    if frames.std() < 5 or not 5 < frames.mean() < 250:
+        fail(f'{tag}: frames look blank (mean {frames.mean():.1f}, std '
+             f'{frames.std():.1f})')
+    render_s = pipe.timer.seconds['render_stream+encode']
+    print(f'{pipe.timer.report()}\n[{tag}] {len(frames)} frames in '
+          f'{wall:.3f} s (render+stream+encode {render_s:.3f} s, '
+          f'{len(frames) / render_s:.2f} fps); launches {launches}',
+          flush=True)
+    return launches
+
+
+def compare_frames(pipe, tag: str) -> None:
+    """Re-render 3 frames of the pipeline's last state on the CPU, where
+    every wrapper runs its plain version; fail below 99.5% of values
+    within 1 LSB of the kernel frames."""
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    state = pipe.last_state
+    obj_from, obj_to = pipe.last_boxes
+    steps = [0.0, 0.5, 1.0]
+    fk = pipe.render_frames(state, obj_from, obj_to, steps)
+    cpu = KenBurnsPipeline(pipe.cfg, device='cpu')
+    t0 = time.perf_counter()
+    fp = cpu.render_frames(state.to('cpu'), obj_from, obj_to, steps)
+    diff = np.abs(fk.astype(np.int32) - fp.astype(np.int32))
+    close = float((diff <= 1).mean())
+    print(f'[{tag}] frames, kernel vs plain (CPU, '
+          f'{time.perf_counter() - t0:.1f} s): {close:.5f} of values within '
+          f'1 LSB, max diff {int(diff.max())}, mean {diff.mean():.4f}',
+          flush=True)
+    if close < 0.995:
+        fail(f'{tag}: only {close:.4f} of frame values within 1 LSB of the '
+             f'plain versions')
+
+
+def require_launches(tag, launches, names) -> None:
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        fail(f'{tag}: kernels not launched: {missing}')
+
+
+def edged_nets(seed: int):
+    """The detector and refine nets that ``AnimeInsSeg(seed=seed)``
+    makes (random from the seed), with three small parts set so that the
+    instances have edges. Random weights alone put every mask over the
+    whole frame: the mask head's and the refine's logits sit near 0, and
+    sigmoid(0) = 0.5 > mask_thr 0.3. Here
+    - each level's dynamic-kernel conv (``rtm_kernel``) emits, at every
+      prior, the parameters of a mask MLP whose logit is
+      2 - 8 (|rx| + |ry|) in the relative coords: a diamond around the
+      prior, 0.36 * 8 * stride pixels in radius at det_size;
+    - one channel of the ISNet carries the coarse mask m from the input
+      to side 1 (conv_in and the input convs of stage1 and stage1d copy
+      it; their last decoder convs add 0 to it), and side 1 reads
+      20 m - 10, so the refine keeps the coarse mask where m > 0.46.
+    Every other weight stays random, and every conv runs at full width.
+    Returns (AnimeDetector, ISNetDIS), f32 on the CPU."""
+    from cartoonsegmentation_torch.models.isnet import ISNetDIS
+    from cartoonsegmentation_torch.models.rtmdet import AnimeDetector
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        det = AnimeDetector()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        isnet = ISNetDIS(in_ch=4)
+    # the 169 dynamic params: weights (8, 10), (8, 8), (1, 8) row-major,
+    # then biases 8, 8, 1; inputs rx, ry, then the 8 prototypes
+    w1, w2, w3 = torch.zeros(8, 10), torch.zeros(8, 8), torch.zeros(1, 8)
+    w1[0, 0], w1[1, 0], w1[2, 1], w1[3, 1] = 1.0, -1.0, 1.0, -1.0
+    w2[:4, :4] = torch.eye(4)
+    w3[0, :4] = -8.0
+    params = torch.cat([w1.flatten(), w2.flatten(), w3.flatten(),
+                        torch.zeros(16), torch.tensor([2.0])])
+    with torch.no_grad():
+        for conv in det.bbox_head.rtm_kernel:
+            conv.weight.zero_()
+            conv.bias.copy_(params)
+        conv = isnet.conv_in
+        conv.weight[0] = 0.0
+        conv.weight[0, 3, 1, 1] = 1.0
+        conv.bias[0] = 0.0
+        # stage1d's input is cat(up(hx2d), hx1): hx1's channel 0 is 64
+        for stage, ch in ((isnet.stage1, 0), (isnet.stage1d, 64)):
+            conv = stage.rebnconvin.conv_s1
+            conv.weight[0] = 0.0
+            conv.weight[0, ch, 1, 1] = 1.0
+            conv.bias[0] = 0.0
+            conv = stage.rebnconv1d.conv_s1
+            conv.weight[0] = 0.0
+            conv.bias[0] = 0.0
+        isnet.side1.weight.zero_()
+        isnet.side1.weight[0, 0, 1, 1] = 20.0
+        isnet.side1.bias.fill_(-10.0)
+    return det, isnet
+
+
+def compare_detector(img, det_net, device: str = 'cuda') -> None:
+    """The detector in f32 on the card and on the CPU with the same
+    weights (``det_net``) on the same image. Fails unless the head maps
+    agree within 1e-4 of each map's range (f32 convs, cuDNN against
+    oneDNN); the CPU postprocess of the card's head maps gives the
+    card's validity and boxes exactly, its scores within 1e-6 and
+    >= 99.9% of its mask pixels; and the whole detector on the CPU gives
+    the card's validity exactly, its boxes within 1e-3 px (the same
+    kept candidates; the box regression differs by ulps) and >= 99.9%
+    of its mask pixels."""
+    from cartoonsegmentation_torch.models.rtmdet import postprocess
+    from cartoonsegmentation_torch.pipeline.segment import (
+        AnimeInsSeg, normalize_canvas)
+    cpu = AnimeInsSeg(dtype='float32', device='cpu')
+    gpu = AnimeInsSeg(dtype='float32', device=device)
+    cpu.model, gpu.model = copy.deepcopy(det_net), copy.deepcopy(det_net)
+    x, _, _ = gpu._preprocess(img)
+    kw = dict(score_thr=0.0, mask_thr=gpu.mask_thr, pre_topk=512,
+              max_det=gpu.max_instances, input_h=gpu.det_size,
+              input_w=gpu.det_size)
+    heads = {}
+    with torch.inference_mode():
+        for tag, seg in (('card', gpu), ('cpu', cpu)):
+            net = seg._net()
+            inp = normalize_canvas(torch.from_numpy(x).to(seg.device))
+            t0 = time.perf_counter()
+            heads[tag] = net(inp.permute(0, 3, 1, 2).contiguous())
+            if seg.device.type == 'cuda':
+                torch.cuda.synchronize()
+            print(f'[detector f32] {tag} forward '
+                  f'{time.perf_counter() - t0:.3f} s', flush=True)
+        flat_g = [t for group in heads['card'] for t in
+                  (group if isinstance(group, tuple) else (group,))]
+        flat_c = [t for group in heads['cpu'] for t in
+                  (group if isinstance(group, tuple) else (group,))]
+        rel = max(float((g.cpu() - c).abs().max()
+                        / c.abs().max().clamp(min=1e-30))
+                  for g, c in zip(flat_g, flat_c))
+        card = postprocess(*heads['card'], **kw)
+        on_cpu = postprocess(*[tuple(t.cpu() for t in h)
+                               if isinstance(h, tuple) else h.cpu()
+                               for h in heads['card']], **kw)
+        all_cpu = postprocess(*heads['cpu'], **kw)
+    card = {k: v.cpu() for k, v in card.items()}
+    keep_same = all(torch.equal(card[k], on_cpu[k])
+                    for k in ('valid', 'bboxes'))
+    mask_same = float((card['masks'] == on_cpu['masks']).float().mean())
+    score_err = float((card['scores'] - on_cpu['scores']).abs().max())
+    full_keep = int((card['valid'] == all_cpu['valid']).sum())
+    full_box = float((card['bboxes'] - all_cpu['bboxes']).abs().max())
+    full_mask = float((card['masks'] == all_cpu['masks']).float().mean())
+    area = float(card['masks'][card['valid']].float().mean())
+    n = card['valid'].numel()
+    print(f'[detector f32] head maps: max |card - cpu| / range {rel:.3g}; '
+          f'postprocess of the same maps: keep set and boxes '
+          f'{"exact" if keep_same else "DIFFER"}, scores max err '
+          f'{score_err:.3g}, masks equal {mask_same:.6f}, '
+          f'{int(card["valid"].sum())} valid (mean mask area {area:.4f}); '
+          f'whole detector on the CPU: {full_keep}/{n} validity equal, '
+          f'boxes max diff {full_box:.3g} px, masks equal {full_mask:.6f}',
+          flush=True)
+    if rel > 1e-4:
+        fail(f'detector head maps differ by {rel:.3g} of their range')
+    if not keep_same or mask_same < 0.999 or score_err > 1e-6:
+        fail('the card postprocess differs from the CPU plain one on the '
+             'same head maps')
+    if full_keep < n or full_box > 1e-3 or full_mask < 0.999:
+        fail('the detector on the card differs from the detector on the '
+             'CPU')
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
     ap.add_argument('--seed', type=int, default=0)
@@ -317,102 +673,89 @@ def main() -> None:
     # 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     _cuda.build(verbose=True)
-    print(f'[build] 4 kernels in {time.perf_counter() - t0:.1f} s',
-          flush=True)
+    print(f'[build] {len(_cuda.KERNELS)} kernel libraries in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
 
     # 2. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
     res = check_kernels(dev, gen)
-
-    # 3. the main path --------------------------------------------------
     img = make_image(args.seed)
-    cfg = KenBurnsConfig(detector='none')
-    pipe = KenBurnsPipeline(cfg, seed=args.seed, device='cuda')
-    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
-    try:
-        video = os.path.join(tmp, 'smoke.mp4')
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        frames = pipe.run(img, video)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_cuda.LAUNCHES)
-        size = os.path.getsize(pipe.last_video_path)
-        print(f'[video] {pipe.last_video_path} ({size} bytes)',
-              flush=True)
-        if pipe.last_video_path.endswith('.yuv'):
-            print('[video] cv2 is missing: the clip was written as the raw '
-                  'I420 stream, not an mp4', flush=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(pipe.timer.report(), flush=True)
-    render_s = pipe.timer.seconds['render_stream+encode']
-    print(f'[run] {len(frames)} frames in {wall:.2f} s '
-          f'(render+stream+encode {render_s:.2f} s, '
-          f'{len(frames) / render_s:.2f} fps); launches {launches}',
-          flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        fail(f'kernels not launched on the main path: {missing}')
-    if frames.shape != (cfg.num_frame, H, W, 3) or frames.dtype != np.uint8:
-        fail(f'frames are {frames.shape} {frames.dtype}')
-    if frames.std() < 5 or not 5 < frames.mean() < 250:
-        fail(f'frames look blank (mean {frames.mean():.1f}, std '
-             f'{frames.std():.1f})')
 
-    # 4. kernel frames against the plain versions on the CPU ---------------
+    # 3. the first slice's path: the detector-free clip -------------------
+    free = KenBurnsPipeline(KenBurnsConfig(detector='none'), seed=args.seed,
+                            device='cuda')
+    launches = run_clip(free, img, 'detector-free')
+    require_launches('detector-free', launches,
+                     ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian',
+                      'median5', 'laplacian'))
+    compare_frames(free, 'detector-free')
+    del free
+
+    # 4. the main path: the shipped default, detector and refine on --------
+    cfg = KenBurnsConfig()
+    pipe = KenBurnsPipeline(cfg, seed=args.seed, device='cuda')
+    det_net, isnet = edged_nets(args.seed)
+    pipe.ensure_detector()
+    pipe._detector.model = copy.deepcopy(det_net)
+    pipe._detector.refine.net = isnet
+    launches = run_clip(pipe, img, 'main')
+    require_launches('main', launches, _cuda.KERNELS)
+    ins = pipe.last_state.instances
+    n_valid = int(ins.count())
+    nonempty = int((ins.masks.any((1, 2)) & ins.valid).sum())
+    areas = ins.masks[ins.valid].float().mean((1, 2)) if n_valid \
+        else torch.zeros(1)
+    disp = pipe.last_state.disparity
+    spread = float(disp.std() / disp.abs().max())
+    print(f'[main] instances: {n_valid} valid, {nonempty} with a non-empty '
+          f'mask, areas (share of the frame) mean {float(areas.mean()):.4f} '
+          f'min {float(areas.min()):.4f} max {float(areas.max()):.4f}; '
+          f'disparity std / max {spread:.4f}', flush=True)
+    if nonempty == 0 or not float(areas.mean()) < 0.5:
+        fail('the detector gave no instance with a non-empty mask with '
+             'edges: K6 and the instance depth adjustment did no real work')
+    if spread < 1e-3:
+        fail('the adjusted disparity is flat')
+
+    # 5. kernel frames against the plain versions on the CPU ---------------
+    compare_frames(pipe, 'main')
     state = pipe.last_state
     obj_from, obj_to = pipe.last_boxes
-    steps = [0.0, 0.5, 1.0]
-    fk = pipe.render_frames(state, obj_from, obj_to, steps)
-    cpu = KenBurnsPipeline(cfg, seed=args.seed, device='cpu')
-    t0 = time.perf_counter()
-    fp = cpu.render_frames(state.to('cpu'), obj_from, obj_to, steps)
-    diff = np.abs(fk.astype(np.int32) - fp.astype(np.int32))
-    close = float((diff <= 1).mean())
-    print(f'[frames] kernel vs plain (CPU, {time.perf_counter() - t0:.1f} '
-          f's): {close:.5f} of values within 1 LSB, max diff '
-          f'{int(diff.max())}, mean {diff.mean():.4f}', flush=True)
-    if close < 0.995:
-        fail(f'only {close:.4f} of frame values within 1 LSB of the plain '
-             f'versions')
 
-    # 5. the same clip again, warm, and where the frame loop's time goes
-    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
-    try:
-        pipe.timer.reset()
-        t0 = time.perf_counter()
-        pipe.run(img, os.path.join(tmp, 'warm.mp4'))
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f'[warm] the same clip again: {warm:.3f} s\n'
-          f'{pipe.timer.report()}', flush=True)
+    # 6. the detector in f32, card against CPU ----------------------------
+    compare_detector(img, det_net)
+
+    # 7. the main path again, warm, and where the frame loop's time goes
+    pipe.timer.reset()
+    run_clip(pipe, img, 'warm')
     profile_frame_loop(pipe, state, obj_from, obj_to)
 
-    # 6. report ---------------------------------------------------------
+    # 8. report ---------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
-    tpu = 'cartoonsegmentation_tpu/ops/'
+    tpu = 'cartoonsegmentation_tpu/'
     c68 = res['splat_c68']
     rows = [
         # the frame loop's C = 4; the Inpaint net's C = 68 beside it
-        ('splat', res['splat_c4'], 'pointcloud.py:121',
+        ('splat', res['splat_c4'], 'ops/pointcloud.py:121',
          {f'{k}_c68': c68[k] for k in ('max_abs_err', 'ms', 'plain_ms',
                                        'bound_ms')}),
-        ('coverage', res['coverage'], 'pointcloud.py:226', {}),
-        ('discfill', res['discfill'], 'discfill3.py:90', {}),
-        ('bokeh', res['bokeh'], 'bokeh.py:253', {}),
+        ('coverage', res['coverage'], 'ops/pointcloud.py:226', {}),
+        ('discfill', res['discfill'], 'ops/discfill3.py:90', {}),
+        ('bokeh', res['bokeh'], 'ops/bokeh.py:253', {}),
+        ('insmedian', res['insmedian'], 'pipeline/depth.py:67', {}),
+        ('median5', res['median5'], 'ops/filters.py:42', {}),
+        ('laplacian', res['laplacian'], 'ops/filters.py:26', {}),
+        ('nms', res['nms'], 'models/rtmdet.py:194', {}),
+        ('maskhead', res['maskhead'], 'models/rtmdet.py:222', {}),
     ]
     kernels = []
     for name, r, where, extra in rows:
-        # no single PyTorch call computes any of these functions
-        kernels.append(dict(
-            name=name, route='cuda', source=f'{src}{name}.cu',
-            replaces=f'{tpu}{where}', launches=launches[name],
-            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
-            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
-            **extra))
+        # one PyTorch call computes the laplacian (a convolution); none
+        # computes any of the other functions
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': f'{src}{name}.cu',
+            'replaces': f'{tpu}{where}', 'launches': launches[name],
+            'library_ms': None, **r, **extra})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

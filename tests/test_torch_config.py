@@ -84,7 +84,8 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
 
 
 @pytest.mark.parametrize('kw', [
-    {'detector': 'animeinsseg'}, {'detector': 'sam'},
+    {'detector': 'animeinsseg', 'refine_method': 'animeseg'},
+    {'detector': 'sam'}, {'detector': 'maskrcnn'},
     {'detector': 'none', 'depth_est': 'zoe'},
     {'detector': 'none', 'default_depth_refine': True},
     {'detector': 'none', 'refine_crf': True},
@@ -101,3 +102,23 @@ def test_shipped_default_with_detector_off_is_supported():
     pipe = KenBurnsPipeline(cfg, device='cpu')
     pipe.ensure_detector()
     assert pipe.conv_dtype == torch.float32      # 'auto' on the CPU
+
+
+def test_shipped_default_with_detector_on_is_supported():
+    """The shipped default: AnimeInsSeg with the ISNet refine, made
+    lazily on the pipeline's device with the config's sizes."""
+    from cartoonsegmentation_torch.pipeline.refine import ISNetRefiner
+    from cartoonsegmentation_torch.pipeline.segment import AnimeInsSeg
+    cfg = tconfig.KenBurnsConfig()
+    assert (cfg.detector, cfg.refine_method) == ('animeinsseg',
+                                                 'refinenet_isnet')
+    pipe = KenBurnsPipeline(cfg, device='cpu')
+    pipe.ensure_detector()
+    det = pipe._detector
+    assert isinstance(det, AnimeInsSeg) and isinstance(det.refine,
+                                                       ISNetRefiner)
+    assert (det.det_size, det.max_instances, det.refine.refine_size) == \
+        (640, 100, 720)
+    assert det.device.type == det.refine.device.type == 'cpu'
+    pipe.set_detector('none')
+    assert pipe._detector is None

@@ -6,17 +6,22 @@ package, so it also runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output.
-Within the stated tolerance: splat sums and bokeh.
+Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output,
+the per-instance medians (K6), the median-5 and laplacian (K7) and the
+NMS keep sets (K8). Within the stated tolerance: splat sums, bokeh and
+the dynamic mask heads (K9).
 """
 import numpy as np
 import pytest
 import torch
 
+from cartoonsegmentation_torch.models import rtmdet as trtmdet
 from cartoonsegmentation_torch.ops import _cuda
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
+from cartoonsegmentation_torch.ops import filters as tfilters
 from cartoonsegmentation_torch.ops import pointcloud as tpc
+from cartoonsegmentation_torch.pipeline import depth as tdepth
 
 
 @pytest.fixture
@@ -98,6 +103,88 @@ def test_bokeh_kernel_vs_plain(rng, cuda):
                                rtol=0, atol=1e-4)
 
 
+def _instance_masks(rng, N, H, W):
+    """Discs of several sizes, an empty valid mask (slot 2) and invalid
+    slots (from slot N - 3 on) with masks that must not be counted."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    masks = np.zeros((N, H, W), bool)
+    for n in range(N):
+        cx, cy, r = rng.uniform(0, W), rng.uniform(0, H), rng.uniform(3, H)
+        masks[n] = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+    masks[2] = False
+    valid = np.ones((N,), bool)
+    valid[N - 3:] = False
+    return masks, valid
+
+
+@pytest.mark.gpu
+def test_masked_median_kernel_vs_plain(rng, cuda):
+    H, W, N = 72, 130, 12
+    masks, valid = _instance_masks(rng, N, H, W)
+    vals = torch.from_numpy(rng.rand(H, W).astype(np.float32) * 255)
+    args = [torch.from_numpy(a).to(cuda) for a in (masks, valid)]
+    got = tdepth.masked_median_u8(vals.to(cuda), *args)
+    want = tdepth.masked_median_u8_plain(vals.to(cuda), *args)
+    assert torch.equal(got, want)
+    assert torch.isinf(got[2]) and torch.isfinite(got[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shape', [(1, 45, 77, 1), (2, 9, 35, 3)])
+def test_filter_kernels_vs_plain(rng, cuda, shape):
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    x[..., :5, :, :] = (x[..., :5, :, :] > 0.5).float()   # ties, as masks
+    assert torch.equal(tfilters.median_filter(x, 5),
+                       tfilters.median_filter_plain(x, 5))
+    assert torch.equal(tfilters.laplacian_filter(x),
+                       tfilters.laplacian_filter_plain(x))
+
+
+def _nms_case(rng, K):
+    """Clusters of heavily overlapping boxes, exact duplicates and tied
+    scores (bf16-valued, as the detector's heads give on the card)."""
+    centres = rng.uniform(0, 200, (K // 8 + 1, 2))
+    c = centres[rng.randint(0, len(centres), K)] + rng.randn(K, 2) * 3
+    wh = rng.uniform(10, 40, (K, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+    boxes[K // 2:K // 2 + 5] = boxes[K // 2]
+    scores = torch.from_numpy(rng.rand(K).astype(np.float32)).bfloat16()
+    return torch.from_numpy(boxes), scores.float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [512, 97])
+def test_nms_kernel_vs_plain(rng, cuda, K):
+    boxes, scores = _nms_case(rng, K)
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    for max_out in (K, 100):
+        ki, km = trtmdet.nms_fixed(boxes, scores, 0.6, max_out)
+        pi, pm = trtmdet.nms_fixed_plain(boxes, scores, 0.6, max_out)
+        assert torch.equal(ki, pi) and torch.equal(km, pm)
+    kept = int(trtmdet.nms_fixed(boxes, scores, 0.6, K)[1].sum())
+    assert 0 < kept < K
+
+
+@pytest.mark.gpu
+def test_mask_heads_kernel_vs_plain(rng, cuda):
+    N, h, w = 9, 20, 24
+    feat = torch.from_numpy(rng.randn(h, w, 8).astype(np.float32)).to(cuda)
+    kern = torch.from_numpy(rng.randn(N, 169).astype(np.float32)).to(cuda)
+    priors = torch.from_numpy(
+        rng.randint(0, 24, (N, 2)).astype(np.float32) * 8).to(cuda)
+    strides = torch.from_numpy(
+        rng.choice([8.0, 16.0, 32.0], N).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(N) < 0.7).to(cuda)
+    mk, pk = trtmdet.dynamic_masks(feat, kern, priors, strides, valid,
+                                   8 * h, 8 * w, 0.3)
+    mp, pp = trtmdet.dynamic_masks_plain(feat, kern, priors, strides, valid,
+                                         8 * h, 8 * w, 0.3)
+    # the same sums in the same order; the resample may differ from
+    # torch's by the FMA contraction of its kernel
+    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-6)
+    assert float((mk == mp).float().mean()) >= 0.9999
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_check_inputs(rng, cuda):
     _cuda.reset_launches()
@@ -125,6 +212,16 @@ def test_wrappers_take_the_plain_version_only_on_cpu(rng, monkeypatch):
     img, depth = _holes(rng, 26, 34)
     tdiscfill3.fill_disocclusion(img, depth)
     tbokeh.bokeh_core(img[..., :3].contiguous(), depth * 1e-4, 13.0, 8)
+    masks, valid = _instance_masks(rng, 5, 26, 34)
+    tdepth.masked_median_u8(depth * 100, torch.from_numpy(masks),
+                            torch.from_numpy(valid))
+    tfilters.median_filter(img[..., :1], 5)
+    tfilters.laplacian_filter(img[..., :1])
+    boxes, scores = _nms_case(rng, 40)
+    trtmdet.nms_fixed(boxes, scores, 0.6, 10)
+    trtmdet.dynamic_masks(torch.zeros((4, 5, 8)), torch.zeros((3, 169)),
+                          torch.zeros((3, 2)), torch.ones((3,)),
+                          torch.ones((3,), dtype=torch.bool), 32, 40, 0.3)
     assert _cuda.LAUNCHES == before
 
 

@@ -166,3 +166,32 @@ def test_leres_key_names_round_trip(leres_vars):
     for k, v in sd.items():
         if not k.endswith('num_batches_tracked'):
             assert torch.equal(back[k], v), k
+
+
+def test_cspnext_backbone_and_neck_vs_flax(rng):
+    """The detector's trunk alone (CSPNeXt at deepen 0.33 / widen 0.25,
+    then the PAFPN) on an all-negative input, so SPP's max pools must
+    pad with -inf as Flax does: f32 convs within 1e-5 of each level's
+    range."""
+    from cartoonsegmentation_tpu.models.convert_rtmdet import convert_rtmdet
+    from cartoonsegmentation_tpu.models.cspnext import CSPNeXt as JCSPNeXt
+    from cartoonsegmentation_tpu.models.cspnext import \
+        CSPNeXtPAFPN as JPAFPN
+    from cartoonsegmentation_torch.models.rtmdet import AnimeDetector
+    from test_torch_detector import randomize
+    port = randomize(AnimeDetector(0.33, 0.25), 5)
+    v = convert_rtmdet({k: t.numpy() for k, t in port.state_dict().items()},
+                       0.33, 0.25)
+    x = -np.abs(rng.randn(1, 96, 64, 3)).astype(np.float32)
+
+    def sub(name):
+        return {c: v[c][name] for c in ('params', 'batch_stats')}
+    feats = JCSPNeXt(0.33, 0.25).apply(sub('backbone'), jnp.asarray(x))
+    neck = JPAFPN((64, 128, 256), 64, 1).apply(sub('neck'), feats)
+    with torch.no_grad():
+        tfeats = port.backbone(torch.from_numpy(x).permute(0, 3, 1, 2))
+        tneck = port.neck(tfeats)
+    for got, want in zip(list(tfeats) + list(tneck), list(feats) + list(neck)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                                   rtol=0, atol=1e-5 * np.abs(want).max())

@@ -34,6 +34,7 @@ from cartoonsegmentation_torch.ops import pointcloud as tpc
 from cartoonsegmentation_torch.pipeline import depth as tdepth
 from cartoonsegmentation_torch.pipeline.state import PointCloud as TCloud
 from cartoonsegmentation_torch.utils import image as timage
+from test_torch_kernels import _instance_masks
 from oracles import (oracle_bokeh_pass, oracle_fill_disocclusion,
                      oracle_render_pointcloud)
 
@@ -462,3 +463,100 @@ def test_append_masked_vs_jax(rng):
                                       _np(getattr(jc, k)))
     np.testing.assert_array_equal(tc.shrink_to(64).points.numpy(),
                                   _np(jc.shrink_to(64).points))
+
+
+# ---------------------------------------------------------------------------
+# detector slice: K6 and K7 at more shapes, the uint8 resize, Instances
+# ---------------------------------------------------------------------------
+
+def test_masked_median_u8_real_masks_vs_jax(rng):
+    """K6's plain version on the focal plane's input: a colorized depth
+    with whole-number and half-way values (round half to even), disc
+    masks, an empty valid mask and invalid slots; exact."""
+    H, W, N = 57, 83, 9
+    vals = np.round(rng.rand(H, W) * 510).astype(np.float32) / 2
+    masks, valid = _instance_masks(rng, N, H, W)
+    got = tdepth.masked_median_u8(_t(vals), _t(masks), _t(valid)).numpy()
+    want = _np(jdepth.masked_median_u8(jnp.asarray(vals), jnp.asarray(masks),
+                                       jnp.asarray(valid)))
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got[2]) and np.isinf(got[-1]) and np.isfinite(got[0])
+
+
+@pytest.mark.parametrize('shape', [(1, 7, 5, 1), (33, 21, 2), (2, 13, 9, 3)])
+def test_filters_odd_sizes_vs_jax(rng, shape):
+    """K7's plain versions at odd sizes, small enough that the reflect
+    and replicate halos meet; the median exact, the laplacian exact
+    (the same subtractions in the same order)."""
+    x = rng.rand(*shape).astype(np.float32)
+    x[..., :2, :, :] = np.round(x[..., :2, :, :])
+    np.testing.assert_array_equal(
+        tfilters.median_filter(_t(x), 5).numpy(),
+        _np(jfilters.median_filter(jnp.asarray(x), 5)))
+    np.testing.assert_array_equal(
+        tfilters.laplacian_filter(_t(x)).numpy(),
+        _np(jfilters.laplacian_filter(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize('src,dst', [((1440, 2560), (576, 1024)),
+                                     ((400, 300), (640, 480)),
+                                     ((37, 53), (80, 120)),
+                                     ((1280, 720), (640, 360)),
+                                     ((90, 60), (90, 41))])
+def test_resize_linear_u8_matches_cv2(rng, src, dst):
+    """cv2.INTER_LINEAR on uint8 byte for byte: down, up, the exact 2x
+    area case and one axis only."""
+    cv2 = pytest.importorskip('cv2')
+    img = rng.randint(0, 256, src + (3,)).astype(np.uint8)
+    want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_array_equal(timage.resize_linear_u8(img, *dst), want)
+    np.testing.assert_array_equal(
+        timage.resize_linear_u8(torch.from_numpy(img[..., 0]), *dst).numpy(),
+        want[..., 0])
+
+
+def test_scaledown_maxsize_without_cv2_matches_cv2(rng, monkeypatch):
+    """A 1440x2560 frame down to max_size 1024 where cv2 is missing (the
+    card's machine): the JAX package's cv2.resize bytes."""
+    cv2 = pytest.importorskip('cv2')
+    img = rng.randint(0, 256, (1440, 2560, 3)).astype(np.uint8)
+    want = jimage.scaledown_maxsize(img, 1024)
+    assert want.shape == (576, 1024, 3)
+    monkeypatch.setattr(timage, '_cv2', lambda: None)
+    np.testing.assert_array_equal(timage.scaledown_maxsize(img, 1024), want)
+    np.testing.assert_array_equal(
+        want, cv2.resize(img, (1024, 576), interpolation=cv2.INTER_LINEAR))
+
+
+def _instance_pair(rng, N, H, W, n_valid):
+    from cartoonsegmentation_tpu.instances import Instances as JIns
+    from cartoonsegmentation_torch.instances import Instances as TIns
+    masks, _ = _instance_masks(rng, n_valid, H, W)
+    masks[1] = masks[0]                   # a duplicate of the first
+    boxes = np.abs(rng.randn(n_valid, 4) * 20).astype(np.float32)
+    scores = rng.rand(n_valid).astype(np.float32)
+    return (TIns.from_numpy(masks, boxes, scores, capacity=N),
+            JIns.from_numpy(masks, boxes, scores, capacity=N))
+
+
+@pytest.mark.parametrize('hw', [(96, 150), (21, 37), (40, 150)])
+def test_instances_resize_vs_jax(rng, hw):
+    """Up (nearest, exact), down (antialiased linear: >= 99.5% of mask
+    pixels, the rest at the 0.3 threshold) and mixed; boxes exactly."""
+    ti, ji = _instance_pair(rng, 6, 48, 75, 4)
+    got, want = ti.resize(*hw), jax.device_get(ji.resize(*hw))
+    np.testing.assert_array_equal(got.bboxes.numpy(), want.bboxes)
+    same = float((got.masks.numpy() == want.masks).mean())
+    if hw[0] >= 48 and hw[1] >= 75:
+        assert same == 1.0
+    assert same >= 0.995, same
+    assert ti.resize(48, 75) is ti
+
+
+def test_remove_duplicated_vs_jax(rng):
+    ti, ji = _instance_pair(rng, 7, 40, 60, 5)
+    got, want = ti.remove_duplicated(), jax.device_get(ji.remove_duplicated())
+    for k in ('masks', 'bboxes', 'scores', 'valid'):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      getattr(want, k))
+    assert int(got.count()) < int(ti.count())
