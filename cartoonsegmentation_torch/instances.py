@@ -1,5 +1,5 @@
 """Fixed-capacity instance container (port of
-``cartoonsegmentation_tpu/instances.py``; ``draw`` is not ported).
+``cartoonsegmentation_tpu/instances.py``, ``draw`` included).
 
 Masks (N, H, W) bool, boxes (N, 4) xywh, scores (N,), valid (N,);
 invalid slots are all-zero and masked out by ``valid``.
@@ -7,11 +7,12 @@ invalid slots are all-zero and masked out by ``valid``.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .utils.constants import get_color
 from .utils.image import resize_bilinear_aa
 
 
@@ -133,6 +134,58 @@ class Instances:
                              dtype=torch.float32, device=self.bboxes.device)
         return self.replace(masks=(m > mask_thr) & self.valid[:, None, None],
                             bboxes=torch.round(self.bboxes * scale))
+
+    def draw(self, img: np.ndarray, draw_bbox: bool = True,
+             draw_ins_mask: bool = True, tags: Optional[List[str]] = None,
+             mask_alpha: float = 0.75,
+             draw_contour: bool = False) -> np.ndarray:
+        """Host-side visualisation with cv2 (imported here): boxes,
+        translucent masks, optional contours and tags, in the JAX
+        version's order and f32 arithmetic. Parity:
+        anime_instances.py:131-194 (draw_instances)."""
+        import cv2
+        masks = self.masks.cpu().numpy()
+        bboxes = self.bboxes.cpu().numpy()
+        valid = self.valid.cpu().numpy()
+
+        drawed = img.copy()
+        im_h, im_w = img.shape[:2]
+        mh, mw = masks.shape[1:3]
+        if (mh, mw) != (im_h, im_w):
+            drawed = cv2.resize(drawed, (mw, mh), interpolation=cv2.INTER_AREA)
+
+        idxs = [i for i in range(len(valid)) if valid[i]]
+        if draw_bbox:
+            lw = max(round(sum(drawed.shape) / 2 * 0.003), 2)
+            for i in idxs:
+                x, y, w, h = bboxes[i]
+                p1, p2 = (int(x), int(y)), (int(x + w), int(y + h))
+                cv2.rectangle(drawed, p1, p2, get_color(i), thickness=lw,
+                              lineType=cv2.LINE_AA)
+        if draw_ins_mask:
+            drawed = drawed.astype(np.float32)
+            for i in idxs:
+                color = np.array(get_color(i), np.float32)
+                a = (mask_alpha * masks[i].astype(np.float32))[..., None]
+                drawed = drawed * (1 - a) + a * color
+            drawed = drawed.astype(np.uint8)
+        if draw_contour:
+            lw = max(round(sum(drawed.shape) / 2 * 0.002), 2)
+            for i in idxs:
+                cs, _ = cv2.findContours(
+                    masks[i].astype(np.uint8), cv2.RETR_EXTERNAL,
+                    cv2.CHAIN_APPROX_SIMPLE)
+                cv2.drawContours(drawed, cs, -1, get_color(i),
+                                 thickness=lw, lineType=cv2.LINE_AA)
+        if tags:
+            lw = max(round(sum(drawed.shape) / 2 * 0.002), 2)
+            for i in idxs:
+                if i < len(tags) and tags[i]:
+                    x, y = int(bboxes[i][0]), int(bboxes[i][1]) + 14
+                    cv2.putText(drawed, tags[i][:60], (x, y), 0, lw / 3,
+                                get_color(i), thickness=max(lw - 1, 1),
+                                lineType=cv2.LINE_AA)
+        return drawed
 
 
 def _nearest_src(n_in: int, n_out: int) -> np.ndarray:

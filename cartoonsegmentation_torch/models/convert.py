@@ -1,18 +1,21 @@
 """Carry the JAX package's Flax parameter trees into the port.
 
-``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax`` and
-``isnet_from_flax`` turn a Flax tree (numpy arrays, or anything
-``np.asarray`` takes) into a ``state_dict`` of the port's ``Inpaint``,
-``LeReS``, ``AnimeDetector`` and ``ISNetDIS``. Each walks the port
-module's own keys and looks up the Flax path that the JAX package's
-converters (``models/convert.py:convert_inpaint``, ``models/leres.py:
-convert_leres``, ``models/convert_rtmdet.py:convert_rtmdet``,
-``models/isnet.py:convert_isnet``) write for that checkpoint key, so
-the two directions stay inverse to each other.
+``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax``,
+``isnet_from_flax`` and ``sam_from_flax`` turn a Flax tree (numpy
+arrays, or anything ``np.asarray`` takes) into a ``state_dict`` of the
+port's ``Inpaint``, ``LeReS``, ``AnimeDetector``, ``ISNetDIS`` and
+``SAM``. Each walks the port module's own keys and looks up the Flax
+path that the JAX package's converters (``models/convert.py:
+convert_inpaint``, ``models/leres.py:convert_leres``,
+``models/convert_rtmdet.py:convert_rtmdet``, ``models/isnet.py:
+convert_isnet``, ``models/sam.py:convert_sam``) write for that
+checkpoint key, so the two directions stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
-PReLU 'alpha' → weight; BatchNorm scale/bias → weight/bias and
-batch_stats mean/var → running_mean/running_var.
+Dense kernel (in, out) → Linear (out, in); ConvTranspose kernel →
+torch (in, out, kh, kw) flipped; PReLU 'alpha' → weight; BatchNorm
+scale/bias → weight/bias and batch_stats mean/var →
+running_mean/running_var.
 """
 from __future__ import annotations
 
@@ -279,3 +282,130 @@ def isnet_from_flax(variables: Mapping, module: Optional[nn.Module] = None
     from .isnet import ISNetDIS
     module = module or ISNetDIS(in_ch=4)
     return _from_flax(module, variables, isnet_flax_path)
+
+
+# ---------------------------------------------------------------------------
+# SAM
+# ---------------------------------------------------------------------------
+
+def _lin(a: np.ndarray) -> np.ndarray:          # Dense (in, out) → (out, in)
+    return a.T
+
+
+def _conv(a: np.ndarray) -> np.ndarray:         # (kh, kw, in, out)
+    return a.transpose(3, 2, 0, 1)
+
+
+def _deconv(a: np.ndarray) -> np.ndarray:
+    """Flax ConvTranspose kernel → torch (in, out, kh, kw): the inverse
+    of the JAX ``deconv_w`` (layout and spatial flip)."""
+    return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
+
+
+_SAM_LEAF = {'weight': ('kernel', _lin), 'bias': ('bias', _same)}
+_SAM_LN = {'weight': ('scale', _same), 'bias': ('bias', _same)}
+
+
+def sam_flax_path(key: str):
+    """(Flax path under 'params', layout function) of one ``SAM``
+    state_dict key, or None for the keys the box path never reads (the
+    prompt encoder's mask branch and not-a-point embedding)."""
+    parts = key.split('.')
+    top, rest = parts[0], parts[1:]
+    if top == 'image_encoder':
+        pre = ('image_encoder',)
+        if rest[0] == 'pos_embed':
+            return pre + ('pos_embed',), _same
+        if rest[0] == 'patch_embed':
+            leaf = rest[2]
+            return pre + ('patch_embed', 'kernel' if leaf == 'weight'
+                          else 'bias'), _conv if leaf == 'weight' else _same
+        if rest[0] == 'neck':
+            idx, leaf = rest[1], rest[2]
+            if idx in ('0', '2'):
+                return pre + (f'neck{idx}', 'kernel'), _conv
+            return pre + (f'neck{idx}', leaf), _same
+        blk = pre + (f'block{rest[1]}',)
+        sub = rest[2:]
+        if sub[0] in ('norm1', 'norm2'):
+            name, fn = _SAM_LN[sub[1]]
+            return blk + (sub[0], name), fn
+        if sub[0] == 'mlp':
+            name, fn = _SAM_LEAF[sub[2]]
+            return blk + (sub[1], name), fn
+        if sub[1] in ('rel_pos_h', 'rel_pos_w'):
+            return blk + ('attn', sub[1]), _same
+        name, fn = _SAM_LEAF[sub[2]]
+        return blk + ('attn', sub[1], name), fn
+    if top == 'prompt_encoder':
+        pre = ('prompt_encoder',)
+        if rest[0] == 'pe_layer':
+            return pre + ('pe_gauss',), _same
+        if rest[0] == 'point_embeddings':
+            i = int(rest[1])
+            return pre + ('point_embed',), lambda a: a[i:i + 1]
+        if rest[0] == 'no_mask_embed':
+            return pre + ('no_mask_embed',), lambda a: a[None]
+        return None
+    pre = ('mask_decoder',)
+    if rest[0] in ('iou_token', 'mask_tokens'):
+        return pre + (rest[0],), _same
+    if rest[0] == 'output_upscaling':
+        idx, leaf = rest[1], rest[2]
+        if idx == '1':
+            return pre + ('up_ln', leaf), _same
+        name = {'0': 'up0', '3': 'up1'}[idx]
+        return pre + (name, 'kernel' if leaf == 'weight' else 'bias'), \
+            _deconv if leaf == 'weight' else _same
+    if rest[0] in ('output_hypernetworks_mlps', 'iou_prediction_head'):
+        mod = f'hyper{rest[1]}' if rest[0] == 'output_hypernetworks_mlps' \
+            else 'iou_head'
+        j, leaf = rest[-2], rest[-1]
+        name, fn = _SAM_LEAF[leaf]
+        return pre + (mod, f'l{j}', name), fn
+    tr = pre + ('transformer',)                     # transformer.*
+    sub = rest[1:]
+    if sub[0] == 'norm_final_attn':
+        name, fn = _SAM_LN[sub[1]]
+        return tr + ('norm_final_attn', name), fn
+    if sub[0] == 'final_attn_token_to_image':
+        name, fn = _SAM_LEAF[sub[2]]
+        return tr + (sub[0], sub[1], name), fn
+    layer = tr + (f'layer{sub[1]}',)
+    sub = sub[2:]
+    if sub[0].startswith('norm'):
+        name, fn = _SAM_LN[sub[1]]
+        return layer + (sub[0], name), fn
+    if sub[0] == 'mlp':
+        name, fn = _SAM_LEAF[sub[2]]
+        return layer + (sub[1], name), fn
+    name, fn = _SAM_LEAF[sub[2]]
+    return layer + (sub[0], sub[1], name), fn
+
+
+def sam_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Flax ``SAM`` variables ({'params': ...}) → the port's ``SAM``
+    state_dict, whose keys are the official checkpoint's (``module``
+    defaults to ViT-B at 1024)."""
+    from .sam import sam_vit_b
+    module = module or sam_vit_b()
+    params = variables['params']
+    out = {}
+    for k, v in module.state_dict().items():
+        loc = sam_flax_path(k)
+        if loc is None:
+            out[k] = v.clone()
+            continue
+        path, fn = loc
+        arr = np.ascontiguousarray(fn(_fetch(params, path)))
+        t = torch.from_numpy(arr)
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '
+                             f'{tuple(v.shape)}')
+        out[k] = t.to(v.dtype)
+    return out

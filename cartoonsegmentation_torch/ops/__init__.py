@@ -1,4 +1,8 @@
-"""Tensor ops of the port. The four hand-written CUDA kernels sit
-behind wrappers that run their plain PyTorch version for CPU tensors:
-K1 ``pointcloud.splat``, K2 ``pointcloud.coverage``, K3
-``discfill3.fill_disocclusion``, K4 ``bokeh.bokeh_core``."""
+"""Tensor ops of the port. Hand-written CUDA kernels (``csrc/*.cu``,
+built by ``_cuda.py``) sit behind wrappers that run their plain
+PyTorch version for CPU tensors: here K1 ``pointcloud.splat``, K2
+``pointcloud.coverage``, K3 ``discfill3.fill_disocclusion``, K4
+``bokeh.bokeh_core`` and K7 ``filters.median_filter`` /
+``laplacian_filter``; elsewhere K5a ``utils/image.py:frame_epilogue``,
+K5b and K6 in ``pipeline/depth.py``, K8 and K9 in ``models/rtmdet.py``,
+K10 in ``pipeline/state.py`` and K15a in ``models/sam.py``."""

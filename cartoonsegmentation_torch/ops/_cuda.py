@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
-           'laplacian', 'nms', 'maskhead')
+           'laplacian', 'nms', 'maskhead', 'epilogue', 'colorize', 'compact',
+           'samattn')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
@@ -41,6 +42,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float
 
 

@@ -1,10 +1,12 @@
 """Depth post-processing (port of
 ``cartoonsegmentation_tpu/pipeline/depth.py``): instance-aware
-disparity adjustment, per-instance median (K6) and the gray_r colorize.
+disparity adjustment, per-instance median (K6) and the gray_r colorize
+(K5b).
 
 K6 ``masked_median_u8`` runs ``masked_median_u8_plain`` (a 256-bin
 histogram with ``index_put_``) for CPU tensors and
-``csrc/insmedian.cu`` for CUDA tensors; both are exact.
+``csrc/insmedian.cu`` for CUDA tensors; K5b ``colorize_gray_r`` runs
+``colorize_gray_r_plain`` or ``csrc/colorize.cu``. All are exact.
 """
 from __future__ import annotations
 
@@ -98,9 +100,33 @@ def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
     return out
 
 
-def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:
+def colorize_gray_r_plain(x: torch.Tensor) -> torch.Tensor:
     """Min-max normalise and invert to [0, 255] (the reference's
-    colorize(..., cmap='gray_r')[..., 0])."""
+    colorize(..., cmap='gray_r')[..., 0]); a true division by the
+    0-d span, as the JAX version's."""
     lo, hi = x.min(), x.max()
     norm = (x - lo) / (hi - lo).clamp(min=1e-12)
     return (1.0 - norm) * 255.0
+
+
+def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:
+    """K5b wrapper: the plain version on the CPU, csrc/colorize.cu on
+    CUDA, equal bit for bit. x (H, W) f32, read in place when it is one
+    channel of an interleaved buffer (the filled frame's depth) →
+    (H, W) f32, contiguous."""
+    if x.device.type == 'cpu':
+        return colorize_gray_r_plain(x)
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise TypeError(f'colorize_gray_r takes (H, W) float32, got '
+                        f'{tuple(x.shape)} {x.dtype}')
+    # one element stride over the whole map, or a contiguous copy
+    step = x.stride(1)
+    if x.stride(0) != step * x.shape[1] or step < 1:
+        x, step = x.contiguous(), 1
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    partials = torch.empty((2 * 264,), dtype=torch.float32, device=x.device)
+    p = _cuda.P
+    _cuda.launch('colorize', 'kb_colorize', [p, _cuda.LL, _cuda.I, p, p, p],
+                 x.data_ptr(), x.numel(), step, partials.data_ptr(),
+                 out.data_ptr(), _cuda.stream_ptr(x))
+    return out

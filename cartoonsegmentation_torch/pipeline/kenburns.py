@@ -5,11 +5,17 @@ The port runs the shipped default configuration: the AnimeInsSeg
 detector (RTMDet-Ins with kernels K8 NMS and K9 mask heads) with the
 ISNet refine, LeReS depth and the instance depth adjustment, autozoom's
 coverage search (kernel K2), two passes of the Inpaint net (whose
-forward splats with K1 and gates with the K7 median), the focal plane
-from the K6 per-instance median, and the frame loop (shift → K1 splat
-→ K3 fill → K4 bokeh → crop/resize → uint8 → I420 → video); the K7
-laplacian builds every validity mask. ``detector: none`` skips the
-detector. Paths this port does not run yet raise NotImplementedError.
+forward splats with K1 and gates with the K7 median), each appending
+to the cloud with the K10 compaction, the focal plane from the K6
+per-instance median, and the frame loop (shift → K1 splat → K3 fill →
+K5b colorize → K4 bokeh → K5a crop/resize/uint8/I420 → video); the K7
+laplacian builds every validity mask. ``detector: sam`` re-masks the
+AnimeInsSeg boxes with SAM (its encoder attention is K15a);
+``detector: none`` skips the detector. What the port does not run yet
+raises NotImplementedError: the maskrcnn detector, the animeseg
+refine, depth estimators other than LeReS, the depth refine net, the
+CRF, inpaint types other than 'default' (the sd-webui ``ldm`` of
+3dkenburns_sam.yaml among them) and ``discfill_mode: exact``.
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -41,7 +47,7 @@ from ..ops.discfill3 import fill_disocclusion
 from ..ops.filters import valid_depth_mask
 from ..ops.pointcloud import (depth_to_points, render_pointcloud,
                               shift_points, true_div)
-from ..utils.image import (bgr_to_i420, crop_center_resize, i420_to_bgr_host,
+from ..utils.image import (bgr_to_i420, frame_epilogue, i420_to_bgr_host,
                            resize_bilinear, resize_bilinear_aa,
                            scaledown_maxsize, scaledown_size)
 from ..utils.profiling import StageTimer
@@ -55,9 +61,9 @@ LOGGER = logging.getLogger('cartoonsegmentation_torch')
 def _check_supported(cfg: KenBurnsConfig) -> None:
     """Raise for the options this slice of the port does not run."""
     todo = []
-    if cfg.detector not in ('none', '', 'animeinsseg'):
+    if cfg.detector not in ('none', '', 'animeinsseg', 'sam'):
         todo.append(f"detector={cfg.detector!r} (only 'animeinsseg', "
-                    "'none')")
+                    "'sam', 'none')")
     if cfg.detector == 'animeinsseg' and \
             cfg.refine_method not in ('none', '', 'refinenet_isnet'):
         todo.append(f"refine_method={cfg.refine_method!r} (only "
@@ -121,12 +127,6 @@ class KenBurnsPipeline:
         _check_supported(self.cfg)
         self.device = resolve_device(device)
         self._seed = seed
-        if self.device.type == 'cuda':
-            # f32 convs (cfg.dtype='float32') run in true f32, as the
-            # JAX reference does; 'auto' runs them in bf16, where TF32
-            # does not apply
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         # nets are made from the seed at first use unless weights are
         # loaded first; tests may install smaller ones here
         self.inpaint_net: Optional[Inpaint] = None
@@ -178,26 +178,32 @@ class KenBurnsPipeline:
         net.load_state_dict(sd)
         self.leres_net = net
 
-    def load_detector_checkpoints(self, det: Optional[str] = None) -> None:
-        """Detector weights for the configured AnimeInsSeg (an mmdet
-        rtmdetl checkpoint)."""
+    def load_detector_checkpoints(self, det: Optional[str] = None,
+                                  sam: Optional[str] = None) -> None:
+        """Route detector weights to the configured family: animeinsseg
+        (an mmdet rtmdetl checkpoint) or sam (rtmdetl + an official
+        sam_vit_*.pth)."""
         self.ensure_detector()
-        if self._detector is None:
+        d = self._detector
+        if d is None:
             raise ValueError("no detector configured (cfg.detector is "
                              "'none')")
-        if det:
-            self._detector.load_torch_checkpoint(det)
+        from .sam import SamDetector
+        if isinstance(d, SamDetector):
+            d.load_torch_checkpoints(det_ckpt=det, sam_ckpt=sam)
+        elif det:
+            d.load_torch_checkpoint(det)
 
     def set_detector(self, detector) -> None:
-        """Install a detector name from the config ('animeinsseg' or
-        'none'), an AnimeInsSeg, or any img → Instances callable with an
-        ``infer(img, pred_score_thr)`` method. Parity:
-        kenburns_effect.py:831-846."""
+        """Install a detector name from the config ('animeinsseg', 'sam'
+        or 'none'), an AnimeInsSeg, or any img → Instances callable with
+        an ``infer(img, pred_score_thr)`` method. Parity:
+        kenburns_effect.py:831-860."""
         if isinstance(detector, str):
             if detector in ('none', ''):
                 self._detector = None
                 return
-            if detector == 'animeinsseg':
+            if detector in ('animeinsseg', 'sam'):
                 from .segment import AnimeInsSeg
                 cfg = self.cfg
                 seg = AnimeInsSeg(det_size=cfg.det_size,
@@ -205,7 +211,12 @@ class KenBurnsPipeline:
                                   max_instances=cfg.max_instances,
                                   dtype=cfg.dtype, seed=self._seed,
                                   device=self.device)
-                if cfg.refine_method not in ('none', ''):
+                if detector == 'sam':
+                    # AnimeInsSeg's boxes, without its refine, re-masked
+                    # by SAM (configs/3dkenburns_sam.yaml)
+                    from .sam import SamDetector
+                    seg = SamDetector(seg)
+                elif cfg.refine_method not in ('none', ''):
                     seg.set_refine_method(cfg.refine_method,
                                           cfg.refine_size)
                 seg.timer = self.timer
@@ -214,7 +225,7 @@ class KenBurnsPipeline:
             raise NotImplementedError(
                 f'detector {detector!r} is not ported to '
                 "cartoonsegmentation_torch yet (only 'animeinsseg', "
-                "'none')")
+                "'sam', 'none')")
         self._detector = detector
 
     def ensure_detector(self) -> None:
@@ -445,8 +456,10 @@ class KenBurnsPipeline:
 
     def render_one(self, state: KenBurnsState, cam: torch.Tensor,
                    focal_planes, max_cw: int, max_ch: int,
-                   depth_field: bool) -> torch.Tensor:
-        """One frame → (H, W, 3) uint8 BGR. Parity:
+                   depth_field: bool, bgr: Optional[torch.Tensor] = None,
+                   i420: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One frame → (H, W, 3) uint8 BGR, written into ``bgr`` and,
+        with ``i420``, its I420 bytes (the K5a epilogue). Parity:
         kenburns_effect.py:1015-1072."""
         cfg = self.cfg
         H, W = state.hw
@@ -461,9 +474,7 @@ class KenBurnsPipeline:
             frame = bokeh_blur(frame.clamp(0.0, 1.0), depth_r,
                                cfg.dof_num_samples, cfg.lightness_factor,
                                cfg.depth_factor, focal_plane=fp)
-        frame = crop_center_resize(frame.clamp(0.0, 1.0), max_ch, max_cw,
-                                   H, W)
-        return (frame.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        return frame_epilogue(frame, max_ch, max_cw, H, W, bgr, i420)
 
     @torch.inference_mode()
     def render_frames(self, state: KenBurnsState, obj_from: Dict,
@@ -473,13 +484,16 @@ class KenBurnsPipeline:
         ``return_device``. Parity: kenburns_effect.py:1015-1072."""
         if depth_field is None:
             depth_field = self.cfg.depth_field
+        H, W = state.hw
         max_cw = max(obj_from['crop_w'], obj_to['crop_w'])
         max_ch = max(obj_from['crop_h'], obj_to['crop_h'])
         cams = self._cams(state, obj_from, obj_to, steps)
         fps = self.focal_planes(state, cams, depth_field)
-        frames = torch.stack([
-            self.render_one(state, cams[i], fps, max_cw, max_ch,
-                            depth_field) for i in range(len(cams))])
+        frames = torch.empty((len(cams), H, W, 3), dtype=torch.uint8,
+                             device=self.device)
+        for i in range(len(cams)):
+            self.render_one(state, cams[i], fps, max_cw, max_ch, depth_field,
+                            bgr=frames[i])
         return frames if return_device else frames.cpu().numpy()
 
     @torch.inference_mode()
@@ -561,11 +575,16 @@ class KenBurnsPipeline:
             prev = None                     # (chunk, event, host i420)
             for ci in range(n_chunks):
                 c0 = ci * chunk
-                frames = torch.stack([
-                    self.render_one(state, cams[i], planes, max_cw, max_ch,
-                                    depth_field)
-                    for i in range(c0, min(c0 + chunk, T))])
-                i420 = bgr_to_i420(frames)
+                n = min(chunk, T - c0)
+                # each frame's epilogue writes its BGR and I420 straight
+                # into the chunk's buffers
+                bgr = torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
+                i420 = torch.empty((n, H * 3 // 2, W), dtype=torch.uint8,
+                                   device=dev)
+                for j in range(n):
+                    self.render_one(state, cams[c0 + j], planes, max_cw,
+                                    max_ch, depth_field, bgr=bgr[j],
+                                    i420=i420[j])
                 host = torch.empty(i420.shape, dtype=torch.uint8,
                                    pin_memory=pin)
                 host.copy_(i420, non_blocking=pin)

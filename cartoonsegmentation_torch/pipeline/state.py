@@ -1,7 +1,8 @@
 """Ken Burns pipeline state (port of
 ``cartoonsegmentation_tpu/pipeline/state.py``): a fixed-capacity point
 cloud with invalid slots encoded as z = 0 points, which the splat
-drops, appended to by masked stream compaction.
+drops, grown by masked stream compaction (K10: ``append_masked_plain``
+on the CPU, ``csrc/compact.cu`` on CUDA).
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..instances import Instances
+from ..ops import _cuda
 from ..ops.camera import DepthRange
 
 
@@ -46,26 +48,77 @@ class PointCloud:
             depth=self.depth[:capacity].contiguous(),
             count=self.count.clamp(max=capacity))
 
+    def clone(self) -> 'PointCloud':
+        return PointCloud(*(getattr(self, k).clone() for k in (
+            'points', 'colors', 'disparity', 'depth', 'count')))
+
     def append_masked(self, points, colors, disparity, depth, mask
                       ) -> 'PointCloud':
-        """Append the entries where ``mask`` is True, compacted, dropping
-        overflow beyond capacity. Flat (M, ...) arguments. Returns a new
-        cloud; this one is left as it was."""
-        P = self.capacity
-        m = mask.to(torch.int64)
-        pos = self.count.to(torch.int64) + torch.cumsum(m, 0) - 1
-        ok = (m > 0) & (pos < P)
-        idx = pos[ok]
+        """K10: a new cloud with the entries where ``mask`` is True
+        appended, compacted in index order, dropping overflow beyond
+        capacity. Flat (M, ...) arguments. This cloud is left as it was,
+        as in the JAX version: its buffers are copied on the device and
+        the copy is appended to, with no host sync."""
+        out = self.clone()
+        append_masked_into(out, points, colors, disparity, depth, mask)
+        return out
 
-        def put(dst, src):
-            return dst.index_copy(0, idx, src[ok])
 
-        return PointCloud(
-            points=put(self.points, points),
-            colors=put(self.colors, colors),
-            disparity=put(self.disparity, disparity),
-            depth=put(self.depth, depth),
-            count=(self.count + m.sum()).clamp(max=P).to(torch.int32))
+def append_masked_into(cloud: PointCloud, points, colors, disparity, depth,
+                       mask) -> None:
+    """K10 in place: the plain version on the CPU, csrc/compact.cu on
+    CUDA."""
+    if cloud.points.device.type == 'cpu':
+        append_masked_plain(cloud, points, colors, disparity, depth, mask)
+    else:
+        _append_masked_kernel(cloud, points, colors, disparity, depth, mask)
+
+
+def append_masked_plain(cloud: PointCloud, points, colors, disparity, depth,
+                        mask) -> None:
+    """K10's plain version, in place: slot count + rank of each set
+    entry, kept below the capacity; count + set entries, clamped. The
+    boolean index syncs the host on CUDA."""
+    P = cloud.capacity
+    m = mask.to(torch.int64)
+    pos = cloud.count.to(torch.int64) + torch.cumsum(m, 0) - 1
+    ok = (m > 0) & (pos < P)
+    idx = pos[ok]
+    for dst, src in ((cloud.points, points), (cloud.colors, colors),
+                     (cloud.disparity, disparity), (cloud.depth, depth)):
+        dst.index_copy_(0, idx, src[ok].to(dst.dtype))
+    cloud.count.copy_((cloud.count + m.sum()).clamp(max=P))
+
+
+def _append_masked_kernel(cloud: PointCloud, points, colors, disparity,
+                          depth, mask) -> None:
+    dev = cloud.points.device
+    points, colors = points.contiguous(), colors.contiguous()
+    disparity, depth = disparity.contiguous(), depth.contiguous()
+    mask = mask.contiguous()
+    M = mask.shape[0]
+    for name, t, nd in (('points', points, 2), ('colors', colors, 2),
+                        ('disparity', disparity, 1), ('depth', depth, 1)):
+        _cuda.check(t, name, torch.float32, nd, dev)
+        if t.shape[0] != M or (nd == 2 and t.shape[1] != 3):
+            raise ValueError(f'{name} {tuple(t.shape)} does not fit a '
+                             f'mask of {M}')
+    _cuda.check(mask, 'mask', torch.bool, 1, dev)
+    for name in ('points', 'colors', 'disparity', 'depth'):
+        _cuda.check(getattr(cloud, name), f'cloud.{name}', torch.float32,
+                    2 if name in ('points', 'colors') else 1, dev)
+    _cuda.check(cloud.count, 'cloud.count', torch.int32, 0, dev)
+    scratch = torch.empty((2 * -(-M // 1024),), dtype=torch.int32,
+                          device=dev)
+    p, i = _cuda.P, _cuda.I
+    _cuda.launch('compact', 'kb_append_masked',
+                 [p, p, p, p, p, i, p, p, p, p, i, p, p, p],
+                 points.data_ptr(), colors.data_ptr(), disparity.data_ptr(),
+                 depth.data_ptr(), mask.data_ptr(), M,
+                 cloud.points.data_ptr(), cloud.colors.data_ptr(),
+                 cloud.disparity.data_ptr(), cloud.depth.data_ptr(),
+                 cloud.capacity, cloud.count.data_ptr(), scratch.data_ptr(),
+                 _cuda.stream_ptr(mask))
 
 
 @dataclass

@@ -5,6 +5,10 @@ Host-side planning (numpy) decides shapes; tensor functions keep the
 JAX package's channel-last layout (..., H, W, C) at their interface
 and run on whatever device their input lives on. cv2 is optional: it
 is imported lazily and only where a host-side call needs it.
+
+K5a ``frame_epilogue`` (the frame loop's crop, resize, uint8 and I420
+tail) runs ``frame_epilogue_plain`` for CPU tensors and
+``csrc/epilogue.cu`` for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import _cuda
 
 
 def _cv2():
@@ -223,6 +229,70 @@ def bgr_to_i420(frames: torch.Tensor) -> torch.Tensor:
         y.to(torch.uint8),
         u.to(torch.uint8).reshape(T, H // 4, W),
         v.to(torch.uint8).reshape(T, H // 4, W)], 1)
+
+
+def frame_epilogue_plain(frame: torch.Tensor, crop_h: int, crop_w: int,
+                         out_h: int, out_w: int) -> torch.Tensor:
+    """K5a's plain version: (H, W, 3) f32 frame → clip → centre crop
+    and resize → clip → ×255 + 0.5 → truncate to (out_h, out_w, 3)
+    uint8 BGR (the JAX frame loop's tail, pipeline/kenburns.py)."""
+    frame = crop_center_resize(frame.clamp(0.0, 1.0), crop_h, crop_w,
+                               out_h, out_w)
+    return (frame.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def frame_epilogue(frame: torch.Tensor, crop_h: int, crop_w: int,
+                   out_h: int, out_w: int,
+                   bgr: Optional[torch.Tensor] = None,
+                   i420: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5a wrapper: one (H, W, 3) f32 frame (channels contiguous; a
+    view of the filled (H, W, 4) buffer is read in place) → its uint8
+    BGR, written into ``bgr`` (out_h, out_w, 3) when given, and with
+    ``i420`` (out_h·3/2, out_w) its I420 bytes as ``bgr_to_i420``
+    makes them from that BGR. The plain chain on the CPU,
+    csrc/epilogue.cu on CUDA (one launch). Returns the BGR tensor."""
+    if i420 is not None and (out_h % 4 or out_w % 2):
+        raise ValueError(f'I420 needs out_h % 4 == 0 and out_w % 2 == 0, '
+                         f'got {out_h}x{out_w}')
+    if frame.device.type == 'cpu':
+        out = frame_epilogue_plain(frame, crop_h, crop_w, out_h, out_w)
+        if bgr is not None:
+            out = bgr.copy_(out)
+        if i420 is not None:
+            i420.copy_(bgr_to_i420(out[None])[0])
+        return out
+    dev = frame.device
+    H, W = frame.shape[0], frame.shape[1]
+    if frame.dtype != torch.float32 or frame.ndim != 3 or \
+            frame.shape[2] != 3 or frame.stride(2) != 1:
+        raise ValueError(f'frame must be (H, W, 3) float32 with contiguous '
+                         f'channels, got {tuple(frame.shape)} {frame.dtype} '
+                         f'strides {frame.stride()}')
+    # the crop and its half-pixel neighbour must lie inside the frame
+    if not (0 < crop_h and (H - crop_h + 1) // 2 + crop_h
+            + (H - crop_h + 1) % 2 <= H and 0 < crop_w
+            and (W - crop_w + 1) // 2 + crop_w + (W - crop_w + 1) % 2 <= W):
+        raise ValueError(f'crop {crop_h}x{crop_w} does not fit the frame '
+                         f'{H}x{W}')
+    if bgr is None:
+        bgr = torch.empty((out_h, out_w, 3), dtype=torch.uint8, device=dev)
+    _cuda.check(bgr, 'bgr', torch.uint8, 3, dev)
+    if tuple(bgr.shape) != (out_h, out_w, 3):
+        raise ValueError(f'bgr is {tuple(bgr.shape)}, expected '
+                         f'{(out_h, out_w, 3)}')
+    if i420 is not None:
+        _cuda.check(i420, 'i420', torch.uint8, 2, dev)
+        if tuple(i420.shape) != (out_h * 3 // 2, out_w):
+            raise ValueError(f'i420 is {tuple(i420.shape)}, expected '
+                             f'{(out_h * 3 // 2, out_w)}')
+    p, i = _cuda.P, _cuda.I
+    _cuda.launch('epilogue', 'kb_frame_epilogue',
+                 [p, i, i, _cuda.LL, i, i, i, i, i, p, p, p],
+                 frame.data_ptr(), H, W, frame.stride(0), frame.stride(1),
+                 crop_h, crop_w, out_h, out_w, bgr.data_ptr(),
+                 0 if i420 is None else i420.data_ptr(),
+                 _cuda.stream_ptr(frame))
+    return bgr
 
 
 # OpenCV's YUV→RGB fixed-point constants (color_yuv.simd.hpp)

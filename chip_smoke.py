@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the nine CUDA
+1. prints the card, torch and CUDA versions, and builds the 13 CUDA
    kernel libraries (csrc/*.cu, one kernel each) with nvcc, all at once;
 2. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (576x1024; K1 with C = 4 and C = 68; K6 over
-   100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640)
-   and times both with CUDA events around one call on an idle card
-   (median of runs on varied inputs);
+   100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
+   K5a at the path's crop and at a crop kept at its size; K10 with an
+   overflow, under the sync debug mode; K15a at SAM ViT-B's windowed
+   and global blocks, beside SDPA with the bias prebuilt) and times
+   both with CUDA events around one call on an idle card (median of
+   runs on varied inputs);
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -18,7 +21,7 @@
    detector and its ISNet refine —
    ``KenBurnsPipeline(KenBurnsConfig()).run(img, video)`` on a 576x1024
    image made from the seed, with random nets from the seed set so that
-   the instances have edges (``edged_nets``) — and checks that all nine
+   the instances have edges (``edged_nets``) — and checks that its 12
    kernels launched in that run, that it found instances with
    non-empty masks smaller than the frame, that the adjusted disparity
    is not flat, and that the 75 frames are sane;
@@ -30,7 +33,18 @@
    pixels >= 99.9%);
 7. runs the main path again warm, and profiles 16 frames of the render
    loop (host enqueue time, device busy share, device time by kernel);
-8. prints one {"kernels": [...]} line, then the card line and the
+8. runs the SAM path, ``configs/3dkenburns_sam.yaml`` with
+   ``inpaint_type: default`` (AnimeInsSeg's boxes re-masked by SAM
+   ViT-B at 1024, DoF off), with the same edged detector and a seeded
+   SAM set so that its masks have edges (``edged_sam``): the launches
+   (12 of K15a for the one encode), the instances, the disparity, the
+   frames and 3 of them against the CPU;
+9. runs SAM in f32 on the card and on the CPU on the same weights,
+   image and (at most 8) boxes: the embedding, masks and IoUs within
+   the stated tolerances; then ``SamDetector.infer`` →
+   ``instances_to_coco`` on the card, whose RLEs must decode to the
+   masks exactly;
+10. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -264,11 +278,184 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
           f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err {err:.3g}',
           flush=True)
 
-    depth_maps = [colorize_gray_r(discfill3.fill_disocclusion(*f)[..., 3])
-                  .contiguous() for f in fills]
+    filled = [discfill3.fill_disocclusion(*f) for f in fills]
+    depth_maps = [colorize_gray_r(f[..., 3]) for f in filled]
     existing = [(w > 0).float()[..., None].contiguous()
                 for _, w in fills]
     res.update(check_detector_kernels(dev, gen, depth_maps, existing))
+    res.update(check_frame_kernels(dev, filled))
+    res.update(check_samattn(dev, gen))
+    return res
+
+
+def check_frame_kernels(dev, filled) -> dict:
+    """K5a epilogue, K5b colorize and K10 compaction against their
+    plain versions on the filled frames of the render loop."""
+    from cartoonsegmentation_torch.pipeline import depth, state
+    from cartoonsegmentation_torch.utils import image
+    res = {}
+    u8 = torch.uint8
+
+    # --- K5a: the path's crop (crop_ratio 0.97: 558x993 at 576x1024,
+    # half-pixel rows) resized to the frame, and a crop at a half-pixel
+    # corner kept at its size (556x992) ---------------------------------
+    ch, cw = int(0.97 * H), int(0.97 * W)
+    worst, maxd = 1.0, 0
+    kept = (H - 20, W - 32)
+    for crop, out in (((ch, cw), (H, W)), (kept, kept)):
+        for f in filled[:3]:
+            bgr = torch.empty((*out, 3), dtype=u8, device=dev)
+            i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=u8,
+                               device=dev)
+            got = image.frame_epilogue(f[..., :3], *crop, *out, bgr, i420)
+            want = image.frame_epilogue_plain(f[..., :3], *crop, *out)
+            d = (got.int() - want.int()).abs()
+            maxd = max(maxd, int(d.max()))
+            worst = min(worst, float((d == 0).float().mean()))
+            if not torch.equal(i420, image.bgr_to_i420(got[None])[0]):
+                fail('epilogue: I420 bytes differ from bgr_to_i420 of the '
+                     'kernel BGR')
+    # the bilinear sum may sit an ulp from torch's FMA-contracted kernel
+    if maxd > 1 or worst < 0.9999:
+        fail(f'epilogue: BGR max diff {maxd}, equal share {worst:.6f}')
+    bgr = torch.empty((H, W, 3), dtype=u8, device=dev)
+    i420 = torch.empty((H * 3 // 2, W), dtype=u8, device=dev)
+    ms = time_ms(lambda f: image.frame_epilogue(f[..., :3], ch, cw, H, W,
+                                                bgr, i420), filled)
+    plain_ms = time_ms(lambda f: image.bgr_to_i420(image.frame_epilogue_plain(
+        f[..., :3], ch, cw, H, W)[None]), filled)
+    # read the frame's colours once, write BGR and I420 once; per output
+    # value ~42 operations (4 taps of 2 clipped reads and a mean, the
+    # bilinear sum, the uint8 step), ~16 a pixel for weights and Y
+    b, by = bound(H * W * (12 + 3 + 1.5), H * W * (3 * 42 + 16))
+    res['epilogue'] = dict(max_abs_err=float(maxd), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by, bgr_equal=worst)
+    print(f'[kernel] epilogue {H}x{W} crop {ch}x{cw}: kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}); BGR max diff '
+          f'{maxd}, equal {worst:.6f}; I420 exact', flush=True)
+
+    # --- K5b: the depth channel of the filled frames, read in place ----
+    maps = [f[..., 3] for f in filled]
+    for x in maps[:3]:
+        if not torch.equal(depth.colorize_gray_r(x),
+                           depth.colorize_gray_r_plain(x)):
+            fail('colorize differs from the plain version')
+    ms = time_ms(depth.colorize_gray_r, maps)
+    plain_ms = time_ms(depth.colorize_gray_r_plain, maps)
+    b, by = bound(H * W * 8, H * W * 6)   # min, max; sub, div, sub, mul
+    res['colorize'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by)
+    print(f'[kernel] colorize {H}x{W}: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), exact', flush=True)
+
+    # --- K10: the state's appends at M = H*W: all set, then hole-like
+    # masks; a second cloud overflows on its second append -------------
+    M = H * W
+    g = torch.Generator(device=dev).manual_seed(1)
+    src = [torch.rand((M, 3), device=dev, generator=g),
+           torch.rand((M, 3), device=dev, generator=g),
+           torch.rand((M,), device=dev, generator=g),
+           torch.rand((M,), device=dev, generator=g)]
+    masks = [torch.ones((M,), dtype=torch.bool, device=dev),
+             torch.rand((M,), device=dev, generator=g) < 0.3,
+             torch.rand((M,), device=dev, generator=g) < 0.6]
+    for P in (2 * M, M + 100000):
+        kern = state.PointCloud.with_capacity(P, dev)
+        plain = state.PointCloud.with_capacity(P, dev)
+        for m in masks:
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                kern = kern.append_masked(*src, m)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            state.append_masked_plain(plain, *src, m)
+        for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+            if not torch.equal(getattr(kern, k), getattr(plain, k)):
+                fail(f'compact: {k} differs from the plain version '
+                     f'(capacity {P})')
+    clouds = [state.PointCloud.with_capacity(2 * M, dev) for _ in range(RUNS)]
+    ms = time_ms(lambda c: state.append_masked_into(c, *src, masks[0]),
+                 clouds)
+    clouds = [state.PointCloud.with_capacity(2 * M, dev) for _ in range(RUNS)]
+    plain_ms = time_ms(lambda c: state.append_masked_plain(c, *src, masks[0]),
+                       clouds)
+    del clouds
+    # the mask byte of every entry; 8 payload floats of each set entry
+    # read and written once
+    b, by = bound(M + M * 64, 0)
+    res['compact'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b, bound_by=by)
+    print(f'[kernel] compact M={M} (all set) into 2M slots: kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}); '
+          f'exact with an overflow, no host sync', flush=True)
+    return res
+
+
+def check_samattn(dev, gen) -> dict:
+    """K15a at SAM ViT-B 1024's shapes: the windowed blocks (25 windows
+    of 14x14, padded from 64) and the global ones (64x64), 12 heads of
+    64, random q, k, v and rel-pos tables; against the plain version
+    and beside SDPA with the (B, n, N, N) bias prebuilt."""
+    import torch.nn.functional as F
+    from cartoonsegmentation_torch.models import sam
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(int(torch.randint(
+        0, 1 << 30, (1,), generator=gen)))
+    n, hd = 12, 64
+    # (tag, windows, side): 25 windows of 14x14 (the 64x64 grid padded
+    # to 70) and the whole grid
+    for tag, B, side in (('windowed', 25, 14), ('global', 1, 64)):
+        N = side * side
+        cases = []
+        for _ in range(RUNS):
+            qkv = torch.randn((B, N, 3, n, hd), device=dev, generator=g)
+            rel = torch.randn((2, 2 * side - 1, hd), device=dev,
+                              generator=g) * 0.1
+            bh, bw = sam.rel_pos_terms(qkv, rel[0], rel[1], side, side)
+            cases.append((qkv, bh.contiguous(), bw.contiguous()))
+        got = sam.rel_pos_attention(*cases[0], side, side)
+        want = sam.rel_pos_attention_plain(*cases[0], side, side)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if err > 1e-5 * scale:
+            fail(f'samattn {tag}: max err {err:.3g} above 1e-5 of '
+                 f'{scale:.3g}')
+        ms = time_ms(lambda c: sam.rel_pos_attention(*c, side, side), cases)
+        plain_ms = time_ms(lambda c: sam.rel_pos_attention_plain(
+            *c, side, side), cases)
+
+        # one PyTorch call for the same function: SDPA with the bias
+        # prebuilt; the bias build is timed on its own
+        def bias(c):
+            return (c[1][..., :, None] + c[2][..., None, :]).reshape(
+                B, n, N, N)
+
+        def heads(c):
+            return [c[0][:, :, j].transpose(1, 2) for j in range(3)]
+        mask_ms = time_ms(bias, cases[:3])
+        lib_cases = [(heads(c), bias(c)) for c in cases[:3]]
+        lib = F.scaled_dot_product_attention(*lib_cases[0][0],
+                                             attn_mask=lib_cases[0][1])
+        lib_err = float((lib.transpose(1, 2).reshape(B, N, n * hd)
+                         - want).abs().max())
+        lib_ms = time_ms(lambda c: F.scaled_dot_product_attention(
+            *c[0], attn_mask=c[1]), lib_cases)
+        del lib_cases, lib
+        # q·k and p·v (2 operations a multiply-add), the two bias adds
+        # and ~4 of the online softmax a score
+        flops = B * n * N * N * (4 * hd + 6)
+        nbytes = 4 * (B * N * 3 * n * hd + B * n * N * 2 * side
+                      + B * N * n * hd)
+        b, by = bound(nbytes, flops)
+        res[f'samattn_{tag}'] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b,
+                                     bound_by=by, library_ms=lib_ms)
+        print(f'[kernel] samattn {tag} B={B} N={N} 12x64: kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), SDPA '
+              f'{lib_ms:.4f} ms (+ {mask_ms:.4f} ms to build the bias, max '
+              f'err {lib_err:.3g}); max err {err:.3g} of {scale:.3g}',
+              flush=True)
+        del cases
     return res
 
 
@@ -574,6 +761,151 @@ def edged_nets(seed: int):
     return det, isnet
 
 
+def edged_sam(seed: int, img: np.ndarray, share: float = 0.2):
+    """SAM ViT-B at 1024 as ``NativeSAM(seed=seed)`` makes it (random
+    from the seed), with two small parts of its mask decoder set so that
+    its masks have edges. Random weights alone give each box a mask
+    whose logits are one random mix of the upscaled features, so the
+    mask covers nearly all or nearly none of the frame. Here
+    - the second upscaling deconv (``output_upscaling.3``) emits
+      gelu(1) on channel 0 and copies its input channel 0 to channel 1;
+    - the last layer of each hypernetwork MLP emits (-tau / gelu(1), 1,
+      0, ...) for every box, so the logit is that copied channel less
+      tau;
+    - tau is the (1 - share) quantile of that channel over the image's
+      letterbox, from one probe decode of the same SAM on ``img``, so
+      each mask covers ~share of the frame along the edges of one
+      feature of the seeded encoder.
+    Every other weight stays random; the encoder, the prompt encoder
+    and the two-way transformer run unchanged at full width. Returns the
+    SAM on the card."""
+    import torch.nn.functional as F
+    from cartoonsegmentation_torch.models.sam import init_sam_, sam_vit_b
+    from cartoonsegmentation_torch.pipeline.sam import (NativeSAM,
+                                                        normalize_pad)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = init_sam_(sam_vit_b())
+    dec = net.mask_decoder
+    with torch.no_grad():
+        up = dec.output_upscaling[3]
+        up.weight[:, :2] = 0.0
+        up.weight[0, 1] = 1.0
+        up.bias[:2] = torch.tensor([1.0, 0.0])
+        for mlp in dec.output_hypernetworks_mlps:
+            mlp.layers[2].weight.zero_()
+            mlp.layers[2].bias.zero_()
+            mlp.layers[2].bias[1] = 1.0
+    probe = NativeSAM(capacity=1, model=net, device='cuda')
+    net = probe._net()
+    canvas, _, nh, nw = probe._prepare(img)
+    with torch.inference_mode():
+        x = normalize_pad(torch.from_numpy(canvas).cuda(), (nh, nw))
+        emb = net.encode(x[None])[0]
+        box = torch.tensor([[0.0, 0.0, nw - 1.0, nh - 1.0]], device='cuda')
+        logits, _ = net.decode(emb, box, multimask=False)
+    crop = logits[0, :-(-nh // 4), :-(-nw // 4)].flatten()
+    tau = float(torch.quantile(crop, 1.0 - share))
+    with torch.no_grad():
+        g1 = float(F.gelu(torch.tensor(1.0)))
+        for mlp in dec.output_hypernetworks_mlps:
+            mlp.layers[2].bias[0] = -tau / g1
+    print(f'[sam] edged_sam: tau {tau:.4f} (the {1 - share:.0%} quantile of '
+          f'the copied channel, range {float(crop.min()):.4f} .. '
+          f'{float(crop.max()):.4f})', flush=True)
+    return net
+
+
+def check_instances(pipe, tag: str) -> None:
+    """Fail unless the last state's instances include a non-empty mask,
+    their mean area is under half the frame, and the adjusted disparity
+    is not flat."""
+    ins = pipe.last_state.instances
+    n_valid = int(ins.count())
+    nonempty = int((ins.masks.any((1, 2)) & ins.valid).sum())
+    areas = ins.masks[ins.valid].float().mean((1, 2)) if n_valid \
+        else torch.zeros(1)
+    disp = pipe.last_state.disparity
+    spread = float(disp.std() / disp.abs().max())
+    print(f'[{tag}] instances: {n_valid} valid, {nonempty} with a non-empty '
+          f'mask, areas (share of the frame) mean {float(areas.mean()):.4f} '
+          f'min {float(areas.min()):.4f} max {float(areas.max()):.4f}; '
+          f'disparity std / max {spread:.4f}', flush=True)
+    if nonempty == 0 or not float(areas.mean()) < 0.5:
+        fail(f'{tag}: the detector gave no instance with a non-empty mask '
+             f'with edges: K6 and the instance depth adjustment did no real '
+             f'work')
+    if spread < 1e-3:
+        fail(f'{tag}: the adjusted disparity is flat')
+
+
+def sam_config(root: str):
+    """configs/3dkenburns_sam.yaml with inpaint_type 'default' (its
+    'ldm' needs an sd-webui server)."""
+    from cartoonsegmentation_torch.config import build_kenburns_cfg
+    path = os.path.join(root, 'configs', '3dkenburns_sam.yaml')
+    cfg = build_kenburns_cfg(path)
+    print(f'[sam] {path}: detector {cfg.detector}, inpaint_type '
+          f'{cfg.inpaint_type!r} → \'default\', depth_field '
+          f'{cfg.depth_field}, num_frame {cfg.num_frame}', flush=True)
+    return cfg.replace(inpaint_type='default')
+
+
+def compare_sam(img, sam_net, box_det, n_max: int = 8) -> None:
+    """SAM in f32 on the card and on the CPU, the same weights, image
+    and boxes (the first ``n_max`` valid boxes of the detector, as
+    SamDetector prompts them). Fails unless the image embedding is
+    within 1e-4 of its range, the masks agree at >= 99.9% and the IoUs
+    within 1e-4."""
+    from cartoonsegmentation_torch.pipeline.sam import NativeSAM
+    ins = box_det.infer(img, 0.3)
+    xywh = ins.bboxes[ins.valid].cpu().numpy()[:n_max]
+    if len(xywh) == 0:
+        fail('sam f32: the detector gave no box')
+    boxes = np.stack([xywh[:, 0], xywh[:, 1], xywh[:, 0] + xywh[:, 2],
+                      xywh[:, 1] + xywh[:, 3]], 1).astype(np.int32)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        ns = NativeSAM(capacity=len(boxes), model=copy.deepcopy(sam_net).to(
+            dev), device=dev)
+        t0 = time.perf_counter()
+        masks, ious = ns.segment_boxes(img, boxes.astype(np.float32))
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        out[dev] = (ns._emb.cpu(), masks.cpu(), ious.cpu(),
+                    time.perf_counter() - t0)
+    (ek, mk, ik, tk), (ec, mc, ic, tc) = out['cuda'], out['cpu']
+    emb_rel = float((ek - ec).abs().max() / (ec.max() - ec.min()))
+    same = float((mk == mc).float().mean())
+    iou_err = float((ik - ic).abs().max())
+    print(f'[sam f32] {len(boxes)} boxes, card {tk:.3f} s, cpu {tc:.3f} s: '
+          f'embedding max |card - cpu| / range {emb_rel:.3g}, masks equal '
+          f'{same:.6f} (mean area {float(mc.float().mean()):.4f}), IoU max '
+          f'err {iou_err:.3g}', flush=True)
+    if emb_rel > 1e-4 or same < 0.999 or iou_err > 1e-4:
+        fail('SAM on the card differs from SAM on the CPU')
+
+
+def segment_api(det, img) -> None:
+    """The segmentation path through the API on the card:
+    SamDetector.infer → instances_to_coco; every RLE must decode to its
+    mask exactly."""
+    from cartoonsegmentation_torch.data.coco_export import (instances_to_coco,
+                                                            rle2mask)
+    ins = det.infer(img, 0.3)
+    _, anns = instances_to_coco(ins, 0, 'smoke.png', img.shape[:2])
+    masks, valid = ins.masks.cpu().numpy(), ins.valid.cpu().numpy()
+    idx = np.nonzero(valid)[0]
+    same = len(anns) == len(idx) and all(
+        np.array_equal(rle2mask(a['segmentation']), masks[i])
+        for a, i in zip(anns, idx))
+    print(f'[segment] SamDetector.infer → instances_to_coco: {len(idx)} '
+          f'instances, {len(anns)} annotations, RLE round trip '
+          f'{"exact" if same else "DIFFERS"}', flush=True)
+    if not same or not len(idx):
+        fail('segmentation API: the COCO RLEs do not decode to the masks')
+
+
 def compare_detector(img, det_net, device: str = 'cuda') -> None:
     """The detector in f32 on the card and on the CPU with the same
     weights (``det_net``) on the same image. Fails unless the head maps
@@ -684,10 +1016,11 @@ def main() -> None:
     # 3. the first slice's path: the detector-free clip -------------------
     free = KenBurnsPipeline(KenBurnsConfig(detector='none'), seed=args.seed,
                             device='cuda')
-    launches = run_clip(free, img, 'detector-free')
-    require_launches('detector-free', launches,
+    launches_free = run_clip(free, img, 'detector-free')
+    require_launches('detector-free', launches_free,
                      ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian',
-                      'median5', 'laplacian'))
+                      'median5', 'laplacian', 'epilogue', 'colorize',
+                      'compact'))
     compare_frames(free, 'detector-free')
     del free
 
@@ -699,23 +1032,9 @@ def main() -> None:
     pipe._detector.model = copy.deepcopy(det_net)
     pipe._detector.refine.net = isnet
     launches = run_clip(pipe, img, 'main')
-    require_launches('main', launches, _cuda.KERNELS)
-    ins = pipe.last_state.instances
-    n_valid = int(ins.count())
-    nonempty = int((ins.masks.any((1, 2)) & ins.valid).sum())
-    areas = ins.masks[ins.valid].float().mean((1, 2)) if n_valid \
-        else torch.zeros(1)
-    disp = pipe.last_state.disparity
-    spread = float(disp.std() / disp.abs().max())
-    print(f'[main] instances: {n_valid} valid, {nonempty} with a non-empty '
-          f'mask, areas (share of the frame) mean {float(areas.mean()):.4f} '
-          f'min {float(areas.min()):.4f} max {float(areas.max()):.4f}; '
-          f'disparity std / max {spread:.4f}', flush=True)
-    if nonempty == 0 or not float(areas.mean()) < 0.5:
-        fail('the detector gave no instance with a non-empty mask with '
-             'edges: K6 and the instance depth adjustment did no real work')
-    if spread < 1e-3:
-        fail('the adjusted disparity is flat')
+    require_launches('main', launches,
+                     [k for k in _cuda.KERNELS if k != 'samattn'])
+    check_instances(pipe, 'main')
 
     # 5. kernel frames against the plain versions on the CPU ---------------
     compare_frames(pipe, 'main')
@@ -729,11 +1048,33 @@ def main() -> None:
     pipe.timer.reset()
     run_clip(pipe, img, 'warm')
     profile_frame_loop(pipe, state, obj_from, obj_to)
+    del pipe, state
 
-    # 8. report ---------------------------------------------------------
+    # 8. the SAM path: 3dkenburns_sam.yaml, AnimeInsSeg boxes re-masked
+    # by SAM ViT-B ------------------------------------------------------
+    sp = KenBurnsPipeline(sam_config(root), seed=args.seed, device='cuda')
+    sp.ensure_detector()
+    sp._detector.box_detector.model = copy.deepcopy(det_net)
+    sam_net = edged_sam(args.seed, img)
+    sp._detector.sam.model = sam_net
+    launches_sam = run_clip(sp, img, 'sam')
+    require_launches('sam', launches_sam,
+                     ('splat', 'coverage', 'discfill', 'median5', 'laplacian',
+                      'nms', 'maskhead', 'epilogue', 'compact', 'samattn'))
+    if launches_sam['samattn'] != 12:
+        fail(f'sam: {launches_sam["samattn"]} samattn launches for one '
+             f'encode, expected 12 (one a block)')
+    check_instances(sp, 'sam')
+    compare_frames(sp, 'sam')
+
+    # 9. SAM in f32 card against CPU; the segmentation API ---------------
+    compare_sam(img, sam_net, sp._detector.box_detector)
+    segment_api(sp._detector, img)
+
+    # 10. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
     tpu = 'cartoonsegmentation_tpu/'
-    c68 = res['splat_c68']
+    c68, win = res['splat_c68'], res['samattn_windowed']
     rows = [
         # the frame loop's C = 4; the Inpaint net's C = 68 beside it
         ('splat', res['splat_c4'], 'ops/pointcloud.py:121',
@@ -747,14 +1088,28 @@ def main() -> None:
         ('laplacian', res['laplacian'], 'ops/filters.py:26', {}),
         ('nms', res['nms'], 'models/rtmdet.py:194', {}),
         ('maskhead', res['maskhead'], 'models/rtmdet.py:222', {}),
+        # crop_center_resize :146, the uint8 step pipeline/kenburns.py
+        # :975, bgr_to_i420 :194
+        ('epilogue', res['epilogue'], 'utils/image.py:146', {}),
+        ('colorize', res['colorize'], 'pipeline/depth.py:113', {}),
+        ('compact', res['compact'], 'pipeline/state.py:58', {}),
+        # the global blocks; the windowed ones beside them
+        ('samattn', res['samattn_global'], 'models/sam.py:76',
+         {f'{k}_windowed': win[k] for k in ('max_abs_err', 'ms', 'plain_ms',
+                                            'bound_ms', 'library_ms')}),
     ]
+    paths = {'detector-free': launches_free, 'main': launches,
+             'sam': launches_sam}
     kernels = []
     for name, r, where, extra in rows:
-        # one PyTorch call computes the laplacian (a convolution); none
-        # computes any of the other functions
+        # one PyTorch call computes the laplacian (a convolution) and
+        # the attention (SDPA with the bias); none computes the others
         kernels.append({
             'name': name, 'route': 'cuda', 'source': f'{src}{name}.cu',
-            'replaces': f'{tpu}{where}', 'launches': launches[name],
+            'replaces': f'{tpu}{where}',
+            'launches': (launches_sam if name == 'samattn'
+                         else launches)[name],
+            'launches_by_path': {k: v[name] for k, v in paths.items()},
             'library_ms': None, **r, **extra})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(card, flush=True)

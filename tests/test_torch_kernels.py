@@ -7,21 +7,25 @@ package, so it also runs on a machine with a card and no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output,
-the per-instance medians (K6), the median-5 and laplacian (K7) and the
-NMS keep sets (K8). Within the stated tolerance: splat sums, bokeh and
-the dynamic mask heads (K9).
+the per-instance medians (K6), the median-5 and laplacian (K7), the
+NMS keep sets (K8), the colorize (K5b) and the cloud compaction (K10).
+Within the stated tolerance: splat sums, bokeh, the dynamic mask heads
+(K9), the frame epilogue (K5a) and SAM's rel-pos attention (K15a).
 """
 import numpy as np
 import pytest
 import torch
 
 from cartoonsegmentation_torch.models import rtmdet as trtmdet
+from cartoonsegmentation_torch.models import sam as tsam
 from cartoonsegmentation_torch.ops import _cuda
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
 from cartoonsegmentation_torch.ops import filters as tfilters
 from cartoonsegmentation_torch.ops import pointcloud as tpc
 from cartoonsegmentation_torch.pipeline import depth as tdepth
+from cartoonsegmentation_torch.pipeline import state as tstate
+from cartoonsegmentation_torch.utils import image as timage
 
 
 @pytest.fixture
@@ -186,6 +190,83 @@ def test_mask_heads_kernel_vs_plain(rng, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('crop,out', [((60, 100), (60, 100)),
+                                      ((59, 99), (64, 128)),
+                                      ((58, 101), (64, 128))])
+def test_epilogue_kernel_vs_plain(rng, cuda, crop, out):
+    """A crop at a half-pixel corner kept at its size, and two resized
+    to the frame (integral and mixed corners); the frame is a view of
+    the filled (H, W, 4) buffer with values outside [0, 1]."""
+    buf = torch.from_numpy(rng.rand(64, 128, 4).astype(np.float32) * 1.2
+                           - 0.1).to(cuda)
+    frame = buf[..., :3]
+    i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=torch.uint8,
+                       device=cuda)
+    got = timage.frame_epilogue(frame, *crop, *out, i420=i420)
+    want = timage.frame_epilogue_plain(frame, *crop, *out)
+    d = (got.int() - want.int()).abs()
+    # the bilinear sum may sit an ulp from torch's FMA-contracted kernel
+    assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.9999
+    assert torch.equal(i420, timage.bgr_to_i420(got[None])[0])
+
+
+@pytest.mark.gpu
+def test_colorize_kernel_vs_plain(rng, cuda):
+    buf = torch.from_numpy(rng.rand(72, 130, 4).astype(np.float32)
+                           * 300).to(cuda)
+    for x in (buf[..., 3], buf[..., 1].contiguous(), buf[:1, :5, 0]):
+        assert torch.equal(tdepth.colorize_gray_r(x),
+                           tdepth.colorize_gray_r_plain(x))
+    flat = torch.full((9, 11), 2.5, device=cuda)
+    assert torch.equal(tdepth.colorize_gray_r(flat),
+                       tdepth.colorize_gray_r_plain(flat))
+
+
+def _cloud_args(rng, M, dev):
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.rand(M, 3).astype(np.float32), rng.rand(M, 3).astype(np.float32),
+        rng.rand(M).astype(np.float32), rng.rand(M).astype(np.float32))]
+
+
+@pytest.mark.gpu
+def test_compact_kernel_vs_plain(rng, cuda):
+    """Three appends into a 5000-slot cloud, the last one overflowing,
+    with no host sync in the kernel's path."""
+    P = 5000
+    kern = tstate.PointCloud.with_capacity(P, cuda)
+    plain = tstate.PointCloud.with_capacity(P, cuda)
+    for M, p in ((3000, 0.5), (2100, 0.9), (4000, 0.7)):
+        args = _cloud_args(rng, M, cuda)
+        mask = torch.from_numpy(rng.rand(M) < p).to(cuda)
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            kern = kern.append_masked(*args, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        tstate.append_masked_plain(plain, *args, mask)
+        for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+            assert torch.equal(getattr(kern, k), getattr(plain, k)), k
+    assert int(kern.count) == P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,side,hd', [(3, 14, 64), (1, 20, 64), (2, 7, 80)])
+def test_samattn_kernel_vs_plain(rng, cuda, B, side, hd):
+    """Windowed (14 x 14) and global-like grids, random q, k, v and
+    rel-pos terms; f32 sums in another order than the plain matmuls."""
+    n, N = 3, side * side
+    qkv = torch.from_numpy(rng.randn(B, N, 3, n, hd).astype(np.float32)
+                           ).to(cuda)
+    bh = torch.from_numpy(rng.randn(B, n, N, side).astype(np.float32)
+                          ).to(cuda)
+    bw = torch.from_numpy(rng.randn(B, n, N, side).astype(np.float32)
+                          ).to(cuda)
+    got = tsam.rel_pos_attention(qkv, bh, bw, side, side)
+    want = tsam.rel_pos_attention_plain(qkv, bh, bw, side, side)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
 def test_wrappers_count_launches_and_check_inputs(rng, cuda):
     _cuda.reset_launches()
     pts = _cloud(rng, 500).to(cuda)
@@ -222,6 +303,14 @@ def test_wrappers_take_the_plain_version_only_on_cpu(rng, monkeypatch):
     trtmdet.dynamic_masks(torch.zeros((4, 5, 8)), torch.zeros((3, 169)),
                           torch.zeros((3, 2)), torch.ones((3,)),
                           torch.ones((3,), dtype=torch.bool), 32, 40, 0.3)
+    timage.frame_epilogue(img[..., :3], 20, 30, 24, 34,
+                          i420=torch.empty((36, 34), dtype=torch.uint8))
+    tdepth.colorize_gray_r(depth)
+    cloud = tstate.PointCloud.with_capacity(40)
+    cloud.append_masked(*_cloud_args(rng, 30, 'cpu'), torch.ones(30) > 0)
+    tsam.rel_pos_attention(torch.zeros((2, 6, 3, 2, 4)),
+                           torch.zeros((2, 2, 6, 2)),
+                           torch.zeros((2, 2, 6, 3)), 2, 3)
     assert _cuda.LAUNCHES == before
 
 

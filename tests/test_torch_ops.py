@@ -352,6 +352,41 @@ def test_bgr_to_i420_bytes_vs_jax_and_cv2(rng):
     assert d.max() <= 1 and (d > 0).mean() < 0.02
 
 
+@pytest.mark.parametrize('crop,out', [((30, 50), (36, 60)),
+                                      ((31, 49), (36, 60)),
+                                      ((29, 50), (36, 60)),
+                                      ((31, 50), (32, 58)),
+                                      ((32, 50), (32, 50)),
+                                      ((31, 49), (31, 49))])
+def test_frame_epilogue_vs_jax(rng, crop, out):
+    """K5a's plain version against the JAX frame loop's tail (clip →
+    crop_center_resize → clip → ×255 + 0.5 → uint8) on a view of a
+    filled (H, W, 4) buffer with values outside [0, 1]: resized crops
+    at integral, half-pixel and mixed corners, and crops kept at their
+    size (the resize skipped); the I420 bytes are the JAX packer's of
+    those BGR bytes."""
+    buf = (rng.rand(36, 60, 4) * 1.2 - 0.1).astype(np.float32)
+    frame = jnp.clip(jnp.asarray(buf[..., :3]), 0.0, 1.0)
+    want = np.asarray((jnp.clip(jimage.crop_center_resize(
+        frame, *crop, *out), 0.0, 1.0) * 255.0 + 0.5).astype(jnp.uint8))
+    i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=torch.uint8) \
+        if out[0] % 4 == 0 else None
+    got = timage.frame_epilogue(_t(buf)[..., :3], *crop, *out, i420=i420)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if i420 is not None:
+        np.testing.assert_array_equal(
+            i420.numpy(), _np(jimage.bgr_to_i420(jnp.asarray(want[None]))[0]))
+
+
+def test_colorize_of_a_channel_view_vs_jax(rng):
+    """K5b on the filled frame's depth channel, a strided view, as the
+    frame loop calls it."""
+    buf = rng.rand(24, 30, 4).astype(np.float32) * 300
+    np.testing.assert_array_equal(
+        tdepth.colorize_gray_r(_t(buf)[..., 3]).numpy(),
+        _np(jdepth.colorize_gray_r(jnp.asarray(buf[..., 3]))))
+
+
 def test_i420_to_bgr_numpy_twin_matches_cv2(rng, monkeypatch):
     cv2 = pytest.importorskip('cv2')
     yuv = rng.randint(0, 256, (2, 24, 32)).astype(np.uint8)
@@ -463,6 +498,29 @@ def test_append_masked_vs_jax(rng):
                                       _np(getattr(jc, k)))
     np.testing.assert_array_equal(tc.shrink_to(64).points.numpy(),
                                   _np(jc.shrink_to(64).points))
+
+
+def test_append_masked_overflow_in_one_call_vs_jax(rng):
+    """K10's plain version: an append that crosses the capacity inside
+    one call keeps the first entries in index order and clamps the
+    count; the cloud appended to is left as it was."""
+    M, P = 400, 150
+    args = [rng.rand(M, 3), rng.rand(M, 3), rng.rand(M), rng.rand(M)]
+    args = [a.astype(np.float32) for a in args]
+    m0, m1 = rng.rand(M) < 0.1, rng.rand(M) < 0.5
+    jc = JCloud.with_capacity(P)
+    tc = TCloud.with_capacity(P)
+    for m in (m0, m1):
+        jc = jc.append_masked(*map(jnp.asarray, args), jnp.asarray(m))
+        before = tc.clone()
+        out = tc.append_masked(*map(_t, args), _t(m))
+        for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+            assert torch.equal(getattr(tc, k), getattr(before, k)), k
+        tc = out
+    assert int(tc.count) == P
+    for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+        np.testing.assert_array_equal(getattr(tc, k).numpy(),
+                                      _np(getattr(jc, k)))
 
 
 # ---------------------------------------------------------------------------

@@ -155,27 +155,31 @@ def test_frames(both):
         (close1, close6, mean)
 
 
-def test_inpaint_and_render_from_the_same_state(both):
-    """The JAX package's state handed to the port: the inpaint passes
-    append the same number of points at the same places (to f32 conv
-    noise), and the frames agree but for the boundary case above.
-    Measured: 99.7% within 1 LSB, mean 0.02."""
+def _port_state(sj):
+    """The JAX package's KenBurnsState as the port's, on the CPU."""
     from cartoonsegmentation_torch.instances import Instances
     from cartoonsegmentation_torch.pipeline.state import (KenBurnsState,
                                                           PointCloud)
-    tp, jp, sj = both['tp'], both['jp'], both['state_j']
-    boxes = both['boxes_j']
 
     def t(a):
         return torch.from_numpy(np.array(a))
-    st = KenBurnsState(
+    return KenBurnsState(
         image=t(sj.image), disparity=t(sj.disparity), depth=t(sj.depth),
         raw_points=t(sj.raw_points), depth_min=t(sj.depth_min),
         depth_min_u=t(sj.depth_min_u), depth_min_v=t(sj.depth_min_v),
         cloud=PointCloud(*(t(getattr(sj.cloud, k)) for k in (
             'points', 'colors', 'disparity', 'depth', 'count'))),
         instances=Instances.empty(TConfig().max_instances, H, W))
-    st = tp.inpaint_extremes(st, *boxes)
+
+
+def test_inpaint_and_render_from_the_same_state(both):
+    """The JAX package's state handed to the port: the inpaint passes
+    append the same number of points at the same places (to f32 conv
+    noise), and the frames agree but for the boundary case above.
+    Measured: 99.7% within 1 LSB, mean 0.02."""
+    tp, jp, sj = both['tp'], both['jp'], both['state_j']
+    boxes = both['boxes_j']
+    st = tp.inpaint_extremes(_port_state(sj), *boxes)
     sj = jp.inpaint_extremes(sj, *boxes)
     n = int(st.cloud.count)
     assert n == int(sj.cloud.count)
@@ -186,6 +190,25 @@ def test_inpaint_and_render_from_the_same_state(both):
     close1, mean = _agreement(tp.render_frames(st, *boxes, steps),
                               jp.render_frames(sj, *boxes,
                                                np.asarray(steps)))
+    assert close1 >= 0.99 and mean < 0.1, (close1, mean)
+
+
+def test_process_kenburns_twice_on_one_state(both):
+    """The inpaint passes leave the caller's state as it was, as the
+    JAX package's immutable state does: a second process_kenburns on
+    the same state renders the same frames, and both agree with the
+    JAX package's frames from that state. Measured: 99.8% within
+    1 LSB, mean 0.015."""
+    tp, sj = both['tp'], both['state_j']
+    boxes = both['boxes_j']
+    st = _port_state(sj)
+    before = st.cloud.clone()
+    first = tp.process_kenburns(st, *boxes)
+    for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+        assert torch.equal(getattr(st.cloud, k), getattr(before, k)), k
+    second = tp.process_kenburns(st, *boxes)
+    np.testing.assert_array_equal(first, second)
+    close1, mean = _agreement(second, both['frames_j'])
     assert close1 >= 0.99 and mean < 0.1, (close1, mean)
 
 
@@ -202,6 +225,25 @@ def test_streamed_video_matches_the_frames(both, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert (tmp_path / 'clip.mp4').exists() or \
         (tmp_path / 'clip.yuv').exists()
+
+
+def test_streamed_i420_bytes_vs_jax_packer(both, tmp_path, monkeypatch):
+    """The stream writes each frame's I420 from the K5a epilogue into
+    the chunk's buffer: without cv2 the raw .yuv file holds exactly the
+    JAX ``bgr_to_i420`` bytes of the port's frames, the palindrome
+    tail included."""
+    import sys
+    from cartoonsegmentation_tpu.utils.image import bgr_to_i420 as jpack
+    monkeypatch.setitem(sys.modules, 'cv2', None)
+    tp = both['tp']
+    state, (obj_from, obj_to) = tp.last_state, tp.last_boxes
+    steps = np.linspace(0.0, 1.0, CFG['num_frame'])
+    tp.render_frames_stream(state, obj_from, obj_to, steps,
+                            str(tmp_path / 'clip.mp4'), chunk=3)
+    raw = np.fromfile(tmp_path / 'clip.yuv', np.uint8)
+    want = np.asarray(jpack(jnp.asarray(both['frames_t'])))
+    want = np.concatenate([want, want[::-1][1:-1]])
+    np.testing.assert_array_equal(raw.reshape(want.shape), want)
 
 
 def test_cli_writes_the_clip(tmp_path, capsys):
