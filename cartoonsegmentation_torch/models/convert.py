@@ -1,15 +1,16 @@
 """Carry the JAX package's Flax parameter trees into the port.
 
 ``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax``,
-``isnet_from_flax`` and ``sam_from_flax`` turn a Flax tree (numpy
-arrays, or anything ``np.asarray`` takes) into a ``state_dict`` of the
-port's ``Inpaint``, ``LeReS``, ``AnimeDetector``, ``ISNetDIS`` and
-``SAM``. Each walks the port module's own keys and looks up the Flax
-path that the JAX package's converters (``models/convert.py:
-convert_inpaint``, ``models/leres.py:convert_leres``,
-``models/convert_rtmdet.py:convert_rtmdet``, ``models/isnet.py:
-convert_isnet``, ``models/sam.py:convert_sam``) write for that
-checkpoint key, so the two directions stay inverse to each other.
+``isnet_from_flax``, ``sam_from_flax`` and ``maskrcnn_from_flax`` turn
+a Flax tree (numpy arrays, or anything ``np.asarray`` takes) into a
+``state_dict`` of the port's ``Inpaint``, ``LeReS``, ``AnimeDetector``,
+``ISNetDIS``, ``SAM`` and ``MaskRCNN``. Each walks the port module's
+own keys and looks up the Flax path that the JAX package's converters
+(``models/convert.py:convert_inpaint``, ``models/leres.py:
+convert_leres``, ``models/convert_rtmdet.py:convert_rtmdet``,
+``models/isnet.py:convert_isnet``, ``models/sam.py:convert_sam``,
+``models/maskrcnn.py:convert_maskrcnn``) write for that checkpoint
+key, so the two directions stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
 Dense kernel (in, out) → Linear (out, in); ConvTranspose kernel →
@@ -404,6 +405,69 @@ def sam_from_flax(variables: Mapping, module: Optional[nn.Module] = None
         path, fn = loc
         arr = np.ascontiguousarray(fn(_fetch(params, path)))
         t = torch.from_numpy(arr)
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '
+                             f'{tuple(v.shape)}')
+        out[k] = t.to(v.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mask R-CNN
+# ---------------------------------------------------------------------------
+
+def _leaf(name: str, layout) -> Tuple[str, object]:
+    """torch leaf → (Flax leaf, layout function) for a weight/bias."""
+    return ('kernel', layout) if name == 'weight' else ('bias', _same)
+
+
+def maskrcnn_flax_path(key: str):
+    """(Flax path under 'params', layout function) of one ``MaskRCNN``
+    state_dict key: the inverse of the JAX ``convert_maskrcnn``."""
+    parts = key.split('.')
+    if parts[0] == 'backbone' and parts[1] == 'body':
+        rest = parts[2:]
+        if rest[0] == 'conv1':
+            return ('body', 'conv1', 'kernel'), _conv
+        if rest[0] == 'bn1':
+            return ('body', 'bn1', rest[1]), _same
+        blk = ('body', f'{rest[0]}_{rest[1]}')
+        sub = rest[2:]
+        if sub[0] == 'downsample':
+            if sub[1] == '0':
+                return blk + ('down0', 'kernel'), _conv
+            return blk + ('down1', sub[2]), _same
+        if sub[0].startswith('conv'):
+            return blk + (sub[0], 'kernel'), _conv
+        return blk + (sub[0], sub[1]), _same
+    if parts[0] == 'backbone':                   # backbone.fpn.*
+        kind, i, leaf = parts[2], parts[3], parts[4]
+        flax_leaf, fn = _leaf(leaf, _conv)
+        name = ('inner' if kind == 'inner_blocks' else 'layer') + i
+        return ('fpn', name, flax_leaf), fn
+    if parts[0] == 'rpn':                        # rpn.head.*
+        flax_leaf, fn = _leaf(parts[3], _conv)
+        return ('rpn_head', parts[2], flax_leaf), fn
+    head, name, leaf = parts[1], parts[2], parts[3]   # roi_heads.*
+    if head in ('box_head', 'box_predictor'):
+        flax_leaf, fn = _leaf(leaf, _lin)
+        return ('box_head', name, flax_leaf), fn
+    flax_leaf, fn = _leaf(leaf, _deconv if name == 'conv5_mask' else _conv)
+    return ('mask_head', name, flax_leaf), fn
+
+
+def maskrcnn_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax ``MaskRCNN`` variables ({'params': ...}) → the port's
+    ``MaskRCNN`` state_dict, whose keys are torchvision's (legacy
+    nesting)."""
+    from .maskrcnn import MaskRCNN
+    module = module or MaskRCNN()
+    params = variables['params']
+    out = {}
+    for k, v in module.state_dict().items():
+        path, fn = maskrcnn_flax_path(k)
+        t = torch.from_numpy(np.ascontiguousarray(fn(_fetch(params, path))))
         if tuple(t.shape) != tuple(v.shape):
             raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '
                              f'{tuple(v.shape)}')

@@ -1,0 +1,152 @@
+"""Exact disocclusion fill (K11): port of
+``cartoonsegmentation_tpu/ops/discfill.py:fill_disocclusion``
+(``discfill_mode: exact``).
+
+For every hole pixel (depth <= 0), rays are marched in 16 directions
+both ways, at most ``max_steps`` steps each, to the first valid pixel;
+leaving the frame fails the way. Where both ways of a direction find a
+pixel, the direction with the shortest gap between the two wins (strict
+>, the first direction keeps a tie) and the hole copies the endpoint
+that is farther in depth. The step s of direction d̂ from pixel p
+visits p ± round(s·d̂) with C rounding (``offset_table``, computed on
+the host in float64 as the JAX package does).
+
+- ``fill_disocclusion_plain``: the march step by step in torch over the
+  hole pixels, all 16 directions at once.
+- ``csrc/discfill_exact.cu``: one thread per pixel, the table in
+  constant memory. The wrapper ``fill_disocclusion`` picks by device.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+# direction table, reference common.py:171-172 (discfill.py:_DIR_X/_DIR_Y)
+_DIR_X = np.array([-1, 0, 1, 1, -1, 1, 2, 2, -2, -1, 1, 2, 3, 3, 3, 3],
+                  np.float64)
+_DIR_Y = np.array([1, 1, 1, 0, 2, 2, 1, -1, 3, 3, 3, 3, 2, 1, -1, -2],
+                  np.float64)
+
+_CHUNK = 16
+BIG = 1000000.0
+# the kernel keeps the table in 32 KB of constant memory
+MAX_KERNEL_STEPS = 256
+
+
+def _c_round(v: np.ndarray) -> np.ndarray:
+    """C round(): half away from zero (np.round is half-to-even)."""
+    return np.sign(v) * np.floor(np.abs(v) + 0.5)
+
+
+def round_steps(max_steps: int) -> int:
+    """The step count the march runs: a multiple of 16, at least 16
+    (the JAX version's chunking)."""
+    return max(_CHUNK, (max_steps // _CHUNK) * _CHUNK)
+
+
+@functools.lru_cache(maxsize=8)
+def offset_table(max_steps: int) -> np.ndarray:
+    """(16, K, 2) int32 (dy, dx) offsets of the '+dir' way; the '-dir'
+    way negates them. Step s visits p + round(s·d̂), d̂ the unit
+    direction, in float64 (C round is odd-symmetric, so the backward
+    walk is the exact negation)."""
+    norm = np.sqrt(_DIR_X ** 2 + _DIR_Y ** 2)
+    dx, dy = _DIR_X / norm, _DIR_Y / norm
+    s = np.arange(1, max_steps + 1, dtype=np.float64)
+    offx = _c_round(s[None, :] * dx[:, None]).astype(np.int32)
+    offy = _c_round(s[None, :] * dy[:, None]).astype(np.int32)
+    return np.stack([offy, offx], axis=-1)
+
+
+def _first_hit(depth: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+               offs: torch.Tensor):
+    """First event of one way for every (direction, pixel): offs (16,
+    K, 2); py, px (n,). Returns (found, ey, ex, ed), each (16, n)."""
+    H, W = depth.shape
+    n = py.shape[0]
+    active = torch.ones((16, n), dtype=torch.bool, device=depth.device)
+    found = torch.zeros_like(active)
+    ey = py[None].expand(16, n).clone()
+    ex = px[None].expand(16, n).clone()
+    ed = torch.zeros((16, n), dtype=depth.dtype, device=depth.device)
+    for s in range(offs.shape[1]):
+        qy = py[None] + offs[:, s, 0:1]
+        qx = px[None] + offs[:, s, 1:2]
+        inb = (qy >= 0) & (qy < H) & (qx >= 0) & (qx < W)
+        d = depth[qy.clamp(0, H - 1), qx.clamp(0, W - 1)]
+        hit = inb & (d > 0.0)
+        upd = active & hit
+        found |= upd
+        ey = torch.where(upd, qy, ey)
+        ex = torch.where(upd, qx, ex)
+        ed = torch.where(upd, d, ed)
+        active &= ~(hit | ~inb)
+    return found, ey, ex, ed
+
+
+def fill_disocclusion_plain(img: torch.Tensor, depth: torch.Tensor,
+                            max_steps: int = 128) -> torch.Tensor:
+    """Plain version of K11. img (H, W, C), depth (H, W)."""
+    H, W = depth.shape
+    dev = depth.device
+    K = round_steps(max_steps)
+    offs = torch.from_numpy(offset_table(K)).long().to(dev)
+    hole = (depth <= 0.0).reshape(-1).nonzero()[:, 0]
+    py, px = hole // W, hole % W
+    f_from, fy, fx, fd = _first_hit(depth, py, px, -offs)
+    f_to, ty, tx, td = _first_hit(depth, py, px, offs)
+    ok = f_from & f_to
+    dist = torch.sqrt((tx - fx).float() ** 2 + (ty - fy).float() ** 2)
+    use_to = fd < td
+    ny = torch.where(use_to, ty, fy)
+    nx = torch.where(use_to, tx, fx)
+    best_d = torch.full(py.shape, BIG, dtype=torch.float32, device=dev)
+    by, bx = py, px
+    for d in range(16):                      # strict: the first wins
+        better = ok[d] & (best_d > dist[d])
+        best_d = torch.where(better, dist[d], best_d)
+        by = torch.where(better, ny[d], by)
+        bx = torch.where(better, nx[d], bx)
+    out = img.clone()
+    out[py, px] = img[by, bx]
+    return out
+
+
+_tables: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor,
+                      max_steps: int = 128) -> torch.Tensor:
+    """K11 wrapper: the plain version on the CPU,
+    csrc/discfill_exact.cu on CUDA. img (H, W, C) f32, depth (H, W) f32
+    → (H, W, C). ``max_steps`` is rounded as ``round_steps`` does."""
+    if img.device.type == 'cpu':
+        return fill_disocclusion_plain(img, depth, max_steps)
+    dev = img.device
+    img = img.contiguous()
+    depth = depth.contiguous()
+    _cuda.check(img, 'img', torch.float32, 3, dev)
+    _cuda.check(depth, 'depth', torch.float32, 2, dev)
+    H, W, C = img.shape
+    if depth.shape != (H, W):
+        raise ValueError(f'depth {tuple(depth.shape)} does not match img '
+                         f'{tuple(img.shape)}')
+    K = round_steps(max_steps)
+    if K > MAX_KERNEL_STEPS:
+        raise ValueError(f'max_steps {max_steps} rounds to {K}: the kernel '
+                         f'takes at most {MAX_KERNEL_STEPS} steps')
+    key = (K, dev)
+    if key not in _tables:
+        _tables[key] = torch.from_numpy(offset_table(K)).to(dev)
+    out = torch.empty_like(img)
+    p, i = _cuda.P, _cuda.I
+    _cuda.launch('discfill_exact', 'kb_discfill_exact',
+                 [p, p, p, i, i, i, i, p, p],
+                 img.data_ptr(), depth.data_ptr(), _tables[key].data_ptr(), K,
+                 H, W, C, out.data_ptr(), _cuda.stream_ptr(img))
+    return out

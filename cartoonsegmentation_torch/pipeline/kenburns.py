@@ -11,11 +11,13 @@ per-instance median, and the frame loop (shift → K1 splat → K3 fill →
 K5b colorize → K4 bokeh → K5a crop/resize/uint8/I420 → video); the K7
 laplacian builds every validity mask. ``detector: sam`` re-masks the
 AnimeInsSeg boxes with SAM (its encoder attention is K15a);
-``detector: none`` skips the detector. What the port does not run yet
-raises NotImplementedError: the maskrcnn detector, the animeseg
-refine, depth estimators other than LeReS, the depth refine net, the
-CRF, inpaint types other than 'default' (the sd-webui ``ldm`` of
-3dkenburns_sam.yaml among them) and ``discfill_mode: exact``.
+``detector: maskrcnn`` runs torchvision's COCO Mask R-CNN (RoIAlign
+K14a, NMS K14b); ``detector: none`` skips the detector.
+``discfill_mode: exact`` fills with the K11 ray march in place of K3.
+What the port does not run yet raises NotImplementedError: the
+animeseg refine, depth estimators other than LeReS, the depth refine
+net, the CRF and inpaint types other than 'default' (the sd-webui
+``ldm`` of 3dkenburns_sam.yaml among them).
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -43,7 +45,7 @@ from ..models.kenburns import Inpaint
 from ..models.leres import LeReS, _normalize_leres_keys, leres_postprocess
 from ..ops.bokeh import bokeh_blur
 from ..ops.camera import autozoom, compute_shift, depth_range
-from ..ops.discfill3 import fill_disocclusion
+from ..ops import discfill, discfill3
 from ..ops.filters import valid_depth_mask
 from ..ops.pointcloud import (depth_to_points, render_pointcloud,
                               shift_points, true_div)
@@ -61,9 +63,9 @@ LOGGER = logging.getLogger('cartoonsegmentation_torch')
 def _check_supported(cfg: KenBurnsConfig) -> None:
     """Raise for the options this slice of the port does not run."""
     todo = []
-    if cfg.detector not in ('none', '', 'animeinsseg', 'sam'):
+    if cfg.detector not in ('none', '', 'animeinsseg', 'sam', 'maskrcnn'):
         todo.append(f"detector={cfg.detector!r} (only 'animeinsseg', "
-                    "'sam', 'none')")
+                    "'sam', 'maskrcnn', 'none')")
     if cfg.detector == 'animeinsseg' and \
             cfg.refine_method not in ('none', '', 'refinenet_isnet'):
         todo.append(f"refine_method={cfg.refine_method!r} (only "
@@ -76,8 +78,6 @@ def _check_supported(cfg: KenBurnsConfig) -> None:
         todo.append('refine_crf')
     if cfg.inpaint_type != 'default':
         todo.append(f"inpaint_type={cfg.inpaint_type!r} (only 'default')")
-    if cfg.discfill_mode != 'fast':
-        todo.append(f"discfill_mode={cfg.discfill_mode!r} (only 'fast')")
     if todo:
         raise NotImplementedError(
             'not ported to cartoonsegmentation_torch yet: '
@@ -181,8 +181,8 @@ class KenBurnsPipeline:
     def load_detector_checkpoints(self, det: Optional[str] = None,
                                   sam: Optional[str] = None) -> None:
         """Route detector weights to the configured family: animeinsseg
-        (an mmdet rtmdetl checkpoint) or sam (rtmdetl + an official
-        sam_vit_*.pth)."""
+        (an mmdet rtmdetl checkpoint), sam (rtmdetl + an official
+        sam_vit_*.pth) or maskrcnn (a torchvision COCO .pth)."""
         self.ensure_detector()
         d = self._detector
         if d is None:
@@ -195,13 +195,22 @@ class KenBurnsPipeline:
             d.load_torch_checkpoint(det)
 
     def set_detector(self, detector) -> None:
-        """Install a detector name from the config ('animeinsseg', 'sam'
-        or 'none'), an AnimeInsSeg, or any img → Instances callable with
-        an ``infer(img, pred_score_thr)`` method. Parity:
+        """Install a detector name from the config ('animeinsseg', 'sam',
+        'maskrcnn' or 'none'), an AnimeInsSeg, or any img → Instances
+        callable with an ``infer(img, pred_score_thr)`` method. Parity:
         kenburns_effect.py:831-860."""
         if isinstance(detector, str):
             if detector in ('none', ''):
                 self._detector = None
+                return
+            if detector == 'maskrcnn':
+                # the reference's COCO torchvision model
+                # (kenburns_effect.py:843-845, 874-886)
+                from .maskrcnn_det import MaskRCNNDetector
+                seg = MaskRCNNDetector(capacity=self.cfg.max_instances,
+                                       seed=self._seed, device=self.device)
+                seg.timer = self.timer
+                self._detector = seg
                 return
             if detector in ('animeinsseg', 'sam'):
                 from .segment import AnimeInsSeg
@@ -225,7 +234,7 @@ class KenBurnsPipeline:
             raise NotImplementedError(
                 f'detector {detector!r} is not ported to '
                 "cartoonsegmentation_torch yet (only 'animeinsseg', "
-                "'sam', 'none')")
+                "'sam', 'maskrcnn', 'none')")
         self._detector = detector
 
     def ensure_detector(self) -> None:
@@ -422,8 +431,17 @@ class KenBurnsPipeline:
                               1)
         return torch.from_numpy(cams).to(self.device)
 
+    def _fill(self, img: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """The disocclusion fill of cfg.discfill_mode: K3 for 'fast',
+        else (as the JAX package's ``_render_builders``) the K11 ray
+        march of cfg.discfill_max_steps."""
+        if self.cfg.discfill_mode == 'fast':
+            return discfill3.fill_disocclusion(img, depth)
+        return discfill.fill_disocclusion(img, depth,
+                                          self.cfg.discfill_max_steps)
+
     def _splat_fill(self, state: KenBurnsState, cam: torch.Tensor):
-        """Shift → K1 splat → K3 fill; (H, W, 4) BGR + depth."""
+        """Shift → K1 splat → K3 or K11 fill; (H, W, 4) BGR + depth."""
         cfg = self.cfg
         H, W = state.hw
         dr = state.depth_range
@@ -433,8 +451,7 @@ class KenBurnsPipeline:
         data = torch.cat([state.cloud.colors, state.cloud.depth[:, None]], 1)
         render, existing = render_pointcloud(pts, data, H, W, cfg.focal,
                                              cfg.baseline)
-        return fill_disocclusion(
-            render, render[..., 3] * (existing[..., 0] > 0))
+        return self._fill(render, render[..., 3] * (existing[..., 0] > 0))
 
     def focal_planes(self, state: KenBurnsState, cams: torch.Tensor,
                      depth_field: bool):

@@ -1,14 +1,16 @@
 """Instance segmentation CLI of the PyTorch port.
 
   python -m cartoonsegmentation_torch.run_segmentation \
-      --input photo.png --save-dir out [--detector sam] [--save-json a.json]
+      --input photo.png --save-dir out [--detector sam|maskrcnn] \
+      [--save-json a.json]
 
 Runs AnimeInsSeg (or its boxes re-masked by SAM with ``--detector
-sam``) on an image or every image of a directory, writes each image
-with its instances drawn to --save-dir, and with --save-json the
-COCO-style annotations (compressed RLE masks). Nets without a
-checkpoint have random weights made from a fixed seed. Needs cv2 to read,
-draw and write the images.
+sam``, or torchvision's COCO Mask R-CNN with ``--detector maskrcnn``)
+on an image or every image of a directory, writes each image with its
+instances drawn to --save-dir, and with --save-json the COCO-style
+annotations (compressed RLE masks). Nets without a checkpoint have
+random weights made from a fixed seed. Needs cv2 to read, draw and
+write the images.
 """
 from __future__ import annotations
 
@@ -23,12 +25,15 @@ def main(argv=None) -> None:
     ap.add_argument('--input', required=True, help='image file or dir')
     ap.add_argument('--save-dir', default='workspace/output')
     ap.add_argument('--ckpt', default='',
-                    help='torch rtmdetl checkpoint of the box detector')
+                    help='torch rtmdetl checkpoint of the box detector, or '
+                         'the torchvision Mask R-CNN one with --detector '
+                         'maskrcnn')
     ap.add_argument('--score-thr', type=float, default=0.3)
     ap.add_argument('--det-size', type=int, default=640)
     ap.add_argument('--detector', default='animeinsseg',
                     choices=('animeinsseg', 'sam', 'maskrcnn'),
-                    help="'sam' re-masks the AnimeInsSeg boxes with SAM")
+                    help="'sam' re-masks the AnimeInsSeg boxes with SAM; "
+                         "'maskrcnn' is the COCO model")
     ap.add_argument('--sam-ckpt', default='',
                     help='official sam_vit_*.pth')
     ap.add_argument('--save-json', default='',
@@ -38,16 +43,16 @@ def main(argv=None) -> None:
                          'plain versions of the kernels)')
     args = ap.parse_args(argv)
 
-    if args.detector == 'maskrcnn':
-        raise NotImplementedError(
-            'the maskrcnn detector is not ported to cartoonsegmentation_torch '
-            'yet (its RoIAlign and per-class NMS kernels are queued)')
     import cv2
     from .data.coco_export import instances_to_coco
     from .pipeline.segment import AnimeInsSeg
     from .utils.constants import CATEGORIES
 
-    seg = AnimeInsSeg(det_size=args.det_size, device=args.device)
+    if args.detector == 'maskrcnn':
+        from .pipeline.maskrcnn_det import MaskRCNNDetector
+        seg = MaskRCNNDetector(device=args.device)
+    else:
+        seg = AnimeInsSeg(det_size=args.det_size, device=args.device)
     if args.ckpt:
         seg.load_torch_checkpoint(args.ckpt)
     if args.detector == 'sam':

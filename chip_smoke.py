@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the 13 CUDA
+1. prints the card, torch and CUDA versions, and builds the 16 CUDA
    kernel libraries (csrc/*.cu, one kernel each) with nvcc, all at once;
 2. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes (576x1024; K1 with C = 4 and C = 68; K6 over
+   the main paths' shapes (576x1024; K1 with C = 4 and C = 68; K6 over
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
    K5a at the path's crop and at a crop kept at its size; K10 with an
    overflow, under the sync debug mode; K15a at SAM ViT-B's windowed
-   and global blocks, beside SDPA with the bias prebuilt) and times
-   both with CUDA events around one call on an idle card (median of
-   runs on varied inputs);
+   and global blocks, beside SDPA with the bias prebuilt; K11 on the
+   rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
+   over the 768x1344 canvas's pyramid; K14b at K = 4,756 and 2,048 with
+   -inf scores and category offsets) and times both with CUDA events
+   around one call on an idle card (median of runs on varied inputs);
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -44,7 +46,19 @@
    the stated tolerances; then ``SamDetector.infer`` →
    ``instances_to_coco`` on the card, whose RLEs must decode to the
    masks exactly;
-10. prints one {"kernels": [...]} line, then the card line and the
+10. runs the Mask R-CNN path with the exact fill,
+   ``KenBurnsConfig(detector='maskrcnn', discfill_mode='exact')``, with
+   the seeded Mask R-CNN set so that detections survive
+   (``edged_maskrcnn``): K11, K14a and K14b launched and K3 did not,
+   the instances, the disparity, the frames and 3 of them against the
+   CPU;
+11. runs Mask R-CNN in f32 on the card and on the CPU
+   (``compare_maskrcnn``: the CPU machinery on the card's outputs exact,
+   the whole detector's detections the same set within the stated
+   tolerances), then
+   ``run_segmentation --detector maskrcnn`` on the card with those
+   weights, whose RLEs must decode to the masks exactly;
+12. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -252,6 +266,22 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
           f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), '
           f'bit-exact', flush=True)
 
+    # --- K11 exact fill: the same renders, the ray march of 128 steps --
+    from cartoonsegmentation_torch.ops import discfill
+    fk = discfill.fill_disocclusion(*fills[0], 128)
+    fp = discfill.fill_disocclusion_plain(*fills[0], 128)
+    if not torch.equal(fk, fp):
+        fail(f'exact fill differs at {int((fk != fp).any(-1).sum())} pixels')
+    ms = time_ms(lambda x: discfill.fill_disocclusion(*x, 128), fills)
+    plain_ms = time_ms(lambda x: discfill.fill_disocclusion_plain(*x, 128),
+                       fills[:3])
+    b, by = bound(nbytes, 0)
+    res['discfill_exact'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b, bound_by=by)
+    print(f'[kernel] discfill_exact {H}x{W} ({holes:.3%} holes, 128 steps): '
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+          f'({by}), bit-exact', flush=True)
+
     # --- K4 bokeh: filled frames, weights from their depth ------------
     bok = []
     for i, (r, _) in enumerate(fills):
@@ -285,6 +315,99 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     res.update(check_detector_kernels(dev, gen, depth_maps, existing))
     res.update(check_frame_kernels(dev, filled))
     res.update(check_samattn(dev, gen))
+    res.update(check_maskrcnn_kernels(dev, gen))
+    return res
+
+
+# the 768x1344 canvas of a 576x1024 image (min side 800, max side 1333):
+# P2..P5
+CANVAS_LEVELS = ((192, 336), (96, 168), (48, 84), (24, 42))
+
+
+def rpn_like_boxes(gen: torch.Generator, n: int) -> torch.Tensor:
+    """n boxes over the 750x1333 image inside the canvas, of sides 8 to
+    700 px (every pyramid level), some across the border."""
+    c = torch.rand((n, 2), generator=gen) * torch.tensor([1333.0, 750.0])
+    side = 8.0 * torch.exp(torch.rand((n, 2), generator=gen) * 4.5)
+    return torch.cat([c - side / 2, c + side / 2], 1)
+
+
+def check_maskrcnn_kernels(dev, gen) -> dict:
+    """K14a RoIAlign at the box head's (1000, 7x7) and the mask head's
+    (100, 14x14) over the 768x1344 pyramid; K14b NMS at the RPN's
+    K = 4,756 (IoU 0.7, 1000 out, level offsets) and the detection's
+    K = 2,048 (IoU 0.5, 100 out, class offsets), -inf scores present."""
+    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
+    res = {}
+    C = 256
+    rows = sum(h * w for h, w in CANVAS_LEVELS)
+    pyrs = [maskrcnn.flatten_pyramid([
+        torch.randn((1, C, h, w), generator=gen).to(dev)
+        for h, w in CANVAS_LEVELS]) for _ in range(3)]
+    for n, out in ((1000, 7), (100, 14)):
+        cases = [(p, rpn_like_boxes(gen, n).to(dev)) for p in pyrs]
+        got = maskrcnn.roi_align_pyramid(*cases[0], out)
+        want = maskrcnn.roi_align_pyramid_plain(
+            *cases[0], maskrcnn.roi_levels(cases[0][1]), out)
+        err = float((got - want).abs().max())
+        span = float(want.max() - want.min())
+        if err > 1e-5 * span:
+            fail(f'roialign ({n}, {out}): max err {err:.3g} above 1e-5 of '
+                 f'{span:.3g}')
+        ms = time_ms(lambda c: maskrcnn.roi_align_pyramid(*c, out), cases)
+        plain_ms = time_ms(lambda c: maskrcnn.roi_align_pyramid_plain(
+            *c, maskrcnn.roi_levels(c[1]), out), cases)
+        # the pyramid read once, the (n, C, out, out) output written once;
+        # per output value 4 samples of 4 taps (a multiply-add each) and
+        # their 4 weights
+        nbytes = rows * C * 4 + n * 16 + n * C * out * out * 4
+        b, by = bound(nbytes, n * C * out * out * 4 * 12)
+        res[f'roialign_{out}'] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b,
+                                      bound_by=by)
+        print(f'[kernel] roialign ({n}, {C}, {out}, {out}) over {rows} '
+              f'pyramid rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+              f'bound {b:.4f} ms ({by}), max err {err:.3g} of {span:.3g}',
+              flush=True)
+
+    sizes = (1000, 1000, 1000, 1000, 756)
+    for K, thr, n_out, tag in ((4756, 0.7, 1000, 'rpn'),
+                               (2048, 0.5, 100, 'det')):
+        cases = []
+        for _ in range(RUNS):
+            boxes, scores = nms_case(gen, K)
+            boxes = boxes * 2.0
+            scores[torch.rand((K,), generator=gen) < 0.1] = -float('inf')
+            cats = torch.cat([torch.full((k,), i, dtype=torch.int32)
+                              for i, k in enumerate(sizes)]) \
+                if tag == 'rpn' else torch.randint(1, 91, (K,),
+                                                   generator=gen,
+                                                   dtype=torch.int32)
+            cases.append(tuple(t.to(dev) for t in (boxes, scores, cats)))
+
+        def plain(c):
+            extent = c[0].max() + 1.0
+            return rtmdet.nms_fixed_plain(
+                c[0] + (c[2].float() * extent)[:, None], c[1], thr, n_out)
+        kept = []
+        for c in cases[:3]:
+            ki, km = maskrcnn.batched_nms_fixed(*c, thr, n_out)
+            pi, pm = plain(c)
+            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
+                fail(f'nms_large K={K}: keep set differs from the plain '
+                     f'version')
+            kept.append(int(km.sum()))
+        ms = time_ms(lambda c: maskrcnn.batched_nms_fixed(*c, thr, n_out),
+                     cases)
+        plain_ms = time_ms(plain, cases[:3])
+        # the IoUs of the upper triangle, ~12 operations each
+        b, by = bound(K * 20 + n_out * 9, K * (K - 1) / 2 * 12)
+        res[f'nms_large_{tag}'] = dict(max_abs_err=0.0, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b,
+                                       bound_by=by)
+        print(f'[kernel] nms_large K={K} IoU {thr} {n_out} out (kept: '
+              f'{kept}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+              f'{b:.6f} ms ({by}), keep sets exact', flush=True)
     return res
 
 
@@ -816,6 +939,203 @@ def edged_sam(seed: int, img: np.ndarray, share: float = 0.2):
     return net
 
 
+EDGED_CLASS = 1
+
+
+def edged_maskrcnn(seed: int, img: np.ndarray, top: float = 0.03):
+    """Mask R-CNN as ``MaskRCNNDetector(seed=seed)`` makes it (random
+    from the seed), with one row of its class scores set so that
+    detections survive. Random weights give every class a softmax near
+    1/91, under the 0.05 box and 0.3 score thresholds, and class logits
+    that hardly vary between proposals (std ~0.004), so the scores of
+    all proposals sit within ~1e-3 of each other and their order is
+    decided by f32 noise. Here class 1's ``cls_score`` row is scaled so
+    that its logit's spread over the image's valid proposals (from one
+    probe pass of the same net) is 2, and its bias set so that the top
+    ``top`` share of them score above 0.5. Every other weight stays
+    random and every layer runs at full width. Returns the net on the
+    card."""
+    from cartoonsegmentation_torch.models import maskrcnn
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import (
+        MaskRCNNDetector, normalize_pad)
+    probe = MaskRCNNDetector(seed=seed, device='cuda')
+    net = probe._net()
+    head = net.roi_heads.box_predictor.cls_score
+    canvas, _, (nh, nw) = probe.canvas(img)
+    with torch.no_grad():
+        x = normalize_pad(torch.from_numpy(canvas).cuda(), (nh, nw))
+        feats = net.features(x.permute(2, 0, 1)[None].contiguous())
+        props, ps = net.propose(feats, float(nh), float(nw))
+        pyr = maskrcnn.flatten_pyramid(feats[:4])
+        cls, _ = net.box_outputs(maskrcnn.roi_align_pyramid(pyr, props, 7))
+        logits = cls[ps > -float('inf')].double().cpu()
+    z = logits[:, EDGED_CLASS] - float(head.bias.detach()[EDGED_CLASS])
+    others = torch.cat([logits[:, :EDGED_CLASS], logits[:, EDGED_CLASS + 1:]],
+                       1)
+    k = 2.0 / float(z.std())
+    margin = k * z - torch.logsumexp(others, 1)
+    bias = -float(torch.quantile(margin, 1.0 - top))
+    p = torch.sigmoid(margin + bias)
+    with torch.no_grad():
+        head.weight[EDGED_CLASS] *= k
+        head.bias[EDGED_CLASS] = bias
+    print(f'[maskrcnn] edged_maskrcnn: class {EDGED_CLASS} cls_score row x '
+          f'{k:.2f}, bias {bias:.4f}: of {len(logits)} valid probe '
+          f'proposals {int((p > 0.3).sum())} score above 0.3 and '
+          f'{int((p > 0.05).sum())} above 0.05 (two-way estimate)',
+          flush=True)
+    return net
+
+
+def match_detections(a_boxes, a_keys, b_boxes, b_keys):
+    """One-to-one match of two detection sets: each of a to the b of the
+    same key with the nearest box. Returns (b index for each a, max box
+    difference), or (None, inf) unless the sets have one size and the
+    nearest partners are distinct. Slots of detections whose scores lie
+    within f32 noise of each other may swap between devices; the set
+    may not change."""
+    if len(a_boxes) != len(b_boxes):
+        return None, float('inf')
+    if len(a_boxes) == 0:
+        return torch.zeros((0,), dtype=torch.long), 0.0
+    d = (a_boxes[:, None].double() - b_boxes[None].double()).abs().amax(-1)
+    d = torch.where(a_keys[:, None] == b_keys[None], d,
+                    torch.full_like(d, float('inf')))
+    near, idx = d.min(1)
+    if len(set(idx.tolist())) != len(idx):
+        return None, float('inf')
+    return idx, float(near.max())
+
+
+def compare_maskrcnn(img, net) -> None:
+    """Mask R-CNN in f32 on the card and on the CPU, the same weights and
+    image. The CPU machinery on the card's outputs, stage by stage (the
+    RPN head's maps → proposals, the box head's logits → detections)
+    gives the card's keep sets, boxes and scores exactly; the CPU
+    RoIAlign and mask head on the card's pyramid give its mask logits
+    within 1e-4 of their range; the whole detector on the CPU gives the
+    card's detections above the 0.3 score threshold (the detector's
+    output) as a set (``match_detections``): the same count, each with
+    its label and its box within 1e-3 px, and >= 99.9% of the matched
+    pasted mask pixels. (Below the threshold, candidates whose scores
+    lie within f32 noise of each other may swap places in the greedy
+    NMS; none of them can change a detection scored above it.)"""
+    from cartoonsegmentation_torch.models import maskrcnn
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import (
+        MaskRCNNDetector, normalize_pad)
+    dets = {d: MaskRCNNDetector(capacity=100, model=copy.deepcopy(net).to(d),
+                                device=d) for d in ('cuda', 'cpu')}
+    canvas, _, (nh, nw) = dets['cuda'].canvas(img)
+    ih, iw = float(nh), float(nw)
+
+    def cpu(t):
+        return [cpu(v) for v in t] if isinstance(t, (list, tuple)) \
+            else t.cpu()
+    with torch.no_grad():
+        g, c = dets['cuda']._net(), dets['cpu']._net()
+        x = normalize_pad(torch.from_numpy(canvas).cuda(), (nh, nw))
+        x = x.permute(2, 0, 1)[None].contiguous()
+        feats = g.features(x)
+        rpn = g.rpn.head(feats)
+        props, ps = g.proposals_from_rpn(rpn, ih, iw)
+        cprops, cps = c.proposals_from_rpn(cpu(rpn), ih, iw)
+        same_rpn = torch.equal(props.cpu(), cprops) and \
+            torch.equal(ps.cpu(), cps)
+        pyr = maskrcnn.flatten_pyramid(feats[:4])
+        cls, reg = g.box_outputs(maskrcnn.roi_align_pyramid(pyr, props, 7))
+        det = g.boxes_from_heads(cls, reg, props, ps, ih, iw)
+        cdet = c.boxes_from_heads(cls.cpu(), reg.cpu(), props.cpu(),
+                                  ps.cpu(), ih, iw)
+        same_det = all(torch.equal(a.cpu(), b) for a, b in zip(det, cdet))
+        mlog = g.detect_masks(pyr, det[0], det[1])
+        cpyr = maskrcnn.flatten_pyramid(cpu(feats[:4]))
+        cmlog = c.detect_masks(cpyr, cdet[0], cdet[1])
+        mrel = float((mlog.cpu() - cmlog).abs().max()
+                     / (cmlog.max() - cmlog.min()).clamp(min=1e-30))
+        t0 = time.perf_counter()
+        full = {'card': g(x, (nh, nw))}
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full['cpu'] = c(x.cpu(), (nh, nw))
+        t_cpu = time.perf_counter() - t0
+    fk, fc = ({k: v.cpu() for k, v in full[d].items()} for d in
+              ('card', 'cpu'))
+    sel_k = fk['valid'] & (fk['scores'] > 0.3)
+    sel_c = fc['valid'] & (fc['scores'] > 0.3)
+    n_valid, n_cpu = int(sel_k.sum()), int(sel_c.sum())
+    idx, box_diff = match_detections(fk['boxes'][sel_k], fk['labels'][sel_k],
+                                     fc['boxes'][sel_c], fc['labels'][sel_c])
+    slots_moved = idx is not None and not torch.equal(
+        idx, torch.arange(n_valid))
+    ins = {d: det_.infer(img) for d, det_ in dets.items()}
+    ik, ic = ins['cuda'], ins['cpu']
+    vk, vc = ik.valid.cpu(), ic.valid
+    zeros = torch.zeros((int(vk.sum()),))
+    # the Instances carry rounded xywh boxes and no labels
+    mi, _ = match_detections(ik.bboxes.cpu()[vk], zeros, ic.bboxes[vc],
+                             zeros[:int(vc.sum())])
+    mask_same = float((ik.masks.cpu()[vk] == ic.masks[vc][mi]).float()
+                      .mean()) if mi is not None and len(mi) else 0.0
+    print(f'[maskrcnn f32] forward card {t_card:.3f} s, cpu {t_cpu:.3f} s; CPU '
+          f'machinery on the card\'s outputs: proposals and scores '
+          f'{"exact" if same_rpn else "DIFFER"} ({int((ps > -1e30).sum())} '
+          f'valid), detections {"exact" if same_det else "DIFFER"} '
+          f'({int(det[3].sum())} kept), mask logits max |card - cpu| / range '
+          f'{mrel:.3g}; whole detector: {n_valid} above 0.3 on the card, '
+          f'{n_cpu} on the CPU (of {int(fk["valid"].sum())} valid), '
+          f'{"matched with equal labels" if box_diff < 1e30 else "NOT matched"}'
+          f' ({"some slots swapped" if slots_moved else "slot for slot"}), '
+          f'boxes max diff {box_diff:.3g} px, pasted masks equal '
+          f'{mask_same:.6f} over {len(zeros)} instances (mean area '
+          f'{float(ic.masks.float().mean()):.4f})', flush=True)
+    if not (same_rpn and same_det) or mrel > 1e-4:
+        fail('the CPU Mask R-CNN machinery differs from the card\'s on the '
+             'same outputs')
+    if idx is None or n_valid == 0 or box_diff > 1e-3 or mask_same < 0.999:
+        fail('Mask R-CNN on the card differs from Mask R-CNN on the CPU')
+
+
+def segment_cli_maskrcnn(net, img) -> None:
+    """``run_segmentation --detector maskrcnn`` on the card with the
+    edged weights as its --ckpt: every RLE of its COCO JSON must decode
+    to the mask that MaskRCNNDetector.infer gives on the same image."""
+    import cv2
+    from cartoonsegmentation_torch import run_segmentation
+    from cartoonsegmentation_torch.data.coco_export import rle2mask
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import \
+        MaskRCNNDetector
+    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
+    try:
+        src, ckpt = os.path.join(tmp, 'smoke.png'), os.path.join(tmp, 'w.pth')
+        ann = os.path.join(tmp, 'ann.json')
+        cv2.imwrite(src, img)
+        torch.save(net.state_dict(), ckpt)
+        t0 = time.perf_counter()
+        run_segmentation.main(['--input', src, '--save-dir',
+                               os.path.join(tmp, 'out'), '--detector',
+                               'maskrcnn', '--ckpt', ckpt, '--save-json', ann])
+        wall = time.perf_counter() - t0
+        with open(ann) as f:
+            anns = json.load(f)['annotations']
+        det = MaskRCNNDetector(device='cuda')
+        det.load_torch_checkpoint(ckpt)
+        ins = det.infer(cv2.imread(src), 0.3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    masks, valid = ins.masks.cpu().numpy(), ins.valid.cpu().numpy()
+    idx = np.nonzero(valid)[0]
+    same = len(anns) == len(idx) and all(
+        np.array_equal(rle2mask(a['segmentation']), masks[i])
+        for a, i in zip(anns, idx))
+    print(f'[segment] run_segmentation --detector maskrcnn ({wall:.2f} s): '
+          f'{len(idx)} instances, {len(anns)} annotations, RLE round trip '
+          f'{"exact" if same else "DIFFERS"}', flush=True)
+    if not same or not len(idx):
+        fail('segmentation CLI: the COCO RLEs do not decode to the masks')
+
+
 def check_instances(pipe, tag: str) -> None:
     """Fail unless the last state's instances include a non-empty mask,
     their mean area is under half the frame, and the adjusted disparity
@@ -831,7 +1151,8 @@ def check_instances(pipe, tag: str) -> None:
           f'mask, areas (share of the frame) mean {float(areas.mean()):.4f} '
           f'min {float(areas.min()):.4f} max {float(areas.max()):.4f}; '
           f'disparity std / max {spread:.4f}', flush=True)
-    if nonempty == 0 or not float(areas.mean()) < 0.5:
+    if nonempty == 0 or not float(areas.mean()) < 0.5 or \
+            not float(areas.max()) < 1.0:
         fail(f'{tag}: the detector gave no instance with a non-empty mask '
              f'with edges: K6 and the instance depth adjustment did no real '
              f'work')
@@ -998,8 +1319,13 @@ def main() -> None:
     dev = torch.device('cuda')
     card = card_line()
     print(f'card: {card}', flush=True)
+    try:
+        import cv2
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = 'missing'
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
-          f'python {sys.version.split()[0]}, '
+          f'python {sys.version.split()[0]}, cv2 {cv2_version}, '
           f'{torch.cuda.get_device_name(0)}', flush=True)
 
     # 1. build -----------------------------------------------------------
@@ -1033,7 +1359,9 @@ def main() -> None:
     pipe._detector.refine.net = isnet
     launches = run_clip(pipe, img, 'main')
     require_launches('main', launches,
-                     [k for k in _cuda.KERNELS if k != 'samattn'])
+                     [k for k in _cuda.KERNELS if k not in (
+                         'samattn', 'discfill_exact', 'roialign',
+                         'nms_large')])
     check_instances(pipe, 'main')
 
     # 5. kernel frames against the plain versions on the CPU ---------------
@@ -1070,8 +1398,32 @@ def main() -> None:
     # 9. SAM in f32 card against CPU; the segmentation API ---------------
     compare_sam(img, sam_net, sp._detector.box_detector)
     segment_api(sp._detector, img)
+    del sp, sam_net
 
-    # 10. report --------------------------------------------------------
+    # 10. the Mask R-CNN path with the exact fill --------------------------
+    mp = KenBurnsPipeline(KenBurnsConfig(detector='maskrcnn',
+                                         discfill_mode='exact'),
+                          seed=args.seed, device='cuda')
+    mr_net = edged_maskrcnn(args.seed, img)
+    mp.ensure_detector()
+    mp._detector.model = copy.deepcopy(mr_net)
+    launches_mr = run_clip(mp, img, 'maskrcnn')
+    require_launches('maskrcnn', launches_mr,
+                     ('splat', 'coverage', 'discfill_exact', 'bokeh',
+                      'insmedian', 'median5', 'laplacian', 'epilogue',
+                      'colorize', 'compact', 'roialign', 'nms_large'))
+    if launches_mr['discfill']:
+        fail(f'maskrcnn: K3 launched {launches_mr["discfill"]} times under '
+             f'discfill_mode exact')
+    check_instances(mp, 'maskrcnn')
+    compare_frames(mp, 'maskrcnn')
+    del mp
+
+    # 11. Mask R-CNN in f32 card against CPU; the segmentation CLI --------
+    compare_maskrcnn(img, mr_net)
+    segment_cli_maskrcnn(mr_net, img)
+
+    # 12. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
     tpu = 'cartoonsegmentation_tpu/'
     c68, win = res['splat_c68'], res['samattn_windowed']
@@ -1097,18 +1449,29 @@ def main() -> None:
         ('samattn', res['samattn_global'], 'models/sam.py:76',
          {f'{k}_windowed': win[k] for k in ('max_abs_err', 'ms', 'plain_ms',
                                             'bound_ms', 'library_ms')}),
+        ('discfill_exact', res['discfill_exact'], 'ops/discfill.py:225', {}),
+        # the box head's (1000, 7x7); the mask head's (100, 14x14) beside
+        ('roialign', res['roialign_7'], 'models/maskrcnn.py:248',
+         {f'{k}_14': res['roialign_14'][k] for k in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms')}),
+        # the RPN's K = 4,756; the detection's K = 2,048 beside
+        ('nms_large', res['nms_large_rpn'], 'models/maskrcnn.py:235',
+         {f'{k}_det': res['nms_large_det'][k] for k in (
+             'ms', 'plain_ms', 'bound_ms')}),
     ]
     paths = {'detector-free': launches_free, 'main': launches,
-             'sam': launches_sam}
+             'sam': launches_sam, 'maskrcnn': launches_mr}
+    own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
+                'roialign': launches_mr, 'nms_large': launches_mr}
     kernels = []
     for name, r, where, extra in rows:
         # one PyTorch call computes the laplacian (a convolution) and
         # the attention (SDPA with the bias); none computes the others
+        # (torchvision, whose roi_align and nms would, is not installed)
         kernels.append({
             'name': name, 'route': 'cuda', 'source': f'{src}{name}.cu',
             'replaces': f'{tpu}{where}',
-            'launches': (launches_sam if name == 'samattn'
-                         else launches)[name],
+            'launches': own_path.get(name, launches)[name],
             'launches_by_path': {k: v[name] for k, v in paths.items()},
             'library_ms': None, **r, **extra})
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -89,16 +89,46 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
     # does not yet
     pytest.param({'detector': 'sam', 'inpaint_type': 'ldm'},
                  id='detector=sam'),
-    {'detector': 'maskrcnn'},
     {'detector': 'none', 'depth_est': 'zoe'},
     {'detector': 'none', 'default_depth_refine': True},
     {'detector': 'none', 'refine_crf': True},
     {'detector': 'none', 'inpaint_type': 'patchmatch'},
-    {'detector': 'none', 'discfill_mode': 'exact'},
 ], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match='not ported'):
         KenBurnsPipeline(tconfig.KenBurnsConfig(**kw), device='cpu')
+
+
+@pytest.mark.parametrize('kw', [
+    {'detector': 'maskrcnn'},
+    {'detector': 'none', 'discfill_mode': 'exact'},
+], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
+def test_maskrcnn_and_exact_fill_install(kw, monkeypatch):
+    """``detector: maskrcnn`` installs a MaskRCNNDetector on the
+    pipeline's device at capacity max_instances, timed by the pipeline;
+    the render seam fills with K11 at cfg.discfill_max_steps under
+    ``discfill_mode: exact`` and with K3 otherwise."""
+    from cartoonsegmentation_torch.ops import discfill, discfill3
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import \
+        MaskRCNNDetector
+    cfg = tconfig.KenBurnsConfig(**kw)
+    pipe = KenBurnsPipeline(cfg, device='cpu')
+    pipe.ensure_detector()
+    det = pipe._detector
+    if cfg.detector == 'maskrcnn':
+        assert isinstance(det, MaskRCNNDetector)
+        assert det.capacity == cfg.max_instances == 100
+        assert det.device.type == 'cpu' and det.timer is pipe.timer
+    else:
+        assert det is None
+    calls = []
+    monkeypatch.setattr(discfill, 'fill_disocclusion',
+                        lambda im, d, k: calls.append(('exact', k)) or im)
+    monkeypatch.setattr(discfill3, 'fill_disocclusion',
+                        lambda im, d: calls.append(('fast',)) or im)
+    pipe._fill(torch.zeros((2, 3, 4)), torch.zeros((2, 3)))
+    assert calls == [('exact', 128) if cfg.discfill_mode == 'exact'
+                     else ('fast',)]
 
 
 def test_shipped_default_with_detector_off_is_supported():

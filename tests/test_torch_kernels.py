@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from cartoonsegmentation_torch.models import maskrcnn as tmaskrcnn
 from cartoonsegmentation_torch.models import rtmdet as trtmdet
 from cartoonsegmentation_torch.models import sam as tsam
 from cartoonsegmentation_torch.ops import _cuda
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
+from cartoonsegmentation_torch.ops import discfill as tdiscfill
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
 from cartoonsegmentation_torch.ops import filters as tfilters
 from cartoonsegmentation_torch.ops import pointcloud as tpc
@@ -96,6 +98,19 @@ def test_fill_kernel_vs_plain(rng, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('max_steps', [16, 40, 128])
+def test_fill_exact_kernel_vs_plain(rng, cuda, max_steps):
+    """Holes at the frame's edges, a block and scattered pixels; 40
+    steps rounds down to 32."""
+    img, depth = _holes(rng, 64, 96)
+    depth[-3:] = 0.0
+    img, depth = img.to(cuda), depth.to(cuda)
+    assert torch.equal(
+        tdiscfill.fill_disocclusion(img, depth, max_steps),
+        tdiscfill.fill_disocclusion_plain(img, depth, max_steps))
+
+
+@pytest.mark.gpu
 def test_bokeh_kernel_vs_plain(rng, cuda):
     img = torch.from_numpy(rng.rand(64, 96, 3).astype(np.float32)).to(cuda)
     weight = torch.from_numpy(
@@ -167,6 +182,58 @@ def test_nms_kernel_vs_plain(rng, cuda, K):
         assert torch.equal(ki, pi) and torch.equal(km, pm)
     kept = int(trtmdet.nms_fixed(boxes, scores, 0.6, K)[1].sum())
     assert 0 < kept < K
+
+
+def _nms_large_case(rng, K, n_cats):
+    """_nms_case's clusters at K candidates, with -inf scores (the
+    invalid slots of the Mask R-CNN machinery) and category labels."""
+    boxes, scores = _nms_case(rng, K)
+    scores[rng.rand(K) < 0.2] = -np.inf
+    cats = torch.from_numpy(rng.randint(0, n_cats, K).astype(np.int32))
+    return boxes, scores, cats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K,thr,max_out,n_cats', [
+    (4756, 0.7, 1000, 5), (2048, 0.5, 100, 90), (600, 0.6, 600, 1),
+    (97, 0.6, 40, 3)])
+def test_nms_large_kernel_vs_plain(rng, cuda, K, thr, max_out, n_cats):
+    """Every output slot, index and mask, equal to the plain version's,
+    through the category offsets of batched_nms_fixed."""
+    boxes, scores, cats = (t.to(cuda) for t in _nms_large_case(rng, K,
+                                                                n_cats))
+    ki, km = tmaskrcnn.batched_nms_fixed(boxes, scores, cats, thr, max_out)
+    extent = boxes.max() + 1.0
+    shifted = boxes + (cats.float() * extent)[:, None]
+    pi, pm = trtmdet.nms_fixed_plain(shifted, scores, thr, max_out)
+    assert torch.equal(ki, pi) and torch.equal(km, pm)
+    assert 0 < int(km.sum()) < K
+
+
+def _pyramid(rng, C, H=64, W=96):
+    feats = [torch.from_numpy(rng.randn(1, C, H // s, W // s)
+                              .astype(np.float32)) for s in (4, 8, 16, 32)]
+    boxes = torch.from_numpy(np.array([
+        [5., 4., 60., 50.], [0., 0., 250., 180.], [-10., -10., 500., 400.],
+        [2., 2., 3.5, 3.5], [80., 40., 700., 600.], [60., 30., 96., 64.],
+        [90., 60., 95.5, 63.9]], np.float32))
+    return feats, boxes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('C,out', [(256, 7), (40, 14), (300, 7)])
+def test_roi_align_kernel_vs_plain(rng, cuda, C, out):
+    """Every level, out-of-bounds and edge samples; the same level map;
+    f32 sums of the 2x2 samples in another order."""
+    feats, boxes = _pyramid(rng, C)
+    pyr = tmaskrcnn.flatten_pyramid([f.to(cuda) for f in feats])
+    boxes = boxes.to(cuda)
+    got = tmaskrcnn.roi_align_pyramid(pyr, boxes, out)
+    want = tmaskrcnn.roi_align_pyramid_plain(
+        pyr, boxes, tmaskrcnn.roi_levels(boxes), out)
+    assert got.shape == (7, C, out, out)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.max() - want.min())
 
 
 @pytest.mark.gpu
@@ -311,6 +378,10 @@ def test_wrappers_take_the_plain_version_only_on_cpu(rng, monkeypatch):
     tsam.rel_pos_attention(torch.zeros((2, 6, 3, 2, 4)),
                            torch.zeros((2, 2, 6, 2)),
                            torch.zeros((2, 2, 6, 3)), 2, 3)
+    tdiscfill.fill_disocclusion(img, depth, 16)
+    tmaskrcnn.batched_nms_fixed(*_nms_large_case(rng, 40, 3), 0.6, 10)
+    feats, boxes = _pyramid(rng, 8)
+    tmaskrcnn.roi_align_pyramid(tmaskrcnn.flatten_pyramid(feats), boxes, 7)
     assert _cuda.LAUNCHES == before
 
 

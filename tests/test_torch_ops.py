@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from cartoonsegmentation_tpu.ops import bokeh as jbokeh
 from cartoonsegmentation_tpu.ops import camera as jcamera
+from cartoonsegmentation_tpu.ops import discfill as jdiscfill
 from cartoonsegmentation_tpu.ops import discfill3 as jdiscfill3
 from cartoonsegmentation_tpu.ops import filters as jfilters
 from cartoonsegmentation_tpu.ops import pointcloud as jpc
@@ -28,6 +29,7 @@ from cartoonsegmentation_tpu.pipeline.state import PointCloud as JCloud
 from cartoonsegmentation_tpu.utils import image as jimage
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
 from cartoonsegmentation_torch.ops import camera as tcamera
+from cartoonsegmentation_torch.ops import discfill as tdiscfill
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
 from cartoonsegmentation_torch.ops import filters as tfilters
 from cartoonsegmentation_torch.ops import pointcloud as tpc
@@ -268,6 +270,29 @@ def test_fill_plain_vs_raymarch_oracle_axis_aligned(rng):
     img[depth == 0] = 0.0
     got = tdiscfill3.fill_disocclusion(_t(img), _t(depth)).numpy()
     np.testing.assert_array_equal(got, oracle_fill_disocclusion(img, depth))
+
+
+@pytest.mark.parametrize('max_steps', [16, 40, 128])
+def test_exact_fill_plain_vs_jax(rng, max_steps):
+    """K11's plain version against the JAX fill_disocclusion, exactly:
+    holes along every frame edge, a block wider than 16 steps and
+    scattered pixels; 40 steps rounds down to 32, as the JAX version's
+    chunking does."""
+    H, W = 40, 56
+    img, depth = _holes(rng, H, W)
+    depth[:3] = 0.0
+    depth[:, -4:] = 0.0
+    depth[-2:, :20] = 0.0
+    depth[12:30, 8:44] = 0.0
+    img[depth == 0] = 0.0
+    want = _np(jdiscfill.fill_disocclusion(jnp.asarray(img),
+                                           jnp.asarray(depth),
+                                           max_steps=max_steps))
+    got = tdiscfill.fill_disocclusion(_t(img), _t(depth), max_steps).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert tdiscfill.round_steps(max_steps) == max(16, max_steps // 16 * 16)
+    np.testing.assert_array_equal(tdiscfill.offset_table(32),
+                                  jdiscfill._offset_table(32))
 
 
 # ---------------------------------------------------------------------------

@@ -303,9 +303,13 @@ def test_pipeline_sam_wiring():
                                         detector='none'), device='cpu')
     with pytest.raises(ValueError):
         none.load_detector_checkpoints()
-    with pytest.raises(NotImplementedError, match='maskrcnn'):
-        KenBurnsPipeline(cfg.replace(inpaint_type='default',
-                                     detector='maskrcnn'), device='cpu')
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import \
+        MaskRCNNDetector
+    mrcnn = KenBurnsPipeline(cfg.replace(inpaint_type='default',
+                                         detector='maskrcnn'), device='cpu')
+    mrcnn.ensure_detector()
+    assert isinstance(mrcnn._detector, MaskRCNNDetector)
+    assert mrcnn._detector.capacity == cfg.max_instances
 
 
 def test_generate_state_with_sam_detector_vs_jax(models):

@@ -131,8 +131,36 @@ def test_run_segmentation_cli(tmp_path, rng, capsys):
     np.testing.assert_array_equal(drawn, ins.draw(img))     # PNG: lossless
 
 
-def test_run_segmentation_maskrcnn_not_ported(tmp_path):
+def test_run_segmentation_maskrcnn(tmp_path, rng, monkeypatch, capsys):
+    """The CLI with --detector maskrcnn on the CPU, the detector at
+    min-side 64 / max-side 96 with the edged small net of
+    tests/test_torch_maskrcnn.py: a drawn image and a COCO JSON whose
+    RLEs decode to the detector's masks."""
+    cv2 = pytest.importorskip('cv2')
     from cartoonsegmentation_torch import run_segmentation
-    with pytest.raises(NotImplementedError, match='maskrcnn'):
-        run_segmentation.main(['--input', str(tmp_path), '--detector',
-                               'maskrcnn', '--device', 'cpu'])
+    from cartoonsegmentation_torch.pipeline import maskrcnn_det
+    from test_torch_maskrcnn import edged_net
+
+    class Small(maskrcnn_det.MaskRCNNDetector):
+        def __init__(self, **kw):
+            super().__init__(min_size=64, max_size=96, model=edged_net(),
+                             **kw)
+    monkeypatch.setattr(maskrcnn_det, 'MaskRCNNDetector', Small)
+    src = _png(tmp_path, rng)
+    out = tmp_path / 'out'
+    ann = tmp_path / 'ann.json'
+    run_segmentation.main(['--input', str(src), '--save-dir', str(out),
+                           '--detector', 'maskrcnn', '--score-thr', '0.1',
+                           '--save-json', str(ann), '--device', 'cpu'])
+    assert 'instances' in capsys.readouterr().out
+    img = cv2.imread(str(src))
+    ins = Small(device='cpu').infer(img, 0.1)
+    assert ins.capacity == 16
+    idx = [i for i in range(ins.capacity) if bool(ins.valid[i])]
+    coco = json.loads(ann.read_text())
+    assert idx and len(coco['annotations']) == len(idx)
+    for a, i in zip(coco['annotations'], idx):
+        np.testing.assert_array_equal(tcoco.rle2mask(a['segmentation']),
+                                      ins.masks[i].numpy())
+    np.testing.assert_array_equal(cv2.imread(str(out / 'pic.png')),
+                                  ins.draw(img))
