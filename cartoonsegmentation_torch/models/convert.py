@@ -1,16 +1,17 @@
 """Carry the JAX package's Flax parameter trees into the port.
 
 ``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax``,
-``isnet_from_flax``, ``sam_from_flax`` and ``maskrcnn_from_flax`` turn
-a Flax tree (numpy arrays, or anything ``np.asarray`` takes) into a
-``state_dict`` of the port's ``Inpaint``, ``LeReS``, ``AnimeDetector``,
-``ISNetDIS``, ``SAM`` and ``MaskRCNN``. Each walks the port module's
-own keys and looks up the Flax path that the JAX package's converters
-(``models/convert.py:convert_inpaint``, ``models/leres.py:
-convert_leres``, ``models/convert_rtmdet.py:convert_rtmdet``,
-``models/isnet.py:convert_isnet``, ``models/sam.py:convert_sam``,
-``models/maskrcnn.py:convert_maskrcnn``) write for that checkpoint
-key, so the two directions stay inverse to each other.
+``isnet_from_flax``, ``sam_from_flax``, ``maskrcnn_from_flax`` and
+``swinv2_from_flax`` turn a Flax tree (numpy arrays, or anything
+``np.asarray`` takes) into a ``state_dict`` of the port's ``Inpaint``,
+``LeReS``, ``AnimeDetector``, ``ISNetDIS``, ``SAM``, ``MaskRCNN`` and
+``SwinV2``. Each walks the port module's own keys and looks up the Flax
+path that the JAX package's converters (``models/convert.py:
+convert_inpaint``, ``models/leres.py:convert_leres``,
+``models/convert_rtmdet.py:convert_rtmdet``, ``models/isnet.py:
+convert_isnet``, ``models/sam.py:convert_sam``, ``models/maskrcnn.py:
+convert_maskrcnn``, ``models/swinv2.py:convert_swinv2``) write for that
+checkpoint key, so the two directions stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
 Dense kernel (in, out) → Linear (out, in); ConvTranspose kernel →
@@ -467,6 +468,71 @@ def maskrcnn_from_flax(variables: Mapping, module: Optional[nn.Module] = None
     out = {}
     for k, v in module.state_dict().items():
         path, fn = maskrcnn_flax_path(k)
+        t = torch.from_numpy(np.ascontiguousarray(fn(_fetch(params, path))))
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '
+                             f'{tuple(v.shape)}')
+        out[k] = t.to(v.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SwinV2 (the tagger)
+# ---------------------------------------------------------------------------
+
+_SWIN_ATTN = {'qkv.weight': (('qkv_kernel',), _lin),
+              'q_bias': (('q_bias',), _same),
+              'v_bias': (('v_bias',), _same),
+              'logit_scale': (('logit_scale',), _same),
+              'cpb_mlp.0.weight': (('cpb_fc1', 'kernel'), _lin),
+              'cpb_mlp.0.bias': (('cpb_fc1', 'bias'), _same),
+              'cpb_mlp.2.weight': (('cpb_fc2', 'kernel'), _lin),
+              'proj.weight': (('proj', 'kernel'), _lin),
+              'proj.bias': (('proj', 'bias'), _same)}
+
+
+def swinv2_flax_path(key: str):
+    """(Flax path under 'params', layout function) of one ``SwinV2``
+    state_dict key (timm's names), the inverse of the JAX
+    ``models/swinv2.py:convert_swinv2``."""
+    parts = key.split('.')
+    leaf = parts[-1]
+    if parts[0] == 'patch_embed':
+        if parts[1] == 'proj':
+            return ('patch_embed', _LEAF[leaf]), \
+                (_conv if leaf == 'weight' else _same)
+        return ('patch_norm', _SAM_LN[leaf][0]), _same
+    if parts[0] == 'norm':
+        return ('norm', _SAM_LN[leaf][0]), _same
+    if parts[0] == 'head':                       # head.fc.*
+        return ('head',) + (_SAM_LEAF[leaf][0],), _SAM_LEAF[leaf][1]
+    i = parts[1]
+    if parts[2] == 'downsample':
+        if parts[3] == 'reduction':
+            return (f'merge{i}', 'reduction', 'kernel'), _lin
+        return (f'merge{i}', 'norm', _SAM_LN[leaf][0]), _same
+    block = f'stage{i}_block{parts[3]}'            # layers.i.blocks.j.*
+    sub = parts[4:]
+    if sub[0] == 'attn':
+        path, fn = _SWIN_ATTN['.'.join(sub[1:])]
+        return (block, 'attn') + path, fn
+    if sub[0] == 'mlp':
+        name, fn = _SAM_LEAF[leaf]
+        return (block, sub[1], name), fn
+    return (block, sub[0], _SAM_LN[leaf][0]), _same
+
+
+def swinv2_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``SwinV2`` variables ({'params': ...}) → the port's
+    ``SwinV2`` state_dict, whose keys are timm's (``module`` defaults to
+    the WD tagger's SwinV2-B with 9083 classes)."""
+    from .swinv2 import wd_tagger_swinv2
+    module = module or wd_tagger_swinv2()
+    params = variables['params']
+    out = {}
+    for k, v in module.state_dict().items():
+        path, fn = swinv2_flax_path(k)
         t = torch.from_numpy(np.ascontiguousarray(fn(_fetch(params, path))))
         if tuple(t.shape) != tuple(v.shape):
             raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '

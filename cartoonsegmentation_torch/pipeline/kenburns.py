@@ -14,10 +14,13 @@ AnimeInsSeg boxes with SAM (its encoder attention is K15a);
 ``detector: maskrcnn`` runs torchvision's COCO Mask R-CNN (RoIAlign
 K14a, NMS K14b); ``detector: none`` skips the detector.
 ``discfill_mode: exact`` fills with the K11 ray march in place of K3.
-What the port does not run yet raises NotImplementedError: the
-animeseg refine, depth estimators other than LeReS, the depth refine
-net, the CRF and inpaint types other than 'default' (the sd-webui
-``ldm`` of 3dkenburns_sam.yaml among them).
+``refine_crf`` snaps the disparity to the image's colour edges
+(``pipeline/crf_refine.py``: host cv2 segments, each through the dense
+CRF of kernels K12a k-means and K12b mean-field step). What the port
+does not run yet raises NotImplementedError: the animeseg refine,
+depth estimators other than LeReS, the depth refine net and inpaint
+types other than 'default' (the sd-webui ``ldm`` of
+3dkenburns_sam.yaml among them).
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -74,8 +77,6 @@ def _check_supported(cfg: KenBurnsConfig) -> None:
         todo.append(f"depth_est={cfg.depth_est!r} (only 'leres')")
     if cfg.default_depth_refine:
         todo.append('default_depth_refine')
-    if cfg.refine_crf:
-        todo.append('refine_crf')
     if cfg.inpaint_type != 'default':
         todo.append(f"inpaint_type={cfg.inpaint_type!r} (only 'default')")
     if todo:
@@ -270,6 +271,8 @@ class KenBurnsPipeline:
         with self.timer.time('depth_refine', dev):
             if disparity.shape[:2] != (H, W):
                 disparity = resize_bilinear(disparity, H, W)
+            if cfg.refine_crf:
+                disparity = self._refine_crf(img, disparity, instances)
         with self.timer.time('prepare_state', dev):
             state = self._prepare_state(image, disparity, instances)
         return state
@@ -288,6 +291,19 @@ class KenBurnsPipeline:
         # zeros → min positive (kenburns_effect.py:577)
         pos_min = torch.where(disp > 0, disp, float('inf')).min()
         return torch.where(disp == 0, pos_min, disp)[..., None]
+
+    def _refine_crf(self, img: np.ndarray, disparity: torch.Tensor,
+                    instances: Instances) -> torch.Tensor:
+        """The CRF depth refine at image resolution on the host arrays
+        (its dense CRF on the pipeline's device), the composed instance
+        masks excluded. Parity: JAX ``_refine_stage``'s refine_crf
+        branch, kenburns_effect.py:618-622."""
+        from .crf_refine import refine_depth_crf
+        ins_mask = instances.compose_masks().cpu().numpy()
+        refined = refine_depth_crf(img, disparity[..., 0].cpu().numpy(),
+                                   ins_mask if ins_mask.any() else None,
+                                   device=self.device)
+        return torch.from_numpy(refined).to(self.device)[..., None]
 
     def _adjust_disparity(self, disparity: torch.Tensor,
                           instances: Instances) -> torch.Tensor:

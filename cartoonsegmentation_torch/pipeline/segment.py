@@ -1,6 +1,7 @@
 """AnimeInsSeg — anime instance segmentation (port of
 ``cartoonsegmentation_tpu/pipeline/segment.py``: the single-image
-``infer`` path with its refine step).
+``infer`` path with its refine step, and the per-instance Danbooru
+tags, ``init_tagger`` / ``infer_tags``).
 
 detect → score filter → (optional) mask refinement → Instances. The
 mmdet test pipeline is reproduced on the host: keep-ratio resize to
@@ -62,6 +63,7 @@ class AnimeInsSeg:
         self._shape = (deepen, widen)
         self.model: Optional[AnimeDetector] = None
         self.refine = None  # installed by set_refine_method
+        self.tagger = None  # installed by init_tagger
         # 'detector_forward' (letterbox, nets, postprocess, un-letterbox)
         # and 'detector_refine'; KenBurnsPipeline puts its own timer here
         self.timer = StageTimer()
@@ -170,3 +172,48 @@ class AnimeInsSeg:
         self.refine = make_refiner(refine_method, refine_size, self.mask_thr,
                                    seed=self._seed, dtype=self.dtype_name,
                                    device=self.device)
+
+    # ------------------------------------------------------------------
+    # per-instance tagging (animeinsseg/__init__.py:229-260)
+    # ------------------------------------------------------------------
+    def init_tagger(self, model_path: str = '', **tagger_kwargs) -> None:
+        """Install the Danbooru tagger (the SwinV2 'torch' backend by
+        default for a non-onnx checkpoint; see models/tagger.py) on the
+        detector's device unless ``device`` is given."""
+        from ..models.tagger import Tagger
+        tagger_kwargs.setdefault('device', self.device)
+        self.tagger = Tagger(model_path, **tagger_kwargs)
+
+    def infer_tags(self, instances: Instances, img_bgr: np.ndarray,
+                   infer_grey: bool = False):
+        """Tag each valid instance from its white-backed masked crop.
+        Returns (tags, character_tags): per valid instance, a
+        space-joined tag string and the character-tag list;
+        `simple_background` / `white_background` are dropped like the
+        reference (animeinsseg/__init__.py:233-260)."""
+        import cv2
+        if self.tagger is None:
+            self.init_tagger()
+        img = img_bgr
+        if infer_grey:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)[..., None]
+            img = img[..., [0, 0, 0]]
+        bboxes = instances.bboxes.cpu().numpy()
+        masks = instances.masks.cpu().numpy()
+        valid = instances.valid.cpu().numpy()
+        exclude = ('simple_background', 'white_background')
+        tags_out, ctags_out = [], []
+        for i in np.flatnonzero(valid):
+            x, y, w, h = bboxes[i].astype(np.int32)
+            crop = img[y:y + h, x:x + w].copy()
+            m = masks[i][y:y + h, x:x + w]
+            if crop.size == 0:
+                tags_out.append('')
+                ctags_out.append([])
+                continue
+            crop[~m.astype(bool)] = 255
+            tags, ctags = self.tagger.label_cv2_bgr(crop)
+            tags_out.append(' '.join(t for t in tags
+                                     if t not in exclude))
+            ctags_out.append(ctags)
+        return tags_out, ctags_out

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the 16 CUDA
-   kernel libraries (csrc/*.cu, one kernel each) with nvcc, all at once;
+1. prints the card, torch and CUDA versions, and builds the 19 CUDA
+   kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
+   once;
 2. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (576x1024; K1 with C = 4 and C = 68; K6 over
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
@@ -13,8 +14,11 @@
    and global blocks, beside SDPA with the bias prebuilt; K11 on the
    rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
    over the 768x1344 canvas's pyramid; K14b at K = 4,756 and 2,048 with
-   -inf scores and category offsets) and times both with CUDA events
-   around one call on an idle card (median of runs on varied inputs);
+   -inf scores and category offsets; K12a on the image's 576x1024 guide
+   and a crop, K12b's norm pass, one step and a whole densecrf_binary at
+   576x1024; K15b at SwinV2-B 448's four stage shapes with and without
+   the shift mask, beside SDPA) and times both with CUDA events around
+   one call on an idle card (median of runs on varied inputs);
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -58,7 +62,19 @@
    tolerances), then
    ``run_segmentation --detector maskrcnn`` on the card with those
    weights, whose RLEs must decode to the masks exactly;
-12. prints one {"kernels": [...]} line, then the card line and the
+12. runs the shipped default with the CRF depth refine,
+   ``KenBurnsConfig(refine_crf=True)``, with the edged detector: K12a
+   and K12b launched (one k-means a segment), the instances, the frames
+   and 3 of them against the CPU, then refine_depth_crf on the clip's
+   own image, disparity and instances on the card and on the CPU;
+13. runs refine_depth_crf on a layered disparity over the image's shapes
+   (at least 5 segments reach the CRF), card against CPU;
+14. builds the full-width danbooru tagger (SwinV2-B at 448, 9083
+   classes, random from the seed), saves it as a timm checkpoint with a
+   synthetic tag CSV, loads it through ``AnimeInsSeg.init_tagger`` and
+   tags the detector's instances with ``infer_tags`` (24 K15b launches
+   an instance), then one crop card against CPU;
+15. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -752,19 +768,58 @@ def profile_frame_loop(pipe, state, obj_from, obj_to, n: int = 16) -> None:
                            return_device=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    device_time_report(prof, wall, n, 'frame', '[loop]')
+
+
+def device_time_report(prof, wall: float, n: int, unit: str, tag: str,
+                       top: int = 15) -> None:
+    """From a torch.profiler pass over n units of work that took wall
+    seconds: the device's busy time and share, and the device time by
+    kernel per unit. Only the device's own events (kernels, copies,
+    fills) count: an aten op's self device time is its kernels' time,
+    which the kernels' rows hold already."""
+    from torch.autograd import DeviceType
     rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
     if not rows:
-        print('[loop] the profiler recorded no device time: busy share '
+        print(f'{tag} the profiler recorded no device time: busy share '
               'not measured', flush=True)
         return
     busy = sum(r[0] for r in rows) / 1e6
-    print(f'[loop] profiled {n} frames: wall {1e3 * wall:.3f} ms, device '
-          f'busy {1e3 * busy:.3f} ms ({busy / wall:.1%}); by kernel:',
-          flush=True)
-    for us, count, key in sorted(rows, reverse=True)[:15]:
-        print(f'  {us / 1e3 / n:9.4f} ms/frame  {count // n:4d}/frame  '
+    print(f'{tag} profiled {n} {unit}s: wall {1e3 * wall / n:.3f} ms/{unit}, '
+          f'device busy {1e3 * busy / n:.3f} ms/{unit} ({busy / wall:.1%}), '
+          f'device idle {1e3 * (wall - busy) / n:.3f} ms/{unit}; by '
+          'kernel:', flush=True)
+    for us, count, key in sorted(rows, reverse=True)[:top]:
+        print(f'  {us / 1e3 / n:9.4f} ms/{unit}  {count // n:4d}/{unit}  '
               f'{key[:90]}', flush=True)
+
+
+def profile_tagger_crop(tagger, crop: np.ndarray, n: int = 4) -> None:
+    """n calls of ``label_cv2_bgr`` on one instance's crop, as
+    ``infer_tags`` makes them: the host's preprocessing alone, then a
+    torch.profiler pass for the device's busy time by kernel against
+    the wall time an instance."""
+    from torch.profiler import ProfilerActivity, profile
+    tagger.label_cv2_bgr(crop)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tagger._prep(crop)
+    prep = (time.perf_counter() - t0) / n
+    print(f'[tagger] host preprocessing (make_square + smart_resize of a '
+          f'{crop.shape[0]}x{crop.shape[1]} crop): {1e3 * prep:.3f} ms an '
+          'instance', flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tagger.label_cv2_bgr(crop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_time_report(prof, wall, n, 'instance', '[tagger]', top=10)
 
 
 def run_clip(pipe, img, tag: str):
@@ -1298,6 +1353,357 @@ def compare_detector(img, det_net, device: str = 'cuda') -> None:
              'CPU')
 
 
+# -- K12 (the CRF depth refine) and K15b (the tagger) ------------------
+
+# shares the CRF checks hold the kernels to (see their docstrings)
+KMEANS_SHARE = 0.999
+CRF_MASK_SHARE = 0.999
+REFINE_SHARE = 0.99
+
+
+def sloppy_mask(gen: torch.Generator, h: int, w: int) -> torch.Tensor:
+    """A foreground probability as the refine's flood fills give the CRF:
+    an ellipse at 0.9 with a ragged band of 0.5 +- noise around it."""
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    r = ((xx - 0.45 * w) / (0.3 * w)) ** 2 + ((yy - 0.5 * h) / (0.35 * h)) ** 2
+    p = torch.where(r < 0.8, 0.9, 0.05)
+    band = (r >= 0.8) & (r < 1.3)
+    noise = 0.5 + 0.15 * torch.randn((h, w), generator=gen)
+    return torch.where(band, noise, p).clamp(0, 1)
+
+
+def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
+    """K12a and K12b against their plain versions at the refine's
+    shapes: the k-means on the full 576x1024 guide of the image (RGB,
+    as the refine's crops) and on one crop, >= 99.9% of labels equal
+    (the kernel's block-ordered cluster sums and the plain one-hot
+    matmul round the centres differently); the CRF's norm pass exact,
+    one mean-field step within 1e-5 (the same labels), and
+    densecrf_binary on the 576x1024 image and a sloppy mask >= 99.9%
+    equal to the plain version's on the CPU."""
+    from cartoonsegmentation_torch.ops import crf
+    res = {}
+    rgb = torch.from_numpy(np.ascontiguousarray(img[..., ::-1])).to(dev)
+    inv = torch.tensor(1.0 / 255.0, device=dev)
+    k, iters = 10, 8
+    for tag, part in (('full', rgb), ('crop', rgb[120:420, 260:700])):
+        g = (part.float() * inv).reshape(-1, 3).contiguous()
+        N = g.shape[0]
+        got = crf.kmeans_labels(g, k, iters)
+        want = crf._kmeans_labels(g, k, iters)
+        share = float((got == want).float().mean())
+        cases = [(g * (1.0 - 1e-3 * i)).contiguous() for i in range(RUNS)]
+        ms = time_ms(lambda x: crf.kmeans_labels(x, k, iters), cases)
+        plain_ms = time_ms(lambda x: crf._kmeans_labels(x, k, iters),
+                           cases[:3])
+        # per point and cluster in each of the 9 passes: 3 subtracts, a
+        # multiply, 2 fused multiply-adds (2 each) and a compare; per
+        # point in each of the 8 recentrings: 4 adds
+        flops = N * k * 9 * (iters + 1) + N * 4 * iters
+        b, by = bound(N * 12 + N * 4, flops)
+        print(f'[kernel] kmeans {tag} N={N} k={k}: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); labels equal '
+              f'{share:.6f} ({len(torch.unique(got))} clusters used)',
+              flush=True)
+        if share < KMEANS_SHARE:
+            fail(f'kmeans {tag}: only {share:.6f} of labels equal to the '
+                 f'plain version ({KMEANS_SHARE} required)')
+        res[f'kmeans_{tag}'] = dict(label_share=share, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b,
+                                    bound_by=by, max_abs_err=1.0 - share)
+
+    # K12b on the whole 576x1024 image
+    unary_fg = sloppy_mask(gen, H, W).to(dev)
+    guide = rgb.float() * inv
+    labels = crf.kmeans_labels(guide.reshape(-1, 3), k).reshape(H, W)
+    norms, dead = crf.crf_norms(labels)
+    norms_p, dead_p = crf.crf_norms_plain(labels, 1.0, 46.0, k)
+    norm_err = float((norms - norms_p).abs().max())
+    p = torch.clamp(unary_fg, 1e-5, 1 - 1e-5)
+    unary = -torch.log(torch.stack([1 - p, p], -1))
+    qs = [crf._softmax2(-unary * (1.0 + 0.05 * i)) for i in range(RUNS)]
+    got = crf.crf_step(qs[0], labels, unary, norms, dead)[0]
+    want = crf.crf_step_plain(qs[0], labels, unary, norms_p)
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda q: crf.crf_step(q, labels, unary, norms, dead),
+                 qs)
+    plain_ms = time_ms(lambda q: crf.crf_step_plain(q, labels, unary,
+                                                    norms_p), qs[:3])
+    mk = crf.densecrf_binary(unary_fg, rgb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk = crf.densecrf_binary(unary_fg, rgb)
+    torch.cuda.synchronize()
+    whole_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mp = crf.densecrf_binary(unary_fg.cpu(), rgb.cpu())
+    cpu_s = time.perf_counter() - t0
+    mask_share = float((mk.cpu() == mp).float().mean())
+    s, gh, gw, R = crf.lattice(H, W, 46.0)
+    planes = 2 * k
+    # a step reads q, the labels, the unary and the norms, writes q'
+    # and the mask
+    nbytes = H * W * (8 + 4 + 8 + 8 + 8 + 1)
+    # per pixel and channel: the 5x5 Gaussian (2 x 30 operations), the
+    # two-tap bilinear (6), the messages (8); per pixel the softmax
+    # (~30); the lattice: the pool (s^2 adds) and the 9x9 blur
+    flops = H * W * (2 * (60 + 6 + 8) + 30) + planes * gh * gw * (
+        s * s + 2 * (2 * R + 1) ** 2)
+    b, by = bound(nbytes, flops)
+    print(f'[kernel] crf step {H}x{W} ({gh}x{gw} lattice of {s} px, {k} '
+          f'clusters): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{b:.4f} ms ({by}); norm pass max err {norm_err:.3g} (dead '
+          f'{int(dead)} / {int(dead_p)}), step max err {err:.3g}; '
+          f'densecrf_binary {whole_ms:.3f} ms on the card, {cpu_s:.2f} s the '
+          f'plain version on the CPU, masks equal {mask_share:.6f} (fg '
+          f'{float(mp.float().mean()):.4f})', flush=True)
+    if norm_err > 0 or int(dead) != int(dead_p) or err > 1e-5:
+        fail('crf: the norm pass or a step differs from the plain version')
+    if mask_share < CRF_MASK_SHARE:
+        fail(f'crf: only {mask_share:.6f} of densecrf_binary\'s mask equal to '
+             f'the plain version\'s ({CRF_MASK_SHARE} required)')
+    res['crf'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                      bound_by=by, densecrf_ms=whole_ms,
+                      mask_share=mask_share)
+    return res
+
+
+# SwinV2-B at 448: (stage, windows of 8x8, heads, padded grid)
+SWIN_STAGES = ((0, 196, 4, 112), (1, 49, 8, 56), (2, 16, 16, 32),
+               (3, 4, 32, 16))
+
+
+def check_swinattn(dev, gen) -> dict:
+    """K15b at SwinV2-B 448's four stage shapes (N = 64 tokens, head
+    width 32), with and without the shifted blocks' mask; random q, k,
+    v, logit scales and CPB bias; within 1e-5 of the plain version's
+    range; beside SDPA on the pre-normalised, pre-scaled q with bias +
+    mask prebuilt as its attn_mask."""
+    import torch.nn.functional as F
+    from cartoonsegmentation_torch.models import swinv2
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(int(torch.randint(
+        0, 1 << 30, (1,), generator=gen)))
+    N, hd = 64, 32
+    for stage, B, n, grid in SWIN_STAGES:
+        for masked in (False, True):
+            mask = swinv2.shift_attn_mask(grid, grid, (8, 8), (4, 4)) \
+                if masked else None
+            mask = None if mask is None else torch.from_numpy(mask).to(dev)
+            cases = []
+            for _ in range(RUNS):
+                qkv = torch.randn((B, N, 3, n, hd), device=dev, generator=g)
+                scale = torch.exp(torch.clamp(torch.rand(
+                    (n,), device=dev, generator=g) * 5.0, max=np.log(100.0)))
+                bias = 16.0 * torch.sigmoid(torch.randn(
+                    (n, N, N), device=dev, generator=g))
+                cases.append((qkv, scale, bias, mask))
+            got = swinv2.window_attention(*cases[0])
+            want = swinv2.window_attention_plain(*cases[0])
+            err = float((got - want).abs().max())
+            rng_ = float(want.abs().max())
+            if err > 1e-5 * rng_:
+                fail(f'swinattn stage {stage} mask {masked}: max err '
+                     f'{err:.3g} above 1e-5 of {rng_:.3g}')
+            ms = time_ms(lambda c: swinv2.window_attention(*c), cases)
+            plain_ms = time_ms(lambda c: swinv2.window_attention_plain(*c),
+                               cases)
+
+            def sdpa_args(c):
+                qkv, scale, bias, m = c
+                q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+                q = F.normalize(q, dim=-1, eps=1e-12) * scale[:, None, None]
+                k = F.normalize(k, dim=-1, eps=1e-12)
+                am = bias[None].expand(B, n, N, N)
+                if m is not None:
+                    am = (am.reshape(B // m.shape[0], m.shape[0], n, N, N)
+                          + m[None, :, None]).reshape(B, n, N, N)
+                return q, k, v, am.contiguous()
+            lib_cases = [sdpa_args(c) for c in cases[:3]]
+            lib = F.scaled_dot_product_attention(
+                *lib_cases[0][:3], attn_mask=lib_cases[0][3], scale=1.0)
+            lib_err = float((lib.transpose(1, 2).reshape(B, N, n * hd)
+                             - want).abs().max())
+            lib_ms = time_ms(lambda c: F.scaled_dot_product_attention(
+                *c[:3], attn_mask=c[3], scale=1.0), lib_cases)
+            # q.k and p.v (2 operations a multiply-add), the scale, bias,
+            # mask and ~4 of the softmax a score; the two norms
+            flops = B * n * N * N * (4 * hd + 7) + B * n * N * 2 * 3 * hd
+            nbytes = 4 * (B * N * 3 * n * hd + n * N * N + B * N * n * hd
+                          + (mask.numel() if masked else 0))
+            b, by = bound(nbytes, flops)
+            tag = f's{stage}{"m" if masked else ""}'
+            res[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b, bound_by=by, library_ms=lib_ms)
+            print(f'[kernel] swinattn stage {stage} {B} windows x {n} heads'
+                  f'{" masked" if masked else ""}: kernel {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), SDPA '
+                  f'{lib_ms:.4f} ms (max err {lib_err:.3g}); max err '
+                  f'{err:.3g} of {rng_:.3g}', flush=True)
+            del cases, lib_cases
+    return res
+
+
+def refine_inputs(pipe) -> dict:
+    """Record what the pipeline's next CRF refine is given: the image,
+    the disparity and the instances."""
+    seen = {}
+    inner = pipe._refine_crf
+
+    def recording(img, disparity, instances):
+        seen.update(img=img, disparity=disparity.clone(),
+                    instances=instances)
+        return inner(img, disparity, instances)
+    pipe._refine_crf = recording
+    return seen
+
+
+def compare_refine(tag: str, img, disparity: np.ndarray, ins_mask) -> int:
+    """refine_depth_crf on the card and on the CPU (the plain versions)
+    on the same host arrays; fails below REFINE_SHARE of equal refined
+    disparity pixels (a k-means label at a near tie can flip a CRF
+    pixel, which can move a segment's box or median, and a written
+    segment covers at most a tenth of the frame). Returns the segments
+    that reached the CRF on the card."""
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline.crf_refine import \
+        refine_depth_crf
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out_k = refine_depth_crf(img, disparity, ins_mask, device='cuda')
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - t0
+    segments = _cuda.LAUNCHES['kmeans']
+    t0 = time.perf_counter()
+    out_c = refine_depth_crf(img, disparity, ins_mask, device='cpu')
+    tc = time.perf_counter() - t0
+    same = float((out_k == out_c).mean())
+    moved = float((out_k != disparity).mean())
+    print(f'[{tag}] refine_depth_crf card {tk:.3f} s ({segments} segments, '
+          f'{_cuda.LAUNCHES["crf"]} crf launches), cpu {tc:.3f} s: refined '
+          f'disparity equal {same:.6f}, max diff '
+          f'{float(np.abs(out_k - out_c).max()):.4g}; {moved:.4f} of the '
+          f'pixels moved', flush=True)
+    if same < REFINE_SHARE:
+        fail(f'{tag}: only {same:.6f} of the refined disparity equal on the '
+             f'card and the CPU ({REFINE_SHARE} required)')
+    return segments
+
+
+def layered_disparity(seed: int) -> np.ndarray:
+    """A disparity of flat layers over ``make_image``'s shapes (the same
+    draws): a background ramp of 5 to 8, each disc a level of its own
+    from 12 to 27, the rectangle 40."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    rng.uniform(0, 2 * np.pi, 3)
+    disp = 5.0 + 3.0 * xx / W
+    for i in range(6):
+        cx, cy = rng.uniform(100, W - 100), rng.uniform(80, H - 80)
+        r = rng.uniform(30, 90)
+        rng.uniform(0, 255, 3)
+        disp[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = 12.0 + 3.0 * i
+    x0, y0 = int(rng.uniform(50, W - 300)), int(rng.uniform(50, H - 200))
+    disp[y0:y0 + 150, x0:x0 + 250] = 40.0
+    return disp.astype(np.float32)
+
+
+def mask_boxes(ins):
+    """The instances with each box the extent of its mask: the edged
+    detector's masks have edges, but its random box head gives
+    degenerate boxes (x, 0, 0, 0), which crop nothing to tag."""
+    m = ins.masks & ins.valid[:, None, None]
+    rows, cols = m.any(2), m.any(1)
+
+    def extent(hit):
+        idx = torch.arange(hit.shape[1], device=hit.device)
+        lo = torch.where(hit, idx, hit.shape[1]).min(1).values
+        hi = torch.where(hit, idx, -1).max(1).values + 1
+        return lo, (hi - lo).clamp(min=0)
+    (y0, h), (x0, w) = extent(rows), extent(cols)
+    boxes = torch.stack([x0, y0, w, h], 1).float()
+    return ins.replace(bboxes=torch.where(m.any((1, 2))[:, None], boxes,
+                                          torch.zeros_like(boxes)))
+
+
+def tagger_phase(det, img: np.ndarray, seed: int) -> dict:
+    """The danbooru tagger at full width: SwinV2-B at 448 with 9083
+    classes, random from ``seed``, saved in timm's keys as model.pth
+    beside a synthetic 9083-row selected_tags.csv (4 rating rows, one
+    character tag), loaded by ``AnimeInsSeg.init_tagger``, run by
+    ``infer_tags`` on the detector's instances of the image (boxed by
+    their masks, ``mask_boxes``): 24 K15b launches an instance. Then one crop's probabilities on the card
+    against the CPU within 1e-4, the tags equal apart from those within
+    1e-4 of the threshold. Returns the launches of infer_tags."""
+    from cartoonsegmentation_torch.models.swinv2 import (init_swinv2_,
+                                                          wd_tagger_swinv2)
+    from cartoonsegmentation_torch.models.tagger import Tagger
+    from cartoonsegmentation_torch.ops import _cuda
+    net = init_swinv2_(wd_tagger_swinv2(9083),
+                       torch.Generator().manual_seed(seed))
+    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
+    try:
+        path = os.path.join(tmp, 'model.pth')
+        torch.save(net.state_dict(), path)
+        with open(os.path.join(tmp, 'selected_tags.csv'), 'w') as f:
+            f.write('tag_id,name,category,count\n')
+            for i in range(9083):
+                cat = 9 if i < 4 else (4 if i == 4 else 0)
+                f.write(f'{i},tag_{i},{cat},1\n')
+        det.init_tagger(path)
+        tagger = det.tagger
+        ins = mask_boxes(det.infer(img, 0.3))
+        n = int(ins.count())
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        tags, chars = det.infer_tags(ins, img)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        n_tags = [len(t.split()) for t in tags]
+        print(f'[tagger] SwinV2-B 448, 9083 classes ({tagger.backend} on '
+              f'{tagger.device}): {len(tags)} instances tagged in {wall:.3f} '
+              f's ({1e3 * wall / max(len(tags), 1):.1f} ms each), '
+              f'{launches["swinattn"]} swinattn launches; tags an instance '
+              f'{min(n_tags, default=0)}-{max(n_tags, default=0)}, character '
+              f'tags {sum(len(c) for c in chars)}', flush=True)
+        if len(tags) != n or n == 0:
+            fail(f'tagger: {len(tags)} instances tagged of {n}')
+        if launches['swinattn'] != 24 * n:
+            fail(f'tagger: {launches["swinattn"]} swinattn launches for {n} '
+                 f'instances, expected {24 * n}')
+        # one crop, as infer_tags builds it, on the card and the CPU
+        i = int(np.flatnonzero(ins.valid.cpu().numpy())[0])
+        x, y, w, h = ins.bboxes[i].cpu().numpy().astype(np.int32)
+        crop = img[y:y + h, x:x + w].copy()
+        crop[~ins.masks[i].cpu().numpy()[y:y + h, x:x + w]] = 255
+        profile_tagger_crop(tagger, crop)
+        xin = tagger._prep(crop)
+        pk = tagger.probs(xin)[0]
+        cpu = Tagger(path, device='cpu')
+        t0 = time.perf_counter()
+        pc = cpu.probs(xin)[0]
+        tc = time.perf_counter() - t0
+        err = float(np.abs(pk - pc).max())
+        near = np.abs(pc - tagger.general_thr) <= 1e-4
+        keep = ~near
+        same = tagger._split(np.where(keep, pk, 0.0)) == \
+            cpu._split(np.where(keep, pc, 0.0))
+        print(f'[tagger] one crop card vs cpu ({tc:.2f} s on the CPU): '
+              f'probabilities max err {err:.3g}, tags equal '
+              f'{"yes" if same else "NO"} ({int(near.sum())} within 1e-4 of '
+              f'the threshold set aside; {int((pk > 0.5).sum())} above it)',
+              flush=True)
+        if err > 1e-4 or not same:
+            fail('tagger: the card and the CPU disagree on one crop')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
     ap.add_argument('--seed', type=int, default=0)
@@ -1338,6 +1744,8 @@ def main() -> None:
     gen = torch.Generator().manual_seed(args.seed)
     res = check_kernels(dev, gen)
     img = make_image(args.seed)
+    res.update(check_crf_kernels(dev, gen, img))
+    res.update(check_swinattn(dev, gen))
 
     # 3. the first slice's path: the detector-free clip -------------------
     free = KenBurnsPipeline(KenBurnsConfig(detector='none'), seed=args.seed,
@@ -1361,7 +1769,7 @@ def main() -> None:
     require_launches('main', launches,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
-                         'nms_large')])
+                         'nms_large', 'kmeans', 'crf', 'swinattn')])
     check_instances(pipe, 'main')
 
     # 5. kernel frames against the plain versions on the CPU ---------------
@@ -1423,7 +1831,41 @@ def main() -> None:
     compare_maskrcnn(img, mr_net)
     segment_cli_maskrcnn(mr_net, img)
 
-    # 12. report --------------------------------------------------------
+    # 12. the CRF clip: the shipped default with refine_crf -------------
+    cp = KenBurnsPipeline(KenBurnsConfig(refine_crf=True), seed=args.seed,
+                          device='cuda')
+    cp.ensure_detector()
+    cp._detector.model = copy.deepcopy(det_net)
+    cp._detector.refine.net = copy.deepcopy(isnet)
+    seen = refine_inputs(cp)
+    launches_crf = run_clip(cp, img, 'crf')
+    require_launches('crf', launches_crf,
+                     [k for k in _cuda.KERNELS if k not in (
+                         'samattn', 'discfill_exact', 'roialign',
+                         'nms_large', 'swinattn')])
+    print(f'[crf] depth_refine {cp.timer.seconds["depth_refine"]:.3f} s: '
+          f'{launches_crf["kmeans"]} segments reached the CRF, '
+          f'{launches_crf["kmeans"]} kmeans and {launches_crf["crf"]} crf '
+          f'launches', flush=True)
+    check_instances(cp, 'crf')
+    compare_frames(cp, 'crf')
+    ins_mask = seen['instances'].compose_masks().cpu().numpy()
+    compare_refine('crf', seen['img'],
+                   seen['disparity'][..., 0].cpu().numpy(),
+                   ins_mask if ins_mask.any() else None)
+
+    # 13. refine_depth_crf on layers over the image's shapes --------------
+    segments = compare_refine('crf layers', img, layered_disparity(args.seed),
+                              None)
+    if segments < 5:
+        fail(f'crf layers: {segments} segments reached the CRF, expected at '
+             f'least 5')
+
+    # 14. the danbooru tagger on the detector's instances -----------------
+    launches_tag = tagger_phase(cp._detector, img, args.seed)
+    del cp
+
+    # 15. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
     tpu = 'cartoonsegmentation_tpu/'
     c68, win = res['splat_c68'], res['samattn_windowed']
@@ -1458,16 +1900,31 @@ def main() -> None:
         ('nms_large', res['nms_large_rpn'], 'models/maskrcnn.py:235',
          {f'{k}_det': res['nms_large_det'][k] for k in (
              'ms', 'plain_ms', 'bound_ms')}),
+        # the full 576x1024 guide; the crop beside it
+        ('kmeans', res['kmeans_full'], 'ops/crf.py:55',
+         {f'{k}_crop': res['kmeans_crop'][k] for k in (
+             'label_share', 'ms', 'plain_ms', 'bound_ms')}),
+        # one mean-field step at 576x1024
+        ('crf', res['crf'], 'ops/crf.py:95', {}),
+        # stage 0 with the shift mask; every stage, with and without
+        ('swinattn', res['s0m'], 'models/swinv2.py:123',
+         {f'{k}_{tag}': res[tag][k] for tag in (
+             's0', 's1', 's1m', 's2', 's2m', 's3', 's3m') for k in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}),
     ]
     paths = {'detector-free': launches_free, 'main': launches,
-             'sam': launches_sam, 'maskrcnn': launches_mr}
+             'sam': launches_sam, 'maskrcnn': launches_mr,
+             'crf': launches_crf, 'tagger': launches_tag}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
-                'roialign': launches_mr, 'nms_large': launches_mr}
+                'roialign': launches_mr, 'nms_large': launches_mr,
+                'kmeans': launches_crf, 'crf': launches_crf,
+                'swinattn': launches_tag}
     kernels = []
     for name, r, where, extra in rows:
         # one PyTorch call computes the laplacian (a convolution) and
-        # the attention (SDPA with the bias); none computes the others
-        # (torchvision, whose roi_align and nms would, is not installed)
+        # the two attentions (SDPA with the bias); none computes the
+        # others (torchvision, whose roi_align and nms would, is not
+        # installed)
         kernels.append({
             'name': name, 'route': 'cuda', 'source': f'{src}{name}.cu',
             'replaces': f'{tpu}{where}',

@@ -91,12 +91,19 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
                  id='detector=sam'),
     {'detector': 'none', 'depth_est': 'zoe'},
     {'detector': 'none', 'default_depth_refine': True},
-    {'detector': 'none', 'refine_crf': True},
     {'detector': 'none', 'inpaint_type': 'patchmatch'},
 ], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match='not ported'):
         KenBurnsPipeline(tconfig.KenBurnsConfig(**kw), device='cpu')
+
+
+def test_refine_crf_is_accepted():
+    """``refine_crf`` runs in the port (the CRF depth refine)."""
+    pipe = KenBurnsPipeline(tconfig.KenBurnsConfig(detector='none',
+                                                   refine_crf=True),
+                            device='cpu')
+    assert pipe.cfg.refine_crf and callable(pipe._refine_crf)
 
 
 @pytest.mark.parametrize('kw', [

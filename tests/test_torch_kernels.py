@@ -8,9 +8,11 @@ package, so it also runs on a machine with a card and no JAX:
 
 Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output,
 the per-instance medians (K6), the median-5 and laplacian (K7), the
-NMS keep sets (K8), the colorize (K5b) and the cloud compaction (K10).
-Within the stated tolerance: splat sums, bokeh, the dynamic mask heads
-(K9), the frame epilogue (K5a) and SAM's rel-pos attention (K15a).
+NMS keep sets (K8), the colorize (K5b), the cloud compaction (K10)
+and the CRF's norm pass (K12b). Within the stated tolerance: splat
+sums, bokeh, the dynamic mask heads (K9), the frame epilogue (K5a),
+SAM's rel-pos attention (K15a), the k-means labels (K12a: their share),
+the CRF steps (K12b) and SwinV2's window attention (K15b).
 """
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ from cartoonsegmentation_torch.models import maskrcnn as tmaskrcnn
 from cartoonsegmentation_torch.models import rtmdet as trtmdet
 from cartoonsegmentation_torch.models import sam as tsam
 from cartoonsegmentation_torch.ops import _cuda
+from cartoonsegmentation_torch.models import swinv2 as tswin
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
+from cartoonsegmentation_torch.ops import crf as tcrf
 from cartoonsegmentation_torch.ops import discfill as tdiscfill
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
 from cartoonsegmentation_torch.ops import filters as tfilters
@@ -333,6 +337,77 @@ def test_samattn_kernel_vs_plain(rng, cuda, B, side, hd):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _crf_case(rng, H, W):
+    """A flat-colour guide with noisy edges and a sloppy disc mask."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    disc = (yy - H / 2) ** 2 + (xx - W / 3) ** 2 < (H / 3) ** 2
+    rgb = np.where(disc[..., None], [200, 60, 60], [60, 160, 60])
+    rgb = rgb + rng.randn(H, W, 3) * np.where(rng.rand(H, W, 1) < 0.1,
+                                               25, 3)
+    unary = np.clip(np.where(disc, 0.8, 0.2) + 0.2 * rng.randn(H, W), 0, 1)
+    return (torch.from_numpy(unary.astype(np.float32)),
+            torch.from_numpy(np.clip(rgb, 0, 255).astype(np.uint8)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W', [(37, 53), (200, 300)])
+def test_kmeans_kernel_vs_plain(rng, cuda, H, W):
+    """Block-ordered cluster sums against the plain one-hot matmul: the
+    centres differ in the last bits, >= 99.9% of labels equal."""
+    _, rgb = _crf_case(rng, H, W)
+    guide = (rgb.float() / 255.0).reshape(-1, 3).to(cuda)
+    got = tcrf.kmeans_labels(guide, 10)
+    want = tcrf._kmeans_labels(guide, 10)
+    assert got.dtype == torch.int32
+    assert float((got == want).float().mean()) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W', [(37, 53), (200, 300)])
+def test_crf_kernel_vs_plain(rng, cuda, H, W):
+    """The norm pass exact, one step within 1e-6, the whole CRF's mask
+    >= 99.9% equal to the plain versions' on the same labels."""
+    unary_fg, rgb = _crf_case(rng, H, W)
+    guide = (rgb.float() / 255.0).to(cuda)
+    labels = tcrf._kmeans_labels(guide.reshape(-1, 3), 10).reshape(H, W)
+    norms, dead = tcrf.crf_norms(labels)
+    norms_p, dead_p = tcrf.crf_norms_plain(labels, 1.0, 46.0, 10)
+    assert torch.equal(norms, norms_p) and int(dead) == int(dead_p) == 0
+    p = torch.clamp(unary_fg.to(cuda), 1e-5, 1 - 1e-5)
+    unary = -torch.log(torch.stack([1 - p, p], -1))
+    q = tcrf._softmax2(-unary)
+    got, _ = tcrf.crf_step(q, labels, unary, norms, dead)
+    want = tcrf.crf_step_plain(q, labels, unary, norms_p)
+    assert float((got - want).abs().max()) <= 1e-6
+    for _ in range(4):
+        got, mask = tcrf.crf_step(got, labels, unary, norms, dead)
+        want = tcrf.crf_step_plain(want, labels, unary, norms_p)
+    assert float((mask == (want[..., 1] > want[..., 0])).float().mean()) \
+        >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,N,n,hd,nW', [(196, 64, 4, 32, 0),
+                                         (32, 64, 16, 32, 16),
+                                         (12, 16, 2, 16, 4)])
+def test_swinattn_kernel_vs_plain(rng, cuda, B, N, n, hd, nW):
+    """SwinV2-B's windows (with and without the shift mask) and a small
+    window; f32 sums in another order than the plain matmuls."""
+    qkv = torch.from_numpy(rng.randn(B, N, 3, n, hd).astype(np.float32)
+                           ).to(cuda)
+    scale = torch.from_numpy(rng.uniform(5, 100, n).astype(np.float32)
+                             ).to(cuda)
+    bias = torch.from_numpy(16 / (1 + np.exp(-rng.randn(n, N, N))).astype(
+        np.float32)).to(cuda)
+    mask = None
+    if nW:
+        mask = torch.from_numpy(np.where(rng.rand(nW, N, N) < 0.3, -100.0,
+                                         0.0).astype(np.float32)).to(cuda)
+    got = tswin.window_attention(qkv, scale, bias, mask)
+    want = tswin.window_attention_plain(qkv, scale, bias, mask)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_check_inputs(rng, cuda):
     _cuda.reset_launches()
@@ -382,6 +457,11 @@ def test_wrappers_take_the_plain_version_only_on_cpu(rng, monkeypatch):
     tmaskrcnn.batched_nms_fixed(*_nms_large_case(rng, 40, 3), 0.6, 10)
     feats, boxes = _pyramid(rng, 8)
     tmaskrcnn.roi_align_pyramid(tmaskrcnn.flatten_pyramid(feats), boxes, 7)
+    unary_fg, rgb = _crf_case(rng, 20, 30)
+    tcrf.densecrf_binary(unary_fg, rgb, iterations=2)
+    tswin.window_attention(torch.zeros((4, 16, 3, 2, 8)), torch.ones(2),
+                           torch.zeros((2, 16, 16)),
+                           torch.zeros((2, 16, 16)))
     assert _cuda.LAUNCHES == before
 
 
