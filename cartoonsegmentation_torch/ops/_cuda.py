@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
            'laplacian', 'nms', 'maskhead', 'epilogue', 'colorize', 'compact',
            'samattn', 'discfill_exact', 'roialign', 'nms_large', 'kmeans',
-           'crf', 'swinattn')
+           'crf', 'swinattn', 'pushpull', 'jitter')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 

@@ -87,7 +87,8 @@ def _check_supported(cfg: KenBurnsConfig) -> None:
 
 class _VideoSink:
     """mp4 through cv2 where cv2 is present; otherwise the raw I420
-    stream next to ``path`` as ``<stem>.yuv`` (the path is logged)."""
+    stream next to ``path`` as ``<stem>.yuv`` (the path is logged),
+    which takes only frames with H % 4 == 0 and W % 2 == 0."""
 
     def __init__(self, path: str, W: int, H: int, fps: int):
         try:
@@ -100,6 +101,11 @@ class _VideoSink:
             self._vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'),
                                        fps, (W, H))
         else:
+            if H % 4 or W % 2:
+                raise RuntimeError(
+                    f'cv2 is missing and the raw I420 stream needs H % 4 '
+                    f'== 0 and W % 2 == 0, got {H}x{W}: install cv2 to '
+                    f'write this clip')
             self.path = os.path.splitext(path)[0] + '.yuv'
             self._raw = open(self.path, 'wb')
             LOGGER.warning('cv2 is missing: writing the raw I420 stream '
@@ -535,10 +541,11 @@ class KenBurnsPipeline:
                              depth_field: Optional[bool] = None,
                              chunk: int = 16, fps: int = 25) -> np.ndarray:
         """Render in chunks; each chunk is packed to I420 on the device
+        (BGR where the frame size does not fit I420: H % 4 or W % 2)
         and copied to pinned host memory asynchronously while the next
         chunk renders, and a worker thread decodes and encodes it. With
         cfg.playback the palindrome tail follows. Returns the forward
-        frames (BGR, decoded from the I420 stream)."""
+        frames (BGR; decoded from the I420 stream where it was used)."""
         cfg, dev = self.cfg, self.device
         if depth_field is None:
             depth_field = cfg.depth_field
@@ -546,9 +553,7 @@ class KenBurnsPipeline:
         T = len(steps)
         max_cw = max(obj_from['crop_w'], obj_to['crop_w'])
         max_ch = max(obj_from['crop_h'], obj_to['crop_h'])
-        if H % 4 or W % 2:
-            raise NotImplementedError(f'the streamed video needs H % 4 == 0 '
-                                      f'and W % 2 == 0, got {H}x{W}')
+        use_i420 = H % 4 == 0 and W % 2 == 0
         cams = self._cams(state, obj_from, obj_to, steps)
         planes = self.focal_planes(state, cams, depth_field)
         pin = dev.type == 'cuda'
@@ -572,9 +577,12 @@ class KenBurnsPipeline:
                         break
                     ci, arr = item
                     t0 = _time.perf_counter()
-                    bgr = i420_to_bgr_host(arr)
-                    host_bgr[ci], host_i420[ci] = bgr, arr
-                    for f, y in zip(bgr, arr):
+                    if use_i420:
+                        bgr, yuv = i420_to_bgr_host(arr), arr
+                    else:
+                        bgr, yuv = arr, [None] * len(arr)
+                    host_bgr[ci], host_i420[ci] = bgr, yuv
+                    for f, y in zip(bgr, yuv):
                         sink.write(f, y)
                     enc_s[0] += _time.perf_counter() - t0
                 if cfg.playback:
@@ -609,18 +617,19 @@ class KenBurnsPipeline:
             for ci in range(n_chunks):
                 c0 = ci * chunk
                 n = min(chunk, T - c0)
-                # each frame's epilogue writes its BGR and I420 straight
-                # into the chunk's buffers
+                # each frame's epilogue writes its BGR (and I420)
+                # straight into the chunk's buffers
                 bgr = torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
                 i420 = torch.empty((n, H * 3 // 2, W), dtype=torch.uint8,
-                                   device=dev)
+                                   device=dev) if use_i420 else None
                 for j in range(n):
                     self.render_one(state, cams[c0 + j], planes, max_cw,
                                     max_ch, depth_field, bgr=bgr[j],
-                                    i420=i420[j])
-                host = torch.empty(i420.shape, dtype=torch.uint8,
+                                    i420=None if i420 is None else i420[j])
+                sent = bgr if i420 is None else i420
+                host = torch.empty(sent.shape, dtype=torch.uint8,
                                    pin_memory=pin)
-                host.copy_(i420, non_blocking=pin)
+                host.copy_(sent, non_blocking=pin)
                 ev = None
                 if pin:
                     ev = torch.cuda.Event()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the 19 CUDA
+1. prints the card, torch and CUDA versions, and builds the 21 CUDA
    kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
    once;
 2. holds each kernel against its plain PyTorch version on the card at
@@ -17,8 +17,10 @@
    -inf scores and category offsets; K12a on the image's 576x1024 guide
    and a crop, K12b's norm pass, one step and a whole densecrf_binary at
    576x1024; K15b at SwinV2-B 448's four stage shapes with and without
-   the shift mask, beside SDPA) and times both with CUDA events around
-   one call on an idle card (median of runs on varied inputs);
+   the shift mask, beside SDPA; K13a and K13b at the style path's
+   448x768 and 768x768 on a hole of seeded discs over a quarter of the
+   frame) and times both with CUDA events around one call on an idle
+   card (median of runs on varied inputs);
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -74,7 +76,13 @@
    synthetic tag CSV, loads it through ``AnimeInsSeg.init_tagger`` and
    tags the detector's instances with ``infer_tags`` (24 K15b launches
    an instance), then one crop card against CPU;
-15. prints one {"kernels": [...]} line, then the card line and the
+15. runs the style flow, ``StyleEditor.repaint`` at long side 768 with
+   that detector and tagger against a stub sd-webui server on
+   127.0.0.1: K13a and K13b launched, one img2img and one inpaint an
+   instance, the card's background fill against the CPU's;
+16. runs the detector-free clip at 683x1024 (H % 4 != 0), which
+   streams BGR chunks: the frames, the clip's frame count, no I420;
+17. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -118,21 +126,21 @@ def card_line() -> str:
         else f'nvidia-smi failed: {out.stderr.strip()}'
 
 
-def make_image(seed: int) -> np.ndarray:
-    """576x1024 BGR uint8: smooth gradients plus a few shapes."""
+def make_image(seed: int, h: int = H, w: int = W) -> np.ndarray:
+    """h x w (576x1024) BGR uint8: smooth gradients plus a few shapes."""
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     ph = rng.uniform(0, 2 * np.pi, 3)
     img = np.stack([
         128 + 90 * np.sin(xx / 97 + ph[0]) * np.cos(yy / 61),
         128 + 90 * np.cos(xx / 53 + ph[1]) * np.sin(yy / 43 + ph[2]),
         128 + 90 * np.sin((xx + yy) / 71)], -1)
     for _ in range(6):
-        cx, cy = rng.uniform(100, W - 100), rng.uniform(80, H - 80)
+        cx, cy = rng.uniform(100, w - 100), rng.uniform(80, h - 80)
         r = rng.uniform(30, 90)
         col = rng.uniform(0, 255, 3)
         img[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = col
-    x0, y0 = int(rng.uniform(50, W - 300)), int(rng.uniform(50, H - 200))
+    x0, y0 = int(rng.uniform(50, w - 300)), int(rng.uniform(50, h - 200))
     img[y0:y0 + 150, x0:x0 + 250] = rng.uniform(0, 255, 3)
     return np.clip(img, 0, 255).astype(np.uint8)
 
@@ -822,10 +830,28 @@ def profile_tagger_crop(tagger, crop: np.ndarray, n: int = 4) -> None:
     device_time_report(prof, wall, n, 'instance', '[tagger]', top=10)
 
 
+def video_frames(path: str, h: int, w: int) -> int:
+    """Frames in an (h, w) clip: decoded with cv2 from an mp4, counted
+    from the size of a raw I420 stream."""
+    if path.endswith('.yuv'):
+        return os.path.getsize(path) // (h * w * 3 // 2)
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
 def run_clip(pipe, img, tag: str):
     """pipe.run(img, video) with the launch counters set to 0 just
-    before and read just after; checks the frames. Returns the launches."""
+    before and read just after; checks the frames and that the clip
+    holds them with the palindrome tail. Returns the launches."""
     from cartoonsegmentation_torch.ops import _cuda
+    h, w = img.shape[:2]
+    T = pipe.cfg.num_frame
+    want = T + (T - 2 if pipe.cfg.playback else 0)
     tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
     try:
         torch.cuda.synchronize()
@@ -835,14 +861,17 @@ def run_clip(pipe, img, tag: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_cuda.LAUNCHES)
-        size = os.path.getsize(pipe.last_video_path)
-        kind = 'raw I420 (cv2 is missing)' \
-            if pipe.last_video_path.endswith('.yuv') else 'mp4'
-        print(f'[{tag}] video: {size} bytes, {kind}', flush=True)
+        path = pipe.last_video_path
+        size = os.path.getsize(path)
+        n = video_frames(path, h, w)
+        kind = 'raw I420 (cv2 is missing)' if path.endswith('.yuv') \
+            else 'mp4'
+        print(f'[{tag}] video: {size} bytes, {kind}, {n} frames', flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if frames.shape != (pipe.cfg.num_frame, H, W, 3) or \
-            frames.dtype != np.uint8:
+    if n != want:
+        fail(f'{tag}: the clip holds {n} frames, expected {want}')
+    if frames.shape != (T, h, w, 3) or frames.dtype != np.uint8:
         fail(f'{tag}: frames are {frames.shape} {frames.dtype}')
     if frames.std() < 5 or not 5 < frames.mean() < 250:
         fail(f'{tag}: frames look blank (mean {frames.mean():.1f}, std '
@@ -1703,6 +1732,303 @@ def tagger_phase(det, img: np.ndarray, seed: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
+# the style path's working sizes: long_side_to(576, 1024, 768) and
+# repaint_person's default -W/-H
+FILL_SIZES = ((448, 768), (768, 768))
+JITTER_SHARE = 0.9999
+STYLE_FILL_SHARE = 0.999
+
+
+def fill_hole(gen: torch.Generator, h: int, w: int) -> torch.Tensor:
+    """(h, w) bool: 7 seeded discs over about a quarter of the frame,
+    one of them across the left edge."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing='ij')
+    r = (0.3 * h * w / (7 * np.pi)) ** 0.5
+    c = torch.rand((6, 2), generator=gen) * torch.tensor([h, w])
+    centres = [(float(cy), float(cx)) for cy, cx in c] + [(h / 2, 0.0)]
+    hole = torch.zeros((h, w), dtype=torch.bool)
+    for cy, cx in centres:
+        hole |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+    return hole
+
+
+def fill_bytes(h: int, w: int) -> int:
+    """K13a's bytes: the image and hole read, the pyramid's levels
+    1..L (4 floats a pixel; level 0 is never stored: the first pull
+    reads the image, the last pass writes the result) written and
+    read, the result written."""
+    from cartoonsegmentation_torch.ops.inpaint_fill import fill_levels
+    pyr = sum(a * b for a, b in fill_levels(h, w)[1:]) * 16
+    return h * w * 12 + h * w + 2 * pyr + h * w * 12
+
+
+def jitter_bytes(h: int, w: int, n_hole: int, iters: int = 2) -> int:
+    """K13b's bytes: the image and hole read, the offsets of the hole
+    pixels read (2 planes of int32 a radius and an iteration), the
+    ping-pong buffer between iterations written and read, the result
+    written."""
+    return (h * w * 12 + h * w + n_hole * iters * 4 * 2 * 4
+            + (iters - 1) * 2 * h * w * 12 + h * w * 12)
+
+
+def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
+    """K13a push-pull and K13b jitter refine against their plain
+    versions on the card at the style path's sizes, on the image
+    resized and a hole of seeded discs (``fill_hole``): K13a within
+    1e-6; K13b on K13a's result with host-drawn offsets (the same for
+    both), >= 99.99% of the hole pixels equal."""
+    from cartoonsegmentation_torch.ops import inpaint_fill as fill
+    res = {}
+    rgb = torch.from_numpy(img).to(dev).float().permute(2, 0, 1)[None] / 255
+    for h, w in FILL_SIZES:
+        tag = f'{h}x{w}'
+        x = torch.nn.functional.interpolate(rgb, size=(h, w), mode='bilinear',
+                                            align_corners=False)
+        x = x[0].permute(1, 2, 0).contiguous()
+        hole = fill_hole(gen, h, w).to(dev)
+        share = float(hole.float().mean())
+        got = fill.push_pull_fill(x, hole)
+        want = fill.push_pull_fill_plain(x, hole)
+        err = float((got - want).abs().max())
+        cases = [(x * (1.0 - 1e-3 * i)).contiguous() for i in range(RUNS)]
+        ms = time_ms(lambda c: fill.push_pull_fill(c, hole), cases)
+        plain_ms = time_ms(lambda c: fill.push_pull_fill_plain(c, hole),
+                           cases[:3])
+        levels = fill.fill_levels(h, w)
+        # per pyramid pixel: the 2x2 sums of 4 channels (12 adds), the
+        # upsample (3 channels x 6) and the blend (3 x 6 and a clip)
+        b, by = bound(fill_bytes(h, w),
+                      50 * sum(a * c for a, c in levels))
+        print(f'[kernel] pushpull {tag} ({share:.1%} hole, {len(levels) - 1} '
+              f'levels, {2 * len(levels) - 1} launches a call): kernel '
+              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by});'
+              f' max err {err:.3g}', flush=True)
+        if not err <= 1e-6:
+            fail(f'pushpull {tag}: {err:.3g} from the plain version (1e-6 '
+                 f'allowed)')
+        res[f'pushpull_{tag}'] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b,
+                                      bound_by=by, hole_share=share)
+
+        base = want
+        off = fill.jitter_offsets(h, w).to(dev)
+        got = fill.jitter_refine(base, hole, off)
+        want = fill.jitter_refine_plain(base, hole, off)
+        same = float((got == want).all(-1)[hole].float().mean())
+        err = float((got - want).abs().max())
+        moved = float((got != base).any(-1)[hole].float().mean())
+        cases = [(base * (1.0 - 1e-3 * i)).contiguous() for i in range(RUNS)]
+        ms = time_ms(lambda c: fill.jitter_refine(c, hole, off), cases)
+        plain_ms = time_ms(lambda c: fill.jitter_refine_plain(c, hole, off),
+                           cases[:3])
+        n_hole = int(hole.sum())
+        # per hole pixel, iteration and radius: 24 differences, squares
+        # and adds of the ring SSD
+        b, by = bound(jitter_bytes(h, w, n_hole), n_hole * 2 * 4 * 72)
+        print(f'[kernel] jitter {tag} ({n_hole} hole pixels, 2 launches a '
+              f'call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+              f'{b:.4f} ms ({by}); hole pixels equal {same:.6f}, max err '
+              f'{err:.3g}; the refine moved {moved:.1%} of them', flush=True)
+        if same < JITTER_SHARE or moved == 0.0:
+            fail(f'jitter {tag}: {same:.6f} of hole pixels equal to the plain '
+                 f'version ({JITTER_SHARE} required), {moved:.1%} moved')
+        res[f'jitter_{tag}'] = dict(max_abs_err=err, equal_share=same,
+                                    ms=ms, plain_ms=plain_ms, bound_ms=b,
+                                    bound_by=by)
+    return res
+
+
+def stub_sd_server():
+    """A stub stable-diffusion-webui on 127.0.0.1 (stdlib http.server in
+    a thread): img2img answers n_iter * batch_size images of the asked
+    size, PNG-encoded with cv2, and records each request body. Returns
+    (server, url, calls)."""
+    import base64
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    import cv2
+    calls, cache = [], {}
+
+    def image(w, h, k):
+        if (w, h, k) not in cache:
+            yy, xx = np.mgrid[0:h, 0:w]
+            img = np.stack([(xx * 3 + 50 * k) % 256, (yy * 2) % 256,
+                            np.full((h, w), 90 + 40 * k)], -1)
+            ok, buf = cv2.imencode('.png', img.astype(np.uint8))
+            cache[w, h, k] = base64.b64encode(buf.tobytes()).decode()
+        return cache[w, h, k]
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers['Content-Length'])
+            payload = json.loads(self.rfile.read(n))
+            calls.append(payload)
+            w, h = payload.get('width', 64), payload.get('height', 64)
+            count = int(payload.get('n_iter', 1)) * int(
+                payload.get('batch_size', 1))
+            imgs = [image(w, h, k + 1) for k in range(count)]
+            if count > 1:
+                imgs = [image(w, h, 0)] + imgs
+            body = json.dumps({'images': imgs}).encode()
+            self.send_response(200)
+            self.send_header('Content-Type', 'application/json')
+            self.send_header('Content-Length', str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(('127.0.0.1', 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f'http://127.0.0.1:{srv.server_port}/sdapi/v1/img2img', calls
+
+
+class MaskBoxed:
+    """The detector with each instance boxed by its mask (the random box
+    head's boxes may crop nothing, ``mask_boxes``) and instances whose
+    mask is empty dropped: the tagger needs a crop."""
+
+    def __init__(self, det):
+        self.det, self.device = det, det.device
+
+    def infer(self, img, *a, **k):
+        ins = mask_boxes(self.det.infer(img, *a, **k))
+        return ins.replace(valid=ins.valid & ins.masks.any((1, 2)))
+
+
+def style_phase(det, img: np.ndarray) -> dict:
+    """``StyleEditor.repaint`` on the card: the edged detector with its
+    ISNet refine (``MaskBoxed``), the full-width random tagger of the
+    tagger phase, a stub sd-webui server; long_side 768 (a 448x768
+    working size), niter 1, one inpaint an instance. Checks K13a and
+    K13b launched once each, one img2img and one inpaint an instance at
+    768x448 with the style prompt, and the card's background fill
+    against the plain versions on the CPU on the same host arrays:
+    outside the hole exact, inside >= 99.9% equal. Returns the launches
+    of the repaint."""
+    import cv2
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.ops.inpaint_fill import (inpaint,
+                                                            jitter_offsets)
+    from cartoonsegmentation_torch.pipeline.style import (
+        StyleConfig, StyleEditor, long_side_to)
+    srv, url, calls = stub_sd_server()
+    tmp = tempfile.mkdtemp(prefix='smoke_', dir=str(_cuda.BUILD_DIR))
+    try:
+        cfg = StyleConfig(
+            url=url, style_prompt='pixar style', long_side=768, niter=1,
+            onebyone=True, cache_masks_dir=os.path.join(tmp, 'cache'),
+            save_dir=os.path.join(tmp, 'out'),
+            sd_params={'steps': 2, 'alwayson_scripts':
+                       {'controlnet': {'args': [{}]}}})
+        editor = StyleEditor(cfg, detector=MaskBoxed(det),
+                             tagger=det.tagger.label_cv2_bgr)
+        prep_s = []
+        prepare = editor.prepare
+
+        def timed_prepare(*a):
+            t0 = time.perf_counter()
+            out = prepare(*a)
+            prep_s.append(time.perf_counter() - t0)
+            return out
+        editor.prepare = timed_prepare
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        saved = editor.repaint(img, 'smoke')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        require_launches('style', launches, ('pushpull', 'jitter'))
+        if launches['pushpull'] != 1 or launches['jitter'] != 1:
+            fail(f'style: {launches["pushpull"]} pushpull and '
+                 f'{launches["jitter"]} jitter launches, expected one fill')
+        with open(os.path.join(tmp, 'cache', 'smoke_prompts.json')) as f:
+            n = len(json.load(f)) - 1
+        h, w = long_side_to(*img.shape[:2], 768)
+        bad = [i for i, c in enumerate(calls)
+               if (c['width'], c['height']) != (w, h)
+               or not c['prompt'].startswith('pixar style')
+               or ('mask' in c) != (i > 0)]
+        print(f'[style] repaint {wall:.3f} s (prepare {prep_s[0]:.3f} s: '
+              f'detect, tag {n} instances, fill), {len(calls)} requests '
+              f'(1 img2img, {len(calls) - 1} inpaints); saved '
+              f'{[os.path.basename(p) for p in saved]}; launches '
+              f'{ {k: v for k, v in launches.items() if v} }', flush=True)
+        if n < 2 or len(calls) != 1 + n or bad or len(saved) != 1 or \
+                not os.path.exists(saved[0]):
+            fail(f'style: {n} instances, {len(calls)} requests (bad: {bad}), '
+                 f'saved {saved}')
+        # the background fill: the card's against the CPU's
+        small = cv2.resize(img, (w, h), interpolation=cv2.INTER_LANCZOS4)
+        cache = os.path.join(tmp, 'cache')
+        mask = cv2.imread(os.path.join(cache, 'smoke_mask_fg.png'),
+                          cv2.IMREAD_GRAYSCALE)
+        card = cv2.imread(os.path.join(cache, 'smoke_bg_repaint.png'))
+        t0 = time.perf_counter()
+        cpu = inpaint(small, mask, device='cpu')
+        cpu_s = time.perf_counter() - t0
+        hole = mask > 0
+        outside = bool((card[~hole] == cpu[~hole]).all()
+                       and (card[~hole] == small[~hole]).all())
+        inside = float((card[hole] == cpu[hole]).all(-1).mean())
+        fill_ms = time_ms(lambda _: inpaint(small, mask, device=det.device),
+                          [None] * RUNS)
+        # of which the host's draw of the jitter offsets
+        draw_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            jitter_offsets(h, w)
+            draw_s.append(time.perf_counter() - t0)
+        print(f'[style] background fill {h}x{w}, {hole.mean():.1%} hole: '
+              f'{fill_ms:.3f} ms on the card (uint8 in and out, host copies '
+              f'included; the host draw of the offsets alone '
+              f'{1e3 * statistics.median(draw_s):.3f} ms), '
+              f'{1e3 * cpu_s:.1f} ms on the CPU; outside the hole '
+              f'{"exact" if outside else "DIFFERENT"}, inside '
+              f'{inside:.6f} of pixels equal', flush=True)
+        if not outside or inside < STYLE_FILL_SHARE:
+            fail(f'style: the card\'s background fill disagrees with the CPU '
+                 f'(outside exact: {outside}, inside {inside:.6f})')
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def odd_clip_phase(seed: int) -> dict:
+    """The detector-free clip at 683x1024 (a 3:2 image at 1024 wide:
+    H % 4 != 0), which streams BGR chunks: the frames, the clip's frame
+    count with the palindrome tail, and that the I420 decode was never
+    called. Returns the launches."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.pipeline import kenburns
+    i420_calls = []
+    decode = kenburns.i420_to_bgr_host
+
+    def counted(arr):
+        i420_calls.append(len(arr))
+        return decode(arr)
+    kenburns.i420_to_bgr_host = counted
+    try:
+        pipe = kenburns.KenBurnsPipeline(KenBurnsConfig(detector='none'),
+                                         seed=seed, device='cuda')
+        launches = run_clip(pipe, make_image(seed, 683, 1024),
+                            'clip 683x1024')
+    finally:
+        kenburns.i420_to_bgr_host = decode
+    print(f'[clip 683x1024] BGR stream: stream_render '
+          f'{pipe.timer.seconds["stream_render"]:.3f} s, stream_encode_tail '
+          f'{pipe.timer.seconds["stream_encode_tail"]:.3f} s; I420 decodes '
+          f'{len(i420_calls)}', flush=True)
+    if i420_calls:
+        fail(f'clip 683x1024: the I420 path was taken ({i420_calls})')
+    return launches
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
@@ -1746,6 +2072,7 @@ def main() -> None:
     img = make_image(args.seed)
     res.update(check_crf_kernels(dev, gen, img))
     res.update(check_swinattn(dev, gen))
+    res.update(check_fill_kernels(dev, gen, img))
 
     # 3. the first slice's path: the detector-free clip -------------------
     free = KenBurnsPipeline(KenBurnsConfig(detector='none'), seed=args.seed,
@@ -1769,7 +2096,8 @@ def main() -> None:
     require_launches('main', launches,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
-                         'nms_large', 'kmeans', 'crf', 'swinattn')])
+                         'nms_large', 'kmeans', 'crf', 'swinattn',
+                         'pushpull', 'jitter')])
     check_instances(pipe, 'main')
 
     # 5. kernel frames against the plain versions on the CPU ---------------
@@ -1842,7 +2170,7 @@ def main() -> None:
     require_launches('crf', launches_crf,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
-                         'nms_large', 'swinattn')])
+                         'nms_large', 'swinattn', 'pushpull', 'jitter')])
     print(f'[crf] depth_refine {cp.timer.seconds["depth_refine"]:.3f} s: '
           f'{launches_crf["kmeans"]} segments reached the CRF, '
           f'{launches_crf["kmeans"]} kmeans and {launches_crf["crf"]} crf '
@@ -1863,9 +2191,16 @@ def main() -> None:
 
     # 14. the danbooru tagger on the detector's instances -----------------
     launches_tag = tagger_phase(cp._detector, img, args.seed)
+
+    # 15. the style flow: StyleEditor.repaint with the same detector and
+    # tagger against a stub sd-webui server ------------------------------
+    launches_style = style_phase(cp._detector, img)
     del cp
 
-    # 15. report --------------------------------------------------------
+    # 16. the detector-free clip at a frame size I420 does not fit --------
+    launches_odd = odd_clip_phase(args.seed)
+
+    # 17. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
     tpu = 'cartoonsegmentation_tpu/'
     c68, win = res['splat_c68'], res['samattn_windowed']
@@ -1911,20 +2246,29 @@ def main() -> None:
          {f'{k}_{tag}': res[tag][k] for tag in (
              's0', 's1', 's1m', 's2', 's2m', 's3', 's3m') for k in (
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}),
+        # the style path's 448x768; repaint_person's 768x768 beside it
+        ('pushpull', res['pushpull_448x768'], 'ops/inpaint_fill.py:43',
+         {f'{k}_768x768': res['pushpull_768x768'][k] for k in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms')}),
+        ('jitter', res['jitter_448x768'], 'ops/inpaint_fill.py:70',
+         {f'{k}_768x768': res['jitter_768x768'][k] for k in (
+             'max_abs_err', 'equal_share', 'ms', 'plain_ms', 'bound_ms')}),
     ]
     paths = {'detector-free': launches_free, 'main': launches,
              'sam': launches_sam, 'maskrcnn': launches_mr,
-             'crf': launches_crf, 'tagger': launches_tag}
+             'crf': launches_crf, 'tagger': launches_tag,
+             'style': launches_style, 'clip 683x1024': launches_odd}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,
-                'swinattn': launches_tag}
+                'swinattn': launches_tag, 'pushpull': launches_style,
+                'jitter': launches_style}
     kernels = []
     for name, r, where, extra in rows:
         # one PyTorch call computes the laplacian (a convolution) and
         # the two attentions (SDPA with the bias); none computes the
         # others (torchvision, whose roi_align and nms would, is not
-        # installed)
+        # installed; none computes a push-pull or the jitter refine)
         kernels.append({
             'name': name, 'route': 'cuda', 'source': f'{src}{name}.cu',
             'replaces': f'{tpu}{where}',

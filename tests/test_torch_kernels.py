@@ -12,7 +12,9 @@ NMS keep sets (K8), the colorize (K5b), the cloud compaction (K10)
 and the CRF's norm pass (K12b). Within the stated tolerance: splat
 sums, bokeh, the dynamic mask heads (K9), the frame epilogue (K5a),
 SAM's rel-pos attention (K15a), the k-means labels (K12a: their share),
-the CRF steps (K12b) and SwinV2's window attention (K15b).
+the CRF steps (K12b), SwinV2's window attention (K15b), the push-pull
+fill (K13a) and the jitter refine (K13b: the share of equal hole
+pixels).
 """
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from cartoonsegmentation_torch.ops import crf as tcrf
 from cartoonsegmentation_torch.ops import discfill as tdiscfill
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
 from cartoonsegmentation_torch.ops import filters as tfilters
+from cartoonsegmentation_torch.ops import inpaint_fill as tfill
 from cartoonsegmentation_torch.ops import pointcloud as tpc
 from cartoonsegmentation_torch.pipeline import depth as tdepth
 from cartoonsegmentation_torch.pipeline import state as tstate
@@ -408,6 +411,54 @@ def test_swinattn_kernel_vs_plain(rng, cuda, B, N, n, hd, nW):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _fill_case(rng, H, W):
+    """An image of gradients and noise with a hole of seeded blobs,
+    one of them over the left edge."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(xx / 23), 0.5 + 0.4 * np.cos(yy / 17),
+                    rng.rand(H, W)], -1).astype(np.float32)
+    hole = np.zeros((H, W), bool)
+    for _ in range(5):
+        cy, cx = rng.uniform(0, H), rng.uniform(0, W)
+        hole |= (yy - cy) ** 2 + (xx - cx) ** 2 < (0.12 * max(H, W)) ** 2
+    hole |= (yy - H / 2) ** 2 + xx ** 2 < (0.1 * max(H, W)) ** 2
+    return torch.from_numpy(img), torch.from_numpy(hole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W', [(37, 53), (27, 1), (1, 1), (448, 768),
+                                 (768, 768)])
+def test_pushpull_kernel_vs_plain(rng, cuda, H, W):
+    """The sums and the blend in the plain version's order: within
+    1e-6; an all-hole image fills with zeros, not NaN."""
+    img, hole = _fill_case(rng, H, W)
+    img, hole = img.to(cuda), hole.to(cuda)
+    got = tfill.push_pull_fill(img, hole)
+    want = tfill.push_pull_fill_plain(img, hole)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(got[~hole], img[~hole])
+    full = torch.ones_like(hole)
+    assert torch.equal(tfill.push_pull_fill(img, full),
+                       torch.zeros_like(img))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W', [(37, 53), (448, 768)])
+def test_jitter_kernel_vs_plain(rng, cuda, H, W):
+    """The same offsets: >= 99.99% of the hole pixels equal (a tie of
+    cost within f32 noise may pick another source)."""
+    img, hole = _fill_case(rng, H, W)
+    img = tfill.push_pull_fill_plain(img, hole).to(cuda)
+    hole = hole.to(cuda)
+    off = tfill.jitter_offsets(H, W, seed=1).to(cuda)
+    got = tfill.jitter_refine(img, hole, off)
+    want = tfill.jitter_refine_plain(img, hole, off)
+    assert torch.equal(got[~hole], img[~hole])
+    same = (got == want).all(-1)[hole]
+    assert float(same.float().mean()) >= 0.9999
+    assert not torch.equal(got, img)
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_check_inputs(rng, cuda):
     _cuda.reset_launches()
@@ -462,6 +513,9 @@ def test_wrappers_take_the_plain_version_only_on_cpu(rng, monkeypatch):
     tswin.window_attention(torch.zeros((4, 16, 3, 2, 8)), torch.ones(2),
                            torch.zeros((2, 16, 16)),
                            torch.zeros((2, 16, 16)))
+    img, hole = _fill_case(rng, 20, 30)
+    tfill.jitter_refine(tfill.push_pull_fill(img, hole), hole,
+                        tfill.jitter_offsets(20, 30))
     assert _cuda.LAUNCHES == before
 
 
