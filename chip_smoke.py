@@ -11,7 +11,8 @@
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
    K5a at the path's crop and at a crop kept at its size; K10 with an
    overflow, under the sync debug mode; K15a at SAM ViT-B's windowed
-   and global blocks, beside SDPA with the bias prebuilt; K11 on the
+   and global blocks, beside SDPA with the bias prebuilt, bound by the
+   tensor cores' 3xTF32 rate (``bound_tc``); K11 on the
    rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
    over the 768x1344 canvas's pyramid; K14b at K = 4,756 and 2,048 with
    -inf scores and category offsets; K12a on the image's 576x1024 guide
@@ -20,7 +21,9 @@
    the shift mask, beside SDPA; K13a and K13b at the style path's
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
-   card (median of runs on varied inputs);
+   card (median of runs on varied inputs); K15a, K15b and SDPA also
+   by their device time alone (``graph_ms``: one call captured in a
+   CUDA graph and replayed), the ratio to SDPA's on each line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -105,10 +108,11 @@ import numpy as np
 import torch
 
 H, W = 576, 1024
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth
-# and f32 rate outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth,
+# f32 rate outside the tensor cores and the dense TF32 tensor-core rate
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_TF32_S = 495e12
 RUNS = 10
 
 
@@ -170,6 +174,48 @@ def bound(n_bytes: float, n_flops: float):
     f32 operations over the f32 peak."""
     tb, tf = n_bytes / PEAK_BYTES_S * 1e3, n_flops / PEAK_F32_S * 1e3
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
+
+
+def bound_tc(n_bytes: float, product_flops: float, other_flops: float):
+    """(bound_ms, bound_by, bound_unit, bound_ms_simt) of a kernel whose
+    products run on the tensor cores in 3xTF32: the largest of bytes
+    over HBM bandwidth, 3 x the products' operations over the TF32 peak
+    (three passes make an f32-accurate product) and the other
+    operations over the f32 peak. bound_by is 'bytes' or 'operations'
+    (the kernels line's two values), bound_unit names what binds
+    ('tensor cores (3xTF32)' for the products); bound_ms_simt is the
+    bound with every operation on the f32 peak (``bound``)."""
+    t = {'bytes': n_bytes / PEAK_BYTES_S * 1e3,
+         'tensor cores (3xTF32)': 3 * product_flops / PEAK_TF32_S * 1e3,
+         'CUDA cores (f32)': other_flops / PEAK_F32_S * 1e3}
+    unit = max(t, key=t.get)
+    by = 'bytes' if unit == 'bytes' else 'operations'
+    return t[unit], by, unit, bound(n_bytes, product_flops + other_flops)[0]
+
+
+def graph_ms(fn, x, reps: int = 20) -> float:
+    """Device time of one fn(x), host dispatch excluded: fn captured
+    once in a CUDA graph, the graph replayed reps times between two
+    events."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn(x)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(x)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def synthetic_cloud(gen: torch.Generator, dev, n_total: int):
@@ -587,18 +633,30 @@ def check_samattn(dev, gen) -> dict:
                          - want).abs().max())
         lib_ms = time_ms(lambda c: F.scaled_dot_product_attention(
             *c[0], attn_mask=c[1]), lib_cases)
+        # device time alone, host dispatch excluded (CUDA graphs)
+        dev_ms = graph_ms(lambda c: sam.rel_pos_attention(*c, side, side),
+                          cases[0])
+        lib_dev_ms = graph_ms(lambda c: F.scaled_dot_product_attention(
+            *c[0], attn_mask=c[1]), lib_cases[0])
         del lib_cases, lib
-        # q·k and p·v (2 operations a multiply-add), the two bias adds
-        # and ~4 of the online softmax a score
-        flops = B * n * N * N * (4 * hd + 6)
+        # q·k and p·v (2 operations a multiply-add) on the tensor cores;
+        # the two bias adds and ~4 of the online softmax a score
+        products = B * n * N * N * 4 * hd
         nbytes = 4 * (B * N * 3 * n * hd + B * n * N * 2 * side
                       + B * N * n * hd)
-        b, by = bound(nbytes, flops)
-        res[f'samattn_{tag}'] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b,
-                                     bound_by=by, library_ms=lib_ms)
+        b, by, unit, b_simt = bound_tc(nbytes, products,
+                                       B * n * N * N * 6)
+        res[f'samattn_{tag}'] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, bound_unit=unit, bound_ms_simt=b_simt,
+            library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms)
         print(f'[kernel] samattn {tag} B={B} N={N} 12x64: kernel {ms:.4f} '
-              f'ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), SDPA '
+              f'ms ({ms / lib_ms:.2f}x SDPA; device {dev_ms:.4f} ms, '
+              f'{dev_ms / lib_dev_ms:.2f}x SDPA\'s {lib_dev_ms:.4f}), plain '
+              f'{plain_ms:.4f} ms, bound {b:.4f} ms (bound_by: {unit}; '
+              f'{b / ms:.1%} of the kernel\'s ms; f32 CUDA cores '
+              f'{b_simt:.4f}), SDPA '
               f'{lib_ms:.4f} ms (+ {mask_ms:.4f} ms to build the bias, max '
               f'err {lib_err:.3g}); max err {err:.3g} of {scale:.3g}',
               flush=True)
@@ -1556,20 +1614,33 @@ def check_swinattn(dev, gen) -> dict:
                              - want).abs().max())
             lib_ms = time_ms(lambda c: F.scaled_dot_product_attention(
                 *c[:3], attn_mask=c[3], scale=1.0), lib_cases)
-            # q.k and p.v (2 operations a multiply-add), the scale, bias,
-            # mask and ~4 of the softmax a score; the two norms
-            flops = B * n * N * N * (4 * hd + 7) + B * n * N * 2 * 3 * hd
+            # device time alone, host dispatch excluded (CUDA graphs)
+            dev_ms = graph_ms(lambda c: swinv2.window_attention(*c),
+                              cases[0])
+            lib_dev_ms = graph_ms(lambda c: F.scaled_dot_product_attention(
+                *c[:3], attn_mask=c[3], scale=1.0), lib_cases[0])
+            # q.k and p.v (2 operations a multiply-add) on the tensor
+            # cores; the bias, mask and ~4 of the softmax a score and
+            # the two norms on the CUDA cores
+            products = B * n * N * N * 4 * hd
+            others = B * n * N * N * 7 + B * n * N * 2 * 3 * hd
             nbytes = 4 * (B * N * 3 * n * hd + n * N * N + B * N * n * hd
                           + (mask.numel() if masked else 0))
-            b, by = bound(nbytes, flops)
+            b, by, unit, b_simt = bound_tc(nbytes, products, others)
             tag = f's{stage}{"m" if masked else ""}'
             res[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b, bound_by=by, library_ms=lib_ms)
+                            bound_ms=b, bound_by=by, bound_unit=unit,
+                            bound_ms_simt=b_simt, library_ms=lib_ms,
+                            device_ms=dev_ms, library_device_ms=lib_dev_ms)
             print(f'[kernel] swinattn stage {stage} {B} windows x {n} heads'
-                  f'{" masked" if masked else ""}: kernel {ms:.4f} ms, plain '
-                  f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), SDPA '
-                  f'{lib_ms:.4f} ms (max err {lib_err:.3g}); max err '
-                  f'{err:.3g} of {rng_:.3g}', flush=True)
+                  f'{" masked" if masked else ""}: kernel {ms:.4f} ms '
+                  f'({ms / lib_ms:.2f}x SDPA; device {dev_ms:.4f} ms, '
+                  f'{dev_ms / lib_dev_ms:.2f}x SDPA\'s {lib_dev_ms:.4f}), '
+                  f'plain {plain_ms:.4f} ms, bound {b:.4f} ms (bound_by: '
+                  f'{unit}; '
+                  f'{b / ms:.1%} of the kernel\'s ms), SDPA {lib_ms:.4f} ms '
+                  f'(max err {lib_err:.3g}); max err {err:.3g} of '
+                  f'{rng_:.3g}', flush=True)
             del cases, lib_cases
     return res
 
@@ -2224,8 +2295,10 @@ def main() -> None:
         ('compact', res['compact'], 'pipeline/state.py:58', {}),
         # the global blocks; the windowed ones beside them
         ('samattn', res['samattn_global'], 'models/sam.py:76',
-         {f'{k}_windowed': win[k] for k in ('max_abs_err', 'ms', 'plain_ms',
-                                            'bound_ms', 'library_ms')}),
+         {f'{k}_windowed': win[k] for k in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+             'bound_unit', 'bound_ms_simt', 'library_ms', 'device_ms',
+             'library_device_ms')}),
         ('discfill_exact', res['discfill_exact'], 'ops/discfill.py:225', {}),
         # the box head's (1000, 7x7); the mask head's (100, 14x14) beside
         ('roialign', res['roialign_7'], 'models/maskrcnn.py:248',
@@ -2245,7 +2318,8 @@ def main() -> None:
         ('swinattn', res['s0m'], 'models/swinv2.py:123',
          {f'{k}_{tag}': res[tag][k] for tag in (
              's0', 's1', 's1m', 's2', 's2m', 's3', 's3m') for k in (
-             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}),
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_ms_simt',
+             'library_ms', 'device_ms', 'library_device_ms')}),
         # the style path's 448x768; repaint_person's 768x768 beside it
         ('pushpull', res['pushpull_448x768'], 'ops/inpaint_fill.py:43',
          {f'{k}_768x768': res['pushpull_768x768'][k] for k in (

@@ -324,13 +324,24 @@ def test_compact_kernel_vs_plain(rng, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('B,side,hd', [(3, 14, 64), (1, 20, 64), (2, 7, 80)])
-def test_samattn_kernel_vs_plain(rng, cuda, B, side, hd):
-    """Windowed (14 x 14) and global-like grids, random q, k, v and
-    rel-pos terms; f32 sums in another order than the plain matmuls."""
-    n, N = 3, side * side
-    qkv = torch.from_numpy(rng.randn(B, N, 3, n, hd).astype(np.float32)
-                           ).to(cuda)
+@pytest.mark.parametrize('B,side,n,hd,kind', [
+    (3, 14, 3, 64, 'random'), (1, 20, 3, 64, 'random'),
+    (2, 7, 3, 80, 'random'),
+    # SAM ViT-B 1024's windowed and global blocks, 12 heads
+    (25, 14, 12, 64, 'random'), (1, 64, 12, 64, 'random'),
+    (2, 14, 12, 80, 'random'),   # ViT-L/H's head width at side 14
+    # k = 8 q: each row's max sits in its own key's tile, so the
+    # online softmax rescales its sums through many tiles
+    (1, 32, 2, 64, 'k=8q')])
+def test_samattn_kernel_vs_plain(rng, cuda, B, side, n, hd, kind):
+    """Windowed (14 x 14) and global grids, random q, k, v and rel-pos
+    terms; the products in 3xTF32 on the tensor cores and the sums in
+    another order than the plain matmuls: within 1e-5 of the range."""
+    N = side * side
+    x = rng.randn(B, N, 3, n, hd).astype(np.float32)
+    if kind == 'k=8q':
+        x[:, :, 1] = 8 * x[:, :, 0]
+    qkv = torch.from_numpy(x).to(cuda)
     bh = torch.from_numpy(rng.randn(B, n, N, side).astype(np.float32)
                           ).to(cuda)
     bw = torch.from_numpy(rng.randn(B, n, N, side).astype(np.float32)
@@ -390,16 +401,30 @@ def test_crf_kernel_vs_plain(rng, cuda, H, W):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('B,N,n,hd,nW', [(196, 64, 4, 32, 0),
-                                         (32, 64, 16, 32, 16),
-                                         (12, 16, 2, 16, 4)])
-def test_swinattn_kernel_vs_plain(rng, cuda, B, N, n, hd, nW):
-    """SwinV2-B's windows (with and without the shift mask) and a small
-    window; f32 sums in another order than the plain matmuls."""
-    qkv = torch.from_numpy(rng.randn(B, N, 3, n, hd).astype(np.float32)
-                           ).to(cuda)
-    scale = torch.from_numpy(rng.uniform(5, 100, n).astype(np.float32)
-                             ).to(cuda)
+@pytest.mark.parametrize('B,N,n,hd,nW,kind', [
+    (196, 64, 4, 32, 0, 'random'), (32, 64, 16, 32, 16, 'random'),
+    (12, 16, 2, 16, 4, 'random'),
+    # SwinV2-B 448's stages 2 and 3
+    (16, 64, 16, 32, 0, 'random'), (4, 64, 32, 32, 4, 'random'),
+    # k = q at scale 100: a saturated softmax
+    (8, 64, 4, 32, 0, 'k=q'),
+    # an all-zero q row: its norm under the 1e-12 clamp
+    (8, 64, 4, 32, 4, 'zero q'),
+    # odd sizes: 4-byte copies (N = 49, hd = 12), an odd window count
+    (5, 49, 3, 12, 0, 'random')])
+def test_swinattn_kernel_vs_plain(rng, cuda, B, N, n, hd, nW, kind):
+    """SwinV2-B's windows (with and without the shift mask) and small
+    windows; the products in 3xTF32 on the tensor cores and the sums in
+    another order than the plain matmuls: within 1e-5 of the range."""
+    x = rng.randn(B, N, 3, n, hd).astype(np.float32)
+    scale = rng.uniform(5, 100, n).astype(np.float32)
+    if kind == 'k=q':
+        x[:, :, 1] = x[:, :, 0]
+        scale[:] = 100.0
+    elif kind == 'zero q':
+        x[:, 5, 0] = 0.0
+    qkv = torch.from_numpy(x).to(cuda)
+    scale = torch.from_numpy(scale).to(cuda)
     bias = torch.from_numpy(16 / (1 + np.exp(-rng.randn(n, N, N))).astype(
         np.float32)).to(cuda)
     mask = None
