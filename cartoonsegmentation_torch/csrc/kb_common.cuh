@@ -38,7 +38,8 @@ __device__ __forceinline__ KbProj kb_project(float x, float y, float z,
 // Bilinear corner c (0..3 = NW, NE, SW, SE) of (u, v): its pixel
 // index, or -1 when it lies outside the H x W frame, and its weight.
 // The bounds test runs on the floats, so a far-off point never goes
-// through an out-of-range int conversion.
+// through an out-of-range int conversion, and a NaN coordinate fails
+// it as it fails the plain version's.
 __device__ __forceinline__ int kb_corner(float u, float v, int c, int H,
                                          int W, float* w) {
   float x0 = floorf(u), y0 = floorf(v);
@@ -50,7 +51,7 @@ __device__ __forceinline__ int kb_corner(float u, float v, int c, int H,
     case 2: *w = (1.0f - fx) * fy; cy = y0 + 1.0f; break;
     default: *w = fx * fy; cx = x0 + 1.0f; cy = y0 + 1.0f; break;
   }
-  if (cx < 0.0f || cx >= (float)W || cy < 0.0f || cy >= (float)H)
+  if (!(cx >= 0.0f && cx < (float)W && cy >= 0.0f && cy < (float)H))
     return -1;
   return (int)cy * W + (int)cx;
 }

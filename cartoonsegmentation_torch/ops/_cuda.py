@@ -36,6 +36,10 @@ KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
+# shared memory one block may take on the H100 (227 KB), which the
+# tiled kernels (splat, bokeh) size their blocks against
+SMEM_BYTES = 232448
+
 # launches per kernel library since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 

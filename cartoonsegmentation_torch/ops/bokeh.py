@@ -9,8 +9,10 @@ at the pixel, and is weighted by the weight at the sample.
 
 - ``bokeh_core_plain``: the (S, H, W) gather form of the JAX package's
   ``_bokeh_pass_gather`` spec.
-- ``csrc/bokeh.cu``: one thread per pixel per pass. The wrapper
-  ``bokeh_core`` picks by device.
+- ``csrc/bokeh.cu``: a block per 32x16 output tile per pass, its
+  samples read from the tile and the pass's halo (``_halo``) in shared
+  memory; the global path where they do not fit (``_tiled``). The
+  wrapper ``bokeh_core`` picks by device.
 """
 from __future__ import annotations
 
@@ -45,6 +47,33 @@ def _coefs(H: int, W: int, num_samples: int) -> np.ndarray:
             out[p, 1, s] = np.sign(m) * np.float32(np.float64(dy)
                                                    * (abs(m) * im_size))
     return out
+
+
+_TILE_W, _TILE_H = 32, 16  # the kernel's tile (csrc/bokeh.cu)
+
+
+@functools.lru_cache(maxsize=16)
+def _halo(H: int, W: int, num_samples: int) -> np.ndarray:
+    """(3, 2) int32: the largest |offset| in x and in y that each pass
+    can take, cround(f32(5e-4)·|coef|) over its samples, in the
+    kernel's f32 arithmetic (the clipped weight is at most 5e-4 and the
+    rounding is monotone in it)."""
+    x = np.abs(_coefs(H, W, num_samples)) * np.float32(_SCALE)
+    return np.floor(x + np.float32(0.5)).max(-1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_bytes(H: int, W: int, num_samples: int) -> int:
+    """Shared memory of the largest pass's tile with its halo, 16 bytes
+    a pixel."""
+    h = _halo(H, W, num_samples).astype(np.int64)
+    return int((16 * (_TILE_W + 2 * h[:, 0]) * (_TILE_H + 2 * h[:, 1])).max())
+
+
+def _tiled(H: int, W: int, num_samples: int) -> bool:
+    """True when every pass's tile with its halo fits one block's shared
+    memory; else the kernel takes its global path."""
+    return _tile_bytes(H, W, num_samples) <= _cuda.SMEM_BYTES
 
 
 def _cround(v: torch.Tensor) -> torch.Tensor:
@@ -103,18 +132,23 @@ def bokeh_core(img01: torch.Tensor, weight: torch.Tensor,
     if C != 3 or weight.shape != (H, W):
         raise ValueError(f'bokeh needs img (H, W, 3) and weight (H, W), '
                          f'got {tuple(img01.shape)}, {tuple(weight.shape)}')
+    if not 1 <= num_samples <= 64:
+        raise ValueError(f'bokeh takes 1 to 64 samples, got {num_samples}')
     co = np.ascontiguousarray(_coefs(H, W, num_samples))
+    halo = np.ascontiguousarray(_halo(H, W, num_samples))
     vert = torch.empty_like(img01)
     diag = torch.empty_like(img01)
     out = torch.empty_like(img01)
     lf = float(lightness_factor)
     p = _cuda.P
     _cuda.launch('bokeh', 'kb_bokeh',
-                 [p, p, _cuda.I, _cuda.I, _cuda.I, p, _cuda.F, _cuda.F,
-                  p, p, p, p],
+                 [p, p, _cuda.I, _cuda.I, _cuda.I, p, p, _cuda.I, _cuda.F,
+                  _cuda.F, p, p, p, p],
                  img01.data_ptr(), weight.data_ptr(), H, W, num_samples,
-                 co.ctypes.data, lf, 1.0 / lf, vert.data_ptr(),
-                 diag.data_ptr(), out.data_ptr(), _cuda.stream_ptr(img01))
+                 co.ctypes.data, halo.ctypes.data,
+                 int(_tiled(H, W, num_samples)), lf, 1.0 / lf,
+                 vert.data_ptr(), diag.data_ptr(), out.data_ptr(),
+                 _cuda.stream_ptr(img01))
     return out
 
 

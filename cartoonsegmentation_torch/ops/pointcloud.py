@@ -5,7 +5,9 @@ two versions behind one wrapper:
 
 - a plain PyTorch version (``*_plain``), which the wrapper runs for a
   tensor on the CPU, and which the tests hold against the JAX package;
-- a hand-written CUDA kernel (``csrc/splat.cu``, ``csrc/coverage.cu``),
+- a hand-written CUDA kernel (``csrc/splat.cu``: per-tile sums in
+  shared memory, channel chunks from ``splat_plan``;
+  ``csrc/coverage.cu``),
   which the wrapper launches for a CUDA tensor. There is no fallback:
   on a CUDA tensor the kernel runs or the wrapper raises.
 
@@ -143,6 +145,20 @@ def splat_plain(points: torch.Tensor, data: torch.Tensor, H: int, W: int,
     return acc[..., :C] / (weight + 1e-7), weight, zee.reshape(H, W)
 
 
+TILE = 16  # csrc/splat.cu sums 16x16 output tiles
+
+
+def splat_plan(H: int, W: int, C: int) -> Tuple[int, int, int]:
+    """(chunk, n_tiles, smem bytes) of csrc/splat.cu for an H x W view
+    of a C-channel payload: a block sums ``chunk`` channels, their
+    weight and the z-buffer of one 16x16 tile in shared memory,
+    256·(chunk + 2) floats; payloads wider than 225 channels are split
+    into chunks of 225 (a block each), so every C fits."""
+    chunk = min(C, _cuda.SMEM_BYTES // (4 * TILE * TILE) - 2)
+    n_tiles = -(-H // TILE) * -(-W // TILE)
+    return chunk, n_tiles, 4 * TILE * TILE * (chunk + 2)
+
+
 def splat(points: torch.Tensor, data: torch.Tensor, H: int, W: int,
           focal: float, baseline: float
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -157,18 +173,19 @@ def splat(points: torch.Tensor, data: torch.Tensor, H: int, W: int,
     if points.shape != (P, 3):
         raise ValueError(f'points {tuple(points.shape)} do not match '
                          f'data {tuple(data.shape)}')
-    keys = torch.empty((H * W,), dtype=torch.int32, device=dev)
-    acc = torch.empty((H * W * (C + 1),), dtype=torch.float32, device=dev)
+    chunk, n_tiles, _ = splat_plan(H, W, C)
+    # z-keys, tile counts, tile offsets, the tiles' point lists
+    scratch = torch.empty((H * W + 2 * n_tiles + 4 * P,), dtype=torch.int32,
+                          device=dev)
     zee = torch.empty((H, W), dtype=torch.float32, device=dev)
     render = torch.empty((H, W, C), dtype=torch.float32, device=dev)
     weight = torch.empty((H, W, 1), dtype=torch.float32, device=dev)
-    p = _cuda.P
+    p, i = _cuda.P, _cuda.I
     _cuda.launch('splat', 'kb_splat',
-                 [p, p, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
-                  _cuda.F, p, p, p, p, p, p],
+                 [p, p, i, i, i, i, _cuda.F, _cuda.F, i, p, p, p, p, p],
                  points.data_ptr(), data.data_ptr(), P, C, H, W,
-                 float(focal), float(baseline), keys.data_ptr(),
-                 acc.data_ptr(), zee.data_ptr(), render.data_ptr(),
+                 float(focal), float(baseline), chunk,
+                 scratch.data_ptr(), zee.data_ptr(), render.data_ptr(),
                  weight.data_ptr(), _cuda.stream_ptr(points))
     return render, weight, zee
 
@@ -241,4 +258,4 @@ def coverage(points: torch.Tensor, shifts: torch.Tensor, H: int, W: int,
 
 __all__ = ['BIG', 'coverage', 'coverage_plain', 'degrid', 'depth_to_points',
            'render_pointcloud', 'shift_points', 'splat', 'splat_plain',
-           'true_div']
+           'splat_plan', 'true_div']

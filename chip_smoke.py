@@ -7,10 +7,12 @@
    kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
    once;
 2. holds each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (576x1024; K1 with C = 4 and C = 68; K6 over
+   the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
+   with 4,096 copies of one point, as the main path's cloud has; K6 over
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
    K5a at the path's crop and at a crop kept at its size; K10 with an
-   overflow, under the sync debug mode; K15a at SAM ViT-B's windowed
+   overflow; K1, K4 and K10 once under the sync debug mode, where a
+   host sync fails the run; K15a at SAM ViT-B's windowed
    and global blocks, beside SDPA with the bias prebuilt, bound by the
    tensor cores' 3xTF32 rate (``bound_tc``); K11 on the
    rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
@@ -21,9 +23,10 @@
    the shift mask, beside SDPA; K13a and K13b at the style path's
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
-   card (median of runs on varied inputs); K15a, K15b and SDPA also
-   by their device time alone (``graph_ms``: one call captured in a
-   CUDA graph and replayed), the ratio to SDPA's on each line;
+   card (median of runs on varied inputs); K1, K4, the laplacian and
+   its cuDNN convolution, K15a, K15b and SDPA also by their device time
+   alone (``graph_ms``: one call captured in a CUDA graph and
+   replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -35,7 +38,8 @@
    the instances have edges (``edged_nets``) — and checks that its 12
    kernels launched in that run, that it found instances with
    non-empty masks smaller than the frame, that the adjusted disparity
-   is not flat, and that the 75 frames are sane;
+   is not flat, and that the 75 frames are sane; counts the copies of
+   its cloud's most repeated point (K1's crowded case);
 5. re-renders 3 frames of that state on the CPU the same way;
 6. runs the detector in f32 on the card and on the CPU with the same
    weights on the same image: the head maps within the stated
@@ -218,6 +222,22 @@ def graph_ms(fn, x, reps: int = 20) -> float:
     return ms
 
 
+def no_host_sync(fn, tag: str):
+    """fn() under torch's sync debug mode 'error': a host sync inside
+    it (an item(), a nonzero, a copy to the host) raises and fails the
+    run. Returns what fn returns."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail(f'{tag}: synchronises with the host: {e}')
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
 def synthetic_cloud(gen: torch.Generator, dev, n_total: int):
     """Grid cloud of a smooth depth map with steps, padded with z = 0
     slots to n_total, as the compacted cloud of the frame loop is."""
@@ -249,9 +269,18 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     frames_pts = [shift_points(pts, s).contiguous() for s in shifts]
     n_valid = int((frames_pts[0][:, 2] >= 0.001).sum())
 
-    # --- K1 splat, C = 4 (frame loop) and C = 68 (Inpaint) -----------
-    for C, pts_in in ((4, frames_pts), (68, [p[:H * W].contiguous()
-                                             for p in frames_pts])):
+    # --- K1 splat, C = 4 (frame loop) and C = 68 (Inpaint); C = 4 again
+    # with 4,096 copies of one point in front, as the main path's cloud
+    # holds them (an inpainting pass appends one for each hole pixel of
+    # invalid disparity, all at -shift) -------------------------------
+    copies = pts.clone()
+    copies[H * W:H * W + 4096] = torch.tensor([-3.0, 2.0, 120.0],
+                                              device=dev)
+    copies = [shift_points(copies, s).contiguous() for s in shifts]
+    for tag, C, pts_in in (('c4', 4, frames_pts),
+                           ('c68', 68, [p[:H * W].contiguous()
+                                        for p in frames_pts]),
+                           ('c4_copies', 4, copies)):
         P = pts_in[0].shape[0]
         data = torch.rand((P, C), generator=gen).to(dev) if C == 68 \
             else torch.cat([col, pts[:, 2:3] / 500.0], 1).contiguous()
@@ -260,16 +289,18 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
                                             40.0)
         torch.cuda.synchronize()
         if not torch.equal(zk, zp):
-            fail(f'splat C={C}: z-buffer differs from the plain version '
+            fail(f'splat {tag}: z-buffer differs from the plain version '
                  f'at {int((zk != zp).sum())} pixels')
         if not torch.equal(wk > 0, wp > 0):
-            fail(f'splat C={C}: w > 0 mask differs at '
+            fail(f'splat {tag}: w > 0 mask differs at '
                  f'{int(((wk > 0) != (wp > 0)).sum())} pixels')
         # f32 atomics sum in another order than index_add_
         err = max(float((rk - rp).abs().max()), float((wk - wp).abs().max()))
         if not (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5)
                 and torch.allclose(wk, wp, rtol=1e-4, atol=1e-5)):
-            fail(f'splat C={C}: sums differ by {err}')
+            fail(f'splat {tag}: sums differ by {err}')
+        no_host_sync(lambda: pointcloud.splat(pts_in[1], data, H, W, 512.0,
+                                              40.0), f'splat {tag}')
         nv = int((pts_in[0][:, 2] >= 0.001).sum())
         nbytes = nv * (12 + 4 * C) + (P - nv) * 4 + H * W * 4 * (C + 2)
         # projection 10, corners 12, per corner (C + 1) mul + add
@@ -278,12 +309,14 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
             lambda x: pointcloud.splat(x, data, H, W, 512.0, 40.0), pts_in)
         plain_ms = time_ms(lambda x: pointcloud.splat_plain(
             x, data, H, W, 512.0, 40.0), pts_in)
+        dev_ms = graph_ms(
+            lambda x: pointcloud.splat(x, data, H, W, 512.0, 40.0), pts_in[0])
         b, by = bound(nbytes, flops)
-        res[f'splat_c{C}'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b, bound_by=by)
-        print(f'[kernel] splat C={C} P={P}: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err '
-              f'{err:.3g}', flush=True)
+        res[f'splat_{tag}'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=b, bound_by=by, device_ms=dev_ms)
+        print(f'[kernel] splat {tag} P={P}: kernel {ms:.4f} ms (device '
+              f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+              f'({by}), max err {err:.3g}', flush=True)
 
     # --- K2 coverage: 256 candidates on the stride-2 miniature --------
     mini = pts[:H * W].reshape(H, W, 3)[::2, ::2].reshape(-1, 3).contiguous()
@@ -365,18 +398,20 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     # same sample sets; sums in another order (sequential vs tree)
     if not torch.allclose(bk, bp, rtol=0, atol=1e-4):
         fail(f'bokeh differs by {err}')
+    no_host_sync(lambda: bokeh.bokeh_core(*bok[1], 13.0, 32), 'bokeh')
     nbytes = H * W * (12 + 4 + 12)
     # per pixel and pass: 32 samples x (2 mul, 2 rounds of 3, 7
     # accumulate) = 480, plus 6 pows (~20 each) and the divides
     flops = H * W * (3 * 480 + 6 * 20 + 12)
     ms = time_ms(lambda x: bokeh.bokeh_core(*x, 13.0, 32), bok)
     plain_ms = time_ms(lambda x: bokeh.bokeh_core_plain(*x, 13.0, 32), bok)
+    dev_ms = graph_ms(lambda x: bokeh.bokeh_core(*x, 13.0, 32), bok[0])
     b, by = bound(nbytes, flops)
     res['bokeh'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b, bound_by=by)
-    print(f'[kernel] bokeh {H}x{W}: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err {err:.3g}',
-          flush=True)
+                        bound_ms=b, bound_by=by, device_ms=dev_ms)
+    print(f'[kernel] bokeh {H}x{W}: kernel {ms:.4f} ms (device {dev_ms:.4f} '
+          f'ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), max err '
+          f'{err:.3g}', flush=True)
 
     filled = [discfill3.fill_disocclusion(*f) for f in fills]
     depth_maps = [colorize_gray_r(f[..., 3]) for f in filled]
@@ -556,11 +591,8 @@ def check_frame_kernels(dev, filled) -> dict:
         kern = state.PointCloud.with_capacity(P, dev)
         plain = state.PointCloud.with_capacity(P, dev)
         for m in masks:
-            torch.cuda.set_sync_debug_mode('error')
-            try:
-                kern = kern.append_masked(*src, m)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+            kern = no_host_sync(lambda: kern.append_masked(*src, m),
+                                'compact')
             state.append_masked_plain(plain, *src, m)
         for k in ('points', 'colors', 'disparity', 'depth', 'count'):
             if not torch.equal(getattr(kern, k), getattr(plain, k)):
@@ -755,9 +787,17 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
                         .abs().max())
         res['laplacian']['library_ms'] = time_ms(
             lambda x: conv(x.view(1, 1, H, W)), disp)
+        # device time alone, host dispatch excluded, both in this run
+        res['laplacian']['library_device_ms'] = graph_ms(
+            lambda x: conv(x.view(1, 1, H, W)), disp[0])
+    res['laplacian']['device_ms'] = graph_ms(filters.laplacian_filter,
+                                             disp[0])
+    lap = res['laplacian']
     print(f'[kernel] laplacian as a cuDNN convolution: '
-          f'{res["laplacian"]["library_ms"]:.4f} ms, max err {lib_err:.3g}',
-          flush=True)
+          f'{lap["library_ms"]:.4f} ms, max err {lib_err:.3g}; device time '
+          f'kernel {lap["device_ms"]:.4f} ms, cuDNN '
+          f'{lap["library_device_ms"]:.4f} ms '
+          f'({lap["device_ms"] / lap["library_device_ms"]:.2f}x)', flush=True)
 
     # --- K8: the top 512 candidates, ties and overlaps -----------------
     cases = [tuple(t.to(dev) for t in nms_case(gen)) for _ in range(RUNS)]
@@ -1300,6 +1340,20 @@ def check_instances(pipe, tag: str) -> None:
              f'work')
     if spread < 1e-3:
         fail(f'{tag}: the adjusted disparity is flat')
+
+
+def cloud_copies(pipe, tag: str) -> None:
+    """How often the last state's cloud repeats its most repeated valid
+    point: an inpainting pass appends, for each hole pixel of invalid
+    disparity, a point at -shift, all of them on one pixel of every
+    frame (K1's crowded case)."""
+    cloud = pipe.last_state.cloud
+    pts = cloud.points[:int(cloud.count)]
+    pts = pts[pts[:, 2] >= 0.001]
+    _, reps = torch.unique(pts, dim=0, return_counts=True)
+    print(f'[{tag}] cloud: {pts.shape[0]} valid points of {cloud.capacity} '
+          f'slots; the most repeated point {int(reps.max())} times',
+          flush=True)
 
 
 def sam_config(root: str):
@@ -2170,6 +2224,7 @@ def main() -> None:
                          'nms_large', 'kmeans', 'crf', 'swinattn',
                          'pushpull', 'jitter')])
     check_instances(pipe, 'main')
+    cloud_copies(pipe, 'main')
 
     # 5. kernel frames against the plain versions on the CPU ---------------
     compare_frames(pipe, 'main')
@@ -2274,12 +2329,15 @@ def main() -> None:
     # 17. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
     tpu = 'cartoonsegmentation_tpu/'
-    c68, win = res['splat_c68'], res['samattn_windowed']
+    win = res['samattn_windowed']
     rows = [
-        # the frame loop's C = 4; the Inpaint net's C = 68 beside it
+        # the frame loop's C = 4; the Inpaint net's C = 68 and C = 4 with
+        # the copies of one point beside it
         ('splat', res['splat_c4'], 'ops/pointcloud.py:121',
-         {f'{k}_c68': c68[k] for k in ('max_abs_err', 'ms', 'plain_ms',
-                                       'bound_ms')}),
+         {f'{k}_{tag}': res[f'splat_{tag}'][k]
+          for tag in ('c68', 'c4_copies')
+          for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'device_ms')}),
         ('coverage', res['coverage'], 'ops/pointcloud.py:226', {}),
         ('discfill', res['discfill'], 'ops/discfill3.py:90', {}),
         ('bokeh', res['bokeh'], 'ops/bokeh.py:253', {}),

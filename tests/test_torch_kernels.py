@@ -72,7 +72,7 @@ def _holes(rng, H, W, C=4):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('C', [4, 68])
+@pytest.mark.parametrize('C', [4, 68, 2, 12, 16])
 def test_splat_kernel_vs_plain(rng, cuda, C):
     H, W = 96, 128
     pts = _cloud(rng, 20000).to(cuda)
@@ -83,6 +83,99 @@ def test_splat_kernel_vs_plain(rng, cuda, C):
     assert torch.equal(zk, zp)
     assert torch.equal(wk > 0, wp > 0)
     # f32 atomics sum in another order than index_add_
+    torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-5)
+
+
+def _splat_layout(rng, case, H, W, focal):
+    """(points, focal) of a cloud laid out to stress csrc/splat.cu's
+    tiles: 'grid' a shifted depth grid with z = 0 slots, 'shuffled' the
+    same in random order, 'copies' the grid with 3,000 copies of one
+    point in front in its z = 0 slots (an inpainting pass appends such
+    copies), 'crowded' every point inside one 16x16 tile, 'borders'
+    points whose projections sit on tile borders, on whole pixels
+    (zero-weight corners) and at half pixels."""
+    if case in ('grid', 'shuffled', 'copies'):
+        depth = rng.uniform(20, 40, (H, W)).astype(np.float32)
+        depth[H // 3:H // 2, W // 4:W // 2] = 8.0
+        pts = tpc.depth_to_points(torch.from_numpy(depth), focal)
+        pts = pts.reshape(-1, 3) + torch.tensor([0.9, -0.4, 1.5])
+        pts = torch.cat([pts, torch.zeros((H * W // 5, 3))])
+        if case == 'copies':
+            pts[H * W:H * W + 3000] = torch.tensor([-1.0, 0.5, 6.0])
+        if case == 'shuffled':
+            pts = pts[torch.from_numpy(rng.permutation(pts.shape[0]))]
+        return pts.contiguous(), focal
+    n = 30000
+    z = rng.uniform(5, 50, n).astype(np.float32)
+    if case == 'crowded':
+        u = rng.uniform(32, 47.99, n)
+        v = rng.uniform(16, 31.99, n)
+    else:
+        u = rng.choice([15.5, 16.0, 31.5, 32.0, 47.25, 15.0, 16.5], n)
+        v = rng.choice([15.5, 16.0, 31.0, 31.5, 47.5, 0.0, 16.5], n)
+        u = u + rng.randint(0, W // 16, n) * 16.0
+        v = v + rng.randint(0, H // 16, n) * 16.0
+    # u = x·f/z + W/2 - 1/2
+    x = ((u - 0.5 * W + 0.5) * z / focal).astype(np.float32)
+    y = ((v - 0.5 * H + 0.5) * z / focal).astype(np.float32)
+    return torch.from_numpy(np.stack([x, y, z], 1)), focal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('C', [2, 4, 68])
+@pytest.mark.parametrize('case', ['shuffled', 'crowded', 'borders',
+                                  'copies'])
+def test_splat_kernel_layouts(rng, cuda, C, case):
+    """The tiled splat at a frame size that is no multiple of its tile
+    (97x131) and with skewed or border-hugging clouds: the z-buffer
+    and the w > 0 mask exact, the sums within tolerance, and (for the
+    shuffled grid) the same z-buffer and mask as the grid in order."""
+    H, W = 97, 131
+    pts, focal = _splat_layout(rng, case, H, W, 60.0)
+    data = torch.from_numpy(rng.rand(pts.shape[0], C).astype(np.float32))
+    pts, data = pts.to(cuda), data.to(cuda)
+    rk, wk, zk = tpc.splat(pts, data, H, W, focal, 40.0)
+    rp, wp, zp = tpc.splat_plain(pts, data, H, W, focal, 40.0)
+    assert (wp > 0).sum() > 50
+    assert torch.equal(zk, zp)
+    assert torch.equal(wk > 0, wp > 0)
+    # shared-memory atomics sum in another order than index_add_
+    torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-5)
+    if case == 'shuffled':
+        po, fo = _splat_layout(np.random.RandomState(0), 'grid', H, W, 60.0)
+        ro, wo, zo = tpc.splat(po.to(cuda), data[:po.shape[0]], H, W, fo,
+                               40.0)
+        assert torch.equal(zo, zk) and torch.equal(wo > 0, wk > 0)
+
+
+@pytest.mark.gpu
+def test_splat_kernel_skips_non_finite_points(rng, cuda):
+    """NaN and infinite coordinates drop out as in the plain version."""
+    pts = _cloud(rng, 3000)
+    pts[200:260, 0] = float('nan')
+    pts[260:300, 1] = float('inf')
+    pts[300:340, 2] = float('nan')
+    pts, data = pts.to(cuda), torch.from_numpy(
+        rng.rand(3000, 4).astype(np.float32)).to(cuda)
+    rk, wk, zk = tpc.splat(pts, data, 40, 56, 48.0, 40.0)
+    rp, wp, zp = tpc.splat_plain(pts, data, 40, 56, 48.0, 40.0)
+    assert torch.equal(zk, zp)
+    assert torch.equal(wk > 0, wp > 0)
+    torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_splat_kernel_channel_chunks(rng, cuda):
+    """C = 1000 takes five channel chunks a tile, the last of 100."""
+    assert tpc.splat_plan(40, 56, 1000)[0] == 225
+    pts = _cloud(rng, 3000).to(cuda)
+    data = torch.from_numpy(rng.rand(3000, 1000).astype(np.float32)).to(cuda)
+    rk, wk, zk = tpc.splat(pts, data, 40, 56, 48.0, 40.0)
+    rp, wp, zp = tpc.splat_plain(pts, data, 40, 56, 48.0, 40.0)
+    assert torch.equal(zk, zp)
+    assert torch.equal(wk > 0, wp > 0)
     torch.testing.assert_close(rk, rp, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-5)
 
@@ -127,6 +220,31 @@ def test_bokeh_kernel_vs_plain(rng, cuda):
                                tbokeh.bokeh_core_plain(img, weight, 13.0,
                                                        32),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W,S,wmax', [(576, 1024, 32, 1.0),
+                                        (683, 1024, 32, 0.8),
+                                        (97, 131, 32, 0.8),
+                                        (192, 256, 64, 1.2)])
+def test_bokeh_kernel_tiles(rng, cuda, monkeypatch, H, W, S, wmax):
+    """The tiled bokeh at the path's 576x1024 with weights at the clip
+    maximum (the full halo, 5 px), at 683x1024, at a size no multiple
+    of its 32x16 tile and at S = 64 with weights above the clip;
+    then the global path (forced by a shared-memory limit of 0), which
+    must give the tiled path's bits."""
+    img = torch.from_numpy(rng.rand(H, W, 3).astype(np.float32)).to(cuda)
+    w = rng.rand(H, W).astype(np.float32) * 5e-4 * wmax
+    w[:H // 3] = 5e-4 * wmax
+    weight = torch.from_numpy(w).to(cuda)
+    assert tbokeh._tiled(H, W, S)
+    got = tbokeh.bokeh_core(img, weight, 13.0, S)
+    torch.testing.assert_close(got, tbokeh.bokeh_core_plain(img, weight,
+                                                            13.0, S),
+                               rtol=0, atol=1e-4)
+    monkeypatch.setattr(_cuda, 'SMEM_BYTES', 0)
+    assert not tbokeh._tiled(H, W, S)
+    assert torch.equal(tbokeh.bokeh_core(img, weight, 13.0, S), got)
 
 
 def _instance_masks(rng, N, H, W):
