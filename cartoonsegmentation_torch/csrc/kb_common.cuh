@@ -16,6 +16,10 @@ extern "C" const char* kb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Returns at once: the host cost of a call into a kernel library with
+// nothing behind it (chip_smoke.py's [host] phase).
+extern "C" int kb_noop(void) { return 0; }
+
 // Projection of ops/pointcloud.py:_project. err is the z-buffer key
 // 1e6 - f*b/(z + 1e-7), computed from the unclamped z.
 struct KbProj {

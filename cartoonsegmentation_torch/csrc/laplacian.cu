@@ -8,6 +8,13 @@
 // indices), then one thread computes 4x - up - up_right - left -
 // down_left, left to right in f32 as the JAX expression is written (4x
 // is exact, and the sources are built with -fmad=false).
+//
+// Bound on the card: the bytes, each value read and written once
+// (0.0014 ms at 576x1024x1); the kernel takes ~0.005 ms, under half
+// of cuDNN's convolution of the same stencil. A call's time is mostly
+// the host's, so the launch path (ops/_cuda.py: entry points typed
+// once, the raw stream handle) and the wrapper (no reshapes) are kept
+// short.
 #include "kb_common.cuh"
 
 namespace {

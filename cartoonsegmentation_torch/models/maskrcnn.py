@@ -312,9 +312,7 @@ def nms_large(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     sboxes = torch.empty((K, 4), dtype=torch.float32, device=dev)
     sscores = torch.empty((K,), dtype=torch.float32, device=dev)
     mask = torch.empty((K * words,), dtype=torch.int64, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('nms_large', 'kb_nms_large',
-                 [p, p, i, _cuda.F, i, p, p, p, p, p, p, p],
+    _cuda.launch('nms_large',
                  boxes.data_ptr(), scores.data_ptr(), K, iou_thr, n_out,
                  keep_idx.data_ptr(), keep_mask.data_ptr(), order.data_ptr(),
                  sboxes.data_ptr(), sscores.data_ptr(), mask.data_ptr(),
@@ -447,10 +445,7 @@ def roi_align_pyramid(pyr: Pyramid, boxes: torch.Tensor, out: int,
     N, C = boxes.shape[0], flat.shape[1]
     res = torch.empty((N, C, out, out), dtype=torch.float32, device=dev)
     hw = [v for hw in pyr.sizes for v in hw]
-    i = _cuda.I
-    _cuda.launch('roialign', 'kb_roi_align',
-                 [_cuda.P, _cuda.P, _cuda.P, i, i, *([i] * 8), i, i, _cuda.P,
-                  _cuda.P],
+    _cuda.launch('roialign',
                  flat.data_ptr(), boxes.data_ptr(), lvl.data_ptr(), N, C,
                  *hw, out, sampling, res.data_ptr(), _cuda.stream_ptr(boxes))
     return res

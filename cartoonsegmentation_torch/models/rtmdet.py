@@ -220,8 +220,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     n_out = min(max_out, K)
     keep_idx = torch.empty((n_out,), dtype=torch.int64, device=dev)
     keep_mask = torch.empty((n_out,), dtype=torch.bool, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('nms', 'kb_nms', [p, p, i, _cuda.F, i, p, p, p],
+    _cuda.launch('nms',
                  boxes.data_ptr(), scores.data_ptr(), K, iou_thr, n_out,
                  keep_idx.data_ptr(), keep_mask.data_ptr(),
                  _cuda.stream_ptr(boxes))
@@ -309,9 +308,7 @@ def dynamic_masks(mask_feat: torch.Tensor, kernels: torch.Tensor,
                          '(N, 169), (N, 2), (N,), (N,)')
     probs = torch.empty((N, h * w), dtype=torch.float32, device=dev)
     masks = torch.empty((N, out_h, out_w), dtype=torch.bool, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('maskhead', 'kb_mask_heads',
-                 [p, p, p, p, p, i, i, i, i, i, _cuda.F, p, p, p],
+    _cuda.launch('maskhead',
                  mask_feat.data_ptr(), kernels.data_ptr(),
                  priors_xy.data_ptr(), strides.data_ptr(), valid.data_ptr(),
                  N, h, w, out_h, out_w, mask_thr, probs.data_ptr(),

@@ -111,9 +111,7 @@ def rel_pos_attention(qkv: torch.Tensor, bh: torch.Tensor, bw: torch.Tensor,
     if qkv.data_ptr() % 16:
         raise ValueError('qkv must be 16-byte aligned')
     out = torch.empty((B, N, n * hd), dtype=torch.float32, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('samattn', 'kb_sam_attention',
-                 [p, p, p, i, i, i, i, i, i, _cuda.F, p, p],
+    _cuda.launch('samattn',
                  qkv.data_ptr(), bh.data_ptr(), bw.data_ptr(), B, N, n, hd,
                  Hs, Ws, hd ** -0.5, out.data_ptr(), _cuda.stream_ptr(qkv))
     return out

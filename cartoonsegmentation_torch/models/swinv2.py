@@ -186,9 +186,7 @@ def window_attention(qkv: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f'mask {tuple(mask.shape)} does not fit '
                              f'{B} windows of {N}')
     out = torch.empty((B, N, n * hd), dtype=torch.float32, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('swinattn', 'kb_swin_attention',
-                 [p, p, p, p, i, i, i, i, i, p, p],
+    _cuda.launch('swinattn',
                  qkv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                  None if mask is None else mask.data_ptr(), B, N, n, hd, nW,
                  out.data_ptr(), _cuda.stream_ptr(qkv))

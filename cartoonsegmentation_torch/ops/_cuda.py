@@ -10,9 +10,19 @@ of the sources and flags, so an edited source is rebuilt.
 the kernels repeat the plain versions' rounding step by step, and one
 ulp in a projected coordinate flips a corner or a rounded offset.
 
-Each library has one C entry point. Every wrapper calls ``launch``,
-which adds one to the library's count in ``LAUNCHES`` and raises when
-the entry point returns a CUDA error.
+Each library has one C entry point, listed with its parameter types
+in ``SIGNATURES`` and bound once when the library loads. Every wrapper
+calls ``launch``, which adds one to the library's count in
+``LAUNCHES`` and raises when the entry point returns a CUDA error.
+
+The launch path is kept short because a small kernel's call is mostly
+host time (chip_smoke.py's [host] phase takes it apart): the entry
+points are typed once, not on every call; ``stream_ptr`` reads the raw
+stream handle instead of building a ``torch.cuda.Stream``; the
+libraries load as ``ctypes.PyDLL``, which keeps the GIL through the
+call as PyTorch's own launches do (the entry points only enqueue
+work). Each library links nvcc's static CUDA runtime: ``-cudart
+shared`` measured no faster.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -36,6 +46,35 @@ KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
+# the one C entry point of each library and its parameters, in order:
+# p a pointer (c_void_p, the stream too: a Python int passed as c_int
+# would lose its upper 32 bits), i int, q long long, f float
+SIGNATURES = {
+    'splat': ('kb_splat', 'ppiiiiffippppp'),
+    'coverage': ('kb_coverage', 'pipiiiffpipp'),
+    'discfill': ('kb_discfill', 'ppiiipp'),
+    'bokeh': ('kb_bokeh', 'ppiiippiffpppp'),
+    'insmedian': ('kb_masked_median', 'pppiippp'),
+    'median5': ('kb_median5', 'piiiipp'),
+    'laplacian': ('kb_laplacian', 'piiiipp'),
+    'nms': ('kb_nms', 'ppifippp'),
+    'maskhead': ('kb_mask_heads', 'pppppiiiiifppp'),
+    'epilogue': ('kb_frame_epilogue', 'piiqiiiiippp'),
+    'colorize': ('kb_colorize', 'pqippp'),
+    'compact': ('kb_append_masked', 'pppppippppippp'),
+    'samattn': ('kb_sam_attention', 'pppiiiiiifpp'),
+    'discfill_exact': ('kb_discfill_exact', 'pppiiiipp'),
+    'roialign': ('kb_roi_align', 'pppiiiiiiiiiiiipp'),
+    'nms_large': ('kb_nms_large', 'ppifippppppp'),
+    'kmeans': ('kb_kmeans', 'piiipppp'),
+    'crf': ('kb_crf_step', 'pppppiiiiiiippppppffppppp'),
+    'swinattn': ('kb_swin_attention', 'ppppiiiiipp'),
+    'pushpull': ('kb_pushpull', 'ppiiippp'),
+    'jitter': ('kb_jitter', 'pppiiippp'),
+}
+CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'q': ctypes.c_longlong,
+          'f': ctypes.c_float}
+
 # shared memory one block may take on the H100 (227 KB), which the
 # tiled kernels (splat, bokeh) size their blocks against
 SMEM_BYTES = 232448
@@ -43,12 +82,9 @@ SMEM_BYTES = 232448
 # launches per kernel library since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
-_libs: Dict[str, ctypes.CDLL] = {}
-
-P = ctypes.c_void_p
-I = ctypes.c_int
-LL = ctypes.c_longlong
-F = ctypes.c_float
+_libs: Dict[str, ctypes.PyDLL] = {}
+# each library's entry point, bound (argtypes, restype) when it loads
+_entries: Dict[str, Callable] = {}
 
 
 def reset_launches() -> None:
@@ -109,34 +145,41 @@ def build(names: Sequence[str] = KERNELS, verbose: bool = False
     return {n: (dt if n in todo else 0.0) for n in names}
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+def lib(name: str) -> ctypes.PyDLL:
+    """The loaded library of kernel ``name``, built on first use; its
+    entry point is bound then."""
     if name not in _libs:
         build([name])
-        so = ctypes.CDLL(str(_lib_path(name)))
+        so = ctypes.PyDLL(str(_lib_path(name)))
         so.kb_error_string.restype = ctypes.c_char_p
-        so.kb_error_string.argtypes = [I]
-        _libs[name] = so
+        so.kb_error_string.argtypes = [ctypes.c_int]
+        fn, params = SIGNATURES[name]
+        f = getattr(so, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [CTYPES[c] for c in params]
+        _libs[name], _entries[name] = so, f
     return _libs[name]
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def launch(name: str, fn: str, argtypes, *args) -> None:
-    """Call entry point ``fn`` of kernel ``name``; count the launch and
-    raise on a CUDA error (a refused launch never runs, so this is the
-    only place it shows)."""
-    so = lib(name)
-    f = getattr(so, fn)
-    f.restype = I
-    f.argtypes = argtypes
+def launch(name: str, *args) -> None:
+    """Call the entry point of kernel ``name`` with ``args`` (typed by
+    ``SIGNATURES``); count the launch and raise on a CUDA error (a
+    refused launch never runs, so this is the only place it shows)."""
+    f = _entries.get(name)
+    if f is None:
+        lib(name)
+        f = _entries[name]
     rc = f(*args)
     LAUNCHES[name] += 1
     if rc != 0:
-        msg = so.kb_error_string(rc).decode()
-        raise RuntimeError(f'CUDA kernel {name} ({fn}) failed: {rc} {msg}')
+        msg = _libs[name].kb_error_string(rc).decode()
+        raise RuntimeError(f'CUDA kernel {name} ({SIGNATURES[name][0]}) '
+                           f'failed: {rc} {msg}')
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

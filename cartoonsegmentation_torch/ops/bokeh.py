@@ -140,10 +140,7 @@ def bokeh_core(img01: torch.Tensor, weight: torch.Tensor,
     diag = torch.empty_like(img01)
     out = torch.empty_like(img01)
     lf = float(lightness_factor)
-    p = _cuda.P
-    _cuda.launch('bokeh', 'kb_bokeh',
-                 [p, p, _cuda.I, _cuda.I, _cuda.I, p, p, _cuda.I, _cuda.F,
-                  _cuda.F, p, p, p, p],
+    _cuda.launch('bokeh',
                  img01.data_ptr(), weight.data_ptr(), H, W, num_samples,
                  co.ctypes.data, halo.ctypes.data,
                  int(_tiled(H, W, num_samples)), lf, 1.0 / lf,

@@ -193,8 +193,7 @@ def kmeans_labels(colors: torch.Tensor, k: int, iters: int = 8
     centers = torch.empty((k, 3), dtype=torch.float32, device=dev)
     partials = torch.empty((n_blocks, k, 4), dtype=torch.float32, device=dev)
     labels = torch.empty((N,), dtype=torch.int32, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('kmeans', 'kb_kmeans', [p, i, i, i, p, p, p, p],
+    _cuda.launch('kmeans',
                  colors.data_ptr(), N, k, iters, centers.data_ptr(),
                  partials.data_ptr(), labels.data_ptr(),
                  _cuda.stream_ptr(colors))
@@ -303,13 +302,10 @@ def _crf_launch(q: Optional[torch.Tensor], labels: torch.Tensor,
     pooled = torch.empty((num_clusters * 2, gh, gw), dtype=torch.float32,
                          device=dev)
     blurred = torch.empty_like(pooled)
-    p, i, f = _cuda.P, _cuda.I, _cuda.F
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    _cuda.launch('crf', 'kb_crf_step',
-                 [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, f,
-                  f, p, p, p, p, p],
+    _cuda.launch('crf',
                  ptr(q), labels.data_ptr(), ptr(unary), norms.data_ptr(),
                  dead.data_ptr(), H, W, num_clusters, s, gh, gw, radius,
                  g5.data_ptr(), glat.data_ptr(), ri.data_ptr(),

@@ -144,9 +144,7 @@ def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor,
     if key not in _tables:
         _tables[key] = torch.from_numpy(offset_table(K)).to(dev)
     out = torch.empty_like(img)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('discfill_exact', 'kb_discfill_exact',
-                 [p, p, p, i, i, i, i, p, p],
+    _cuda.launch('discfill_exact',
                  img.data_ptr(), depth.data_ptr(), _tables[key].data_ptr(), K,
                  H, W, C, out.data_ptr(), _cuda.stream_ptr(img))
     return out

@@ -12,8 +12,11 @@ the other directions walk columns with the roles swapped.
   PyTorch — shear each direction's validity field so its lines become
   columns, find the nearest event above and below each row with two
   int ``cummax`` scans over packed (row, valid) keys, unshear.
-- ``csrc/discfill.cu``: one thread per pixel walking the lines
-  directly. The wrapper ``fill_disocclusion`` picks by device.
+- ``csrc/discfill.cu``: a warp a hole pixel, its 32 lanes walking the
+  16 lines' 32 halves at once and stopping each as soon as its
+  direction cannot win; the non-hole pixels a coalesced copy. The
+  wrapper ``fill_disocclusion`` picks by device; both give the same
+  bits.
 """
 from __future__ import annotations
 
@@ -85,9 +88,10 @@ def _direction_pass(valid_f: torch.Tensor, p: int, q: int):
             un(y_t, 0), un(x_t, 0))
 
 
-def fill_disocclusion_plain(img: torch.Tensor, depth: torch.Tensor
-                            ) -> torch.Tensor:
-    """Plain version of K3. img (H, W, C), depth (H, W)."""
+def fill_winners_plain(depth: torch.Tensor):
+    """Each pixel's winning direction, as the plain version picks it:
+    its squared gap (BIG where no direction found two valid endpoints)
+    and its endpoints ((y_f, x_f), (y_t, x_t)). depth (H, W)."""
     H, W = depth.shape
     valid_f = (depth > 0.0).float()
     best_d = torch.full((H, W), BIG, device=depth.device)
@@ -108,7 +112,13 @@ def fill_disocclusion_plain(img: torch.Tensor, depth: torch.Tensor
         bx_f = torch.where(better, xf, bx_f)
         by_t = torch.where(better, yt, by_t)
         bx_t = torch.where(better, xt, bx_t)
+    return best_d, (by_f, bx_f), (by_t, bx_t)
 
+
+def fill_disocclusion_plain(img: torch.Tensor, depth: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of K3. img (H, W, C), depth (H, W)."""
+    best_d, (by_f, bx_f), (by_t, bx_t) = fill_winners_plain(depth)
     d_f = depth[by_f, bx_f]
     d_t = depth[by_t, bx_t]
     use_to = d_f < d_t
@@ -120,7 +130,8 @@ def fill_disocclusion_plain(img: torch.Tensor, depth: torch.Tensor
 def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor
                       ) -> torch.Tensor:
     """K3 wrapper: the plain version on the CPU, csrc/discfill.cu on
-    CUDA. img (H, W, C) f32, depth (H, W) f32 → (H, W, C)."""
+    CUDA. img (H, W, C) f32, depth (H, W) f32 → (H, W, C); on CUDA
+    H, W < 32768 (the kernel's squared gaps are int)."""
     if img.device.type == 'cpu':
         return fill_disocclusion_plain(img, depth)
     dev = img.device
@@ -132,10 +143,9 @@ def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor
     if depth.shape != (H, W):
         raise ValueError(f'depth {tuple(depth.shape)} does not match img '
                          f'{tuple(img.shape)}')
+    if H >= 32768 or W >= 32768:
+        raise ValueError(f'the CUDA fill takes H, W < 32768, got {H}x{W}')
     out = torch.empty_like(img)
-    p = _cuda.P
-    _cuda.launch('discfill', 'kb_discfill',
-                 [p, p, _cuda.I, _cuda.I, _cuda.I, p, p],
-                 img.data_ptr(), depth.data_ptr(), H, W, C, out.data_ptr(),
-                 _cuda.stream_ptr(img))
+    _cuda.launch('discfill', img.data_ptr(), depth.data_ptr(), H, W, C,
+                 out.data_ptr(), _cuda.stream_ptr(img))
     return out

@@ -134,8 +134,7 @@ def push_pull_fill(image: torch.Tensor, hole: torch.Tensor,
     scratch = torch.empty(4 * sum(h * w for h, w in sizes[1:]),
                           dtype=torch.float32, device=dev)
     out = torch.empty_like(image)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('pushpull', 'kb_pushpull', [p, p, i, i, i, p, p, p],
+    _cuda.launch('pushpull',
                  image.data_ptr(), hole.data_ptr(), H, W, len(sizes) - 1,
                  scratch.data_ptr(), out.data_ptr(), _cuda.stream_ptr(image))
     return out
@@ -223,8 +222,7 @@ def jitter_refine(image: torch.Tensor, hole: torch.Tensor,
     _cuda.check(offsets, 'offsets', torch.int32, 5, dev)
     out = torch.empty_like(image)
     scratch = torch.empty_like(image) if iters > 1 else out
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('jitter', 'kb_jitter', [p, p, p, i, i, i, p, p, p],
+    _cuda.launch('jitter',
                  image.data_ptr(), hole.data_ptr(), offsets.data_ptr(), H, W,
                  iters, scratch.data_ptr(), out.data_ptr(),
                  _cuda.stream_ptr(image))

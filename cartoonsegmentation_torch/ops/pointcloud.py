@@ -180,9 +180,7 @@ def splat(points: torch.Tensor, data: torch.Tensor, H: int, W: int,
     zee = torch.empty((H, W), dtype=torch.float32, device=dev)
     render = torch.empty((H, W, C), dtype=torch.float32, device=dev)
     weight = torch.empty((H, W, 1), dtype=torch.float32, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('splat', 'kb_splat',
-                 [p, p, i, i, i, i, _cuda.F, _cuda.F, i, p, p, p, p, p],
+    _cuda.launch('splat',
                  points.data_ptr(), data.data_ptr(), P, C, H, W,
                  float(focal), float(baseline), chunk,
                  scratch.data_ptr(), zee.data_ptr(), render.data_ptr(),
@@ -246,10 +244,7 @@ def coverage(points: torch.Tensor, shifts: torch.Tensor, H: int, W: int,
     words = (H * W + 31) // 32
     bits = torch.empty((K * words,), dtype=torch.int32, device=dev)
     counts = torch.empty((K,), dtype=torch.int32, device=dev)
-    p = _cuda.P
-    _cuda.launch('coverage', 'kb_coverage',
-                 [p, _cuda.I, p, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
-                  _cuda.F, p, _cuda.I, p, p],
+    _cuda.launch('coverage',
                  points.data_ptr(), N, shifts.data_ptr(), K, H, W,
                  float(focal), float(baseline), bits.data_ptr(), words,
                  counts.data_ptr(), _cuda.stream_ptr(points))

@@ -92,8 +92,7 @@ def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
                          f'{tuple(valid.shape)} do not match')
     hist = torch.empty((N, 256), dtype=torch.int32, device=dev)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('insmedian', 'kb_masked_median', [p, p, p, i, i, p, p, p],
+    _cuda.launch('insmedian',
                  values.data_ptr(), masks.data_ptr(), valid.data_ptr(), N,
                  values.numel(), hist.data_ptr(), out.data_ptr(),
                  _cuda.stream_ptr(values))
@@ -125,8 +124,7 @@ def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:
         x, step = x.contiguous(), 1
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     partials = torch.empty((2 * 264,), dtype=torch.float32, device=x.device)
-    p = _cuda.P
-    _cuda.launch('colorize', 'kb_colorize', [p, _cuda.LL, _cuda.I, p, p, p],
+    _cuda.launch('colorize',
                  x.data_ptr(), x.numel(), step, partials.data_ptr(),
                  out.data_ptr(), _cuda.stream_ptr(x))
     return out

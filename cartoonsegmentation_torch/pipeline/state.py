@@ -110,9 +110,7 @@ def _append_masked_kernel(cloud: PointCloud, points, colors, disparity,
     _cuda.check(cloud.count, 'cloud.count', torch.int32, 0, dev)
     scratch = torch.empty((2 * -(-M // 1024),), dtype=torch.int32,
                           device=dev)
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('compact', 'kb_append_masked',
-                 [p, p, p, p, p, i, p, p, p, p, i, p, p, p],
+    _cuda.launch('compact',
                  points.data_ptr(), colors.data_ptr(), disparity.data_ptr(),
                  depth.data_ptr(), mask.data_ptr(), M,
                  cloud.points.data_ptr(), cloud.colors.data_ptr(),

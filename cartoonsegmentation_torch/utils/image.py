@@ -285,9 +285,7 @@ def frame_epilogue(frame: torch.Tensor, crop_h: int, crop_w: int,
         if tuple(i420.shape) != (out_h * 3 // 2, out_w):
             raise ValueError(f'i420 is {tuple(i420.shape)}, expected '
                              f'{(out_h * 3 // 2, out_w)}')
-    p, i = _cuda.P, _cuda.I
-    _cuda.launch('epilogue', 'kb_frame_epilogue',
-                 [p, i, i, _cuda.LL, i, i, i, i, i, p, p, p],
+    _cuda.launch('epilogue',
                  frame.data_ptr(), H, W, frame.stride(0), frame.stride(1),
                  crop_h, crop_w, out_h, out_w, bgr.data_ptr(),
                  0 if i420 is None else i420.data_ptr(),

@@ -6,7 +6,11 @@
 1. prints the card, torch and CUDA versions, and builds the 21 CUDA
    kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
    once;
-2. holds each kernel against its plain PyTorch version on the card at
+2. takes the host's cost of one kernel call apart (``host_phase``:
+   the laplacian's wrapper, its launch, the bare ctypes call, the
+   stream handle, an entry point that returns at once, ``torch.neg``;
+   µs a call over 1,000 calls), then
+   holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
    with 4,096 copies of one point, as the main path's cloud has; K6 over
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
@@ -23,9 +27,9 @@
    the shift mask, beside SDPA; K13a and K13b at the style path's
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
-   card (median of runs on varied inputs); K1, K4, the laplacian and
+   card (median of runs on varied inputs); K1, K3, K4, the laplacian and
    its cuDNN convolution, K15a, K15b and SDPA also by their device time
-   alone (``graph_ms``: one call captured in a CUDA graph and
+   alone (``graph_ms``: ten calls captured in a CUDA graph and
    replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
@@ -39,7 +43,9 @@
    kernels launched in that run, that it found instances with
    non-empty masks smaller than the frame, that the adjusted disparity
    is not flat, and that the 75 frames are sane; counts the copies of
-   its cloud's most repeated point (K1's crowded case);
+   its cloud's most repeated point (K1's crowded case); holds K3 bit for
+   bit against its plain version on 8 of the clip's own frames and
+   times it there, with their hole share and gaps;
 5. re-renders 3 frames of that state on the CPU the same way;
 6. runs the detector in f32 on the card and on the CPU with the same
    weights on the same image: the head maps within the stated
@@ -197,10 +203,13 @@ def bound_tc(n_bytes: float, product_flops: float, other_flops: float):
     return t[unit], by, unit, bound(n_bytes, product_flops + other_flops)[0]
 
 
-def graph_ms(fn, x, reps: int = 20) -> float:
-    """Device time of one fn(x), host dispatch excluded: fn captured
-    once in a CUDA graph, the graph replayed reps times between two
-    events."""
+def graph_ms(fn, x, reps: int = 10, calls: int = 10) -> float:
+    """Device time of one fn(x), host dispatch excluded: ``calls``
+    calls of fn captured in one CUDA graph, the graph replayed reps
+    times between two events, the time over reps x calls. A graph of
+    one call replayed back to back measures the host's replay rate
+    (~13 µs a replay on the H100's machine), not a kernel of a few µs
+    (the laplacian, the fill, K15b's small stages)."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -208,7 +217,8 @@ def graph_ms(fn, x, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(s)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn(x)
+        for _ in range(calls):
+            fn(x)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -217,7 +227,7 @@ def graph_ms(fn, x, reps: int = 20) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / (reps * calls)
     del graph
     return ms
 
@@ -238,6 +248,88 @@ def no_host_sync(fn, tag: str):
     return out
 
 
+def host_us(fns: dict, n: int = 1000, rounds: int = 5) -> dict:
+    """Host clock (perf_counter) over n calls of each fn back to back
+    with no sync inside, in µs a call: the median of ``rounds`` runs,
+    the fns taken in turns within each round and the card drained
+    between runs."""
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        for _ in range(10):
+            fn()
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[k].append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def host_phase(dev) -> dict:
+    """[host]: the host's cost of one kernel call, taken apart, at
+    576x1024x1 (the laplacian of the validity mask), in µs a call over
+    1,000 calls: the whole ``laplacian_filter``; ``_cuda.launch`` alone;
+    the bare ctypes call with its argtypes bound once, through the
+    port's ``PyDLL`` handle and through a ``CDLL`` one (which drops the
+    GIL); ``stream_ptr`` and the ``torch.cuda.Stream`` route to the same
+    handle; ``torch.empty_like``; a C entry point that returns at once
+    (``kb_noop``, both handles); ``torch.neg`` on the same tensor as
+    the yardstick of one PyTorch op; the bare call of the same source
+    linked against the shared CUDA runtime (``-cudart shared``, which
+    loads the libcudart torch has loaded) in place of nvcc's static
+    one. Then the floor of ``time_ms``: a pair of CUDA events around
+    nothing."""
+    import ctypes
+    from cartoonsegmentation_torch.ops import _cuda, filters
+    x = torch.rand((H, W, 1), device=dev)
+    out = torch.empty_like(x)
+    so = _cuda.lib('laplacian')
+    args = (x.data_ptr(), 1, H, W, 1, out.data_ptr(), _cuda.stream_ptr(x))
+    entry = getattr(so, _cuda.SIGNATURES['laplacian'][0])
+    cdll = ctypes.CDLL(so._name)
+    bare_c = getattr(cdll, _cuda.SIGNATURES['laplacian'][0])
+    shared = _cuda._lib_path('laplacian').with_suffix('.cudart-shared.so')
+    if not shared.exists():
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-cudart',
+                        'shared', '-o', str(shared),
+                        str(_cuda.CSRC / 'laplacian.cu')], check=True,
+                       capture_output=True)
+    bare_s = getattr(ctypes.PyDLL(str(shared)),
+                     _cuda.SIGNATURES['laplacian'][0])
+    for f in (bare_c, bare_s):
+        f.restype, f.argtypes = entry.restype, entry.argtypes
+    with open('/proc/self/maps') as maps:
+        cudart = sorted({ln.split()[-1] for ln in maps if 'libcudart' in ln})
+    print(f'[host] libcudart loaded: {cudart}', flush=True)
+    noop, noop_c = so.kb_noop, cdll.kb_noop
+    for f in (noop, noop_c):
+        f.restype, f.argtypes = ctypes.c_int, []
+    res = host_us({
+        'laplacian_filter': lambda: filters.laplacian_filter(x),
+        '_cuda.launch': lambda: _cuda.launch('laplacian', *args),
+        'ctypes call, PyDLL (argtypes bound once)': lambda: entry(*args),
+        'ctypes call, CDLL (argtypes bound once)': lambda: bare_c(*args),
+        'ctypes call, PyDLL, -cudart shared': lambda: bare_s(*args),
+        'stream_ptr': lambda: _cuda.stream_ptr(x),
+        'torch.cuda.current_stream(dev).cuda_stream':
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        'torch.empty_like': lambda: torch.empty_like(x),
+        'kb_noop, PyDLL': noop,
+        'kb_noop, CDLL': noop_c,
+        'torch.neg': lambda: torch.neg(x),
+    })
+    for k, us in res.items():
+        print(f'[host] {k}: {us:.2f} µs a call', flush=True)
+    xs = [torch.rand((H, W, 1), device=dev) for _ in range(RUNS)]
+    res['event pair'] = 1e3 * time_ms(lambda v: None, xs)
+    print(f'[host] time_ms around nothing (its floor): '
+          f'{res["event pair"]:.2f} µs', flush=True)
+    return res
+
+
 def synthetic_cloud(gen: torch.Generator, dev, n_total: int):
     """Grid cloud of a smooth depth map with steps, padded with z = 0
     slots to n_total, as the compacted cloud of the frame loop is."""
@@ -252,6 +344,88 @@ def synthetic_cloud(gen: torch.Generator, dev, n_total: int):
     pts = torch.cat([pts, torch.zeros((n_total - H * W, 3))])
     col = torch.rand((n_total, 3), generator=gen)
     return pts.to(dev), col.to(dev), depth.to(dev)
+
+
+def synthetic_fills(pts, col, frames_pts) -> list:
+    """K3's inputs, (render, depth), of the synthetic cloud at each of
+    the shifted clouds ``frames_pts``: the far shifts leave a band of
+    holes along the frame's border."""
+    from cartoonsegmentation_torch.ops import pointcloud
+    data4 = torch.cat([col, pts[:, 2:3]], 1).contiguous()
+    fills = []
+    for p in frames_pts:
+        r, w = pointcloud.render_pointcloud(p, data4, H, W, 512.0, 40.0)
+        fills.append((r.contiguous(),
+                      (r[..., 3] * (w[..., 0] > 0)).contiguous()))
+    return fills
+
+
+def fill_walks(depths) -> dict:
+    """K3 inputs' holes and walks, over the depth maps ``depths``: the
+    mean hole share, and the gap of each hole's winning direction (the
+    distance between its two endpoints, as the plain version picks it)
+    over the holes that have one: the mean of each map's mean, the
+    largest, and the mean share of holes with none."""
+    from cartoonsegmentation_torch.ops import discfill3 as d3
+    share, means, top, none = [], [], 0.0, []
+    for depth in depths:
+        best = d3.fill_winners_plain(depth)[0]
+        hole = depth <= 0
+        gap = best[hole & (best < d3.BIG)].sqrt()
+        share.append(float(hole.float().mean()))
+        means.append(float(gap.mean()) if gap.numel() else 0.0)
+        top = max(top, float(gap.max()) if gap.numel() else 0.0)
+        none.append(1.0 - gap.numel() / max(int(hole.sum()), 1))
+    return dict(hole_share=statistics.mean(share),
+                gap_mean=statistics.mean(means), gap_max=top,
+                no_gap_share=statistics.mean(none))
+
+
+def real_fill_inputs(pipe, n: int = 8) -> list:
+    """K3's inputs, (render, depth), in n frames of the pipeline's last
+    clip, evenly over it, as its frame loop renders them."""
+    state = pipe.last_state
+    obj_from, obj_to = pipe.last_boxes
+    seen = []
+    fill = pipe._fill
+
+    def capture(img, depth):
+        seen.append((img.clone(), depth.clone()))
+        return fill(img, depth)
+    pipe._fill = capture
+    try:
+        pipe.render_frames(state, obj_from, obj_to,
+                           list(np.linspace(0.0, 1.0, n)),
+                           return_device=True)
+    finally:
+        del pipe._fill
+    return seen[1:]     # the first is the focal planes' render of t = 0
+
+
+def check_fill_real(inputs: list) -> dict:
+    """K3 on the shipped default clip's own frames: bit-exact against
+    its plain version on each, its ms over them, its device time (the
+    median over the frames of ``graph_ms``), their holes and walks."""
+    from cartoonsegmentation_torch.ops import discfill3
+    for i, x in enumerate(inputs):
+        fk = discfill3.fill_disocclusion(*x)
+        fp = discfill3.fill_disocclusion_plain(*x)
+        if not torch.equal(fk, fp):
+            fail(f'fill on real frame {i} differs at '
+                 f'{int((fk != fp).any(-1).sum())} pixels')
+    ms = time_ms(lambda x: discfill3.fill_disocclusion(*x),
+                 inputs + inputs[:2])
+    dev_ms = statistics.median(
+        graph_ms(lambda x: discfill3.fill_disocclusion(*x), x)
+        for x in inputs)
+    out = dict(ms=ms, device_ms=dev_ms, frames=len(inputs),
+               **fill_walks([x[1] for x in inputs]))
+    print(f'[kernel] discfill on {len(inputs)} frames of the shipped '
+          f'default clip ({out["hole_share"]:.3%} holes, gap mean '
+          f'{out["gap_mean"]:.2f} max {out["gap_max"]:.2f} px, '
+          f'{out["no_gap_share"]:.3%} of holes without one): kernel '
+          f'{ms:.4f} ms (device {dev_ms:.4f} ms), bit-exact', flush=True)
+    return out
 
 
 def check_kernels(dev, gen: torch.Generator) -> dict:
@@ -347,27 +521,30 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
           flush=True)
 
     # --- K3 fill: real splat renders with disocclusions ---------------
-    data4 = torch.cat([col, pts[:, 2:3]], 1).contiguous()
-    fills = []
-    for p in frames_pts:
-        r, w = pointcloud.render_pointcloud(p, data4, H, W, 512.0, 40.0)
-        fills.append((r.contiguous(),
-                      (r[..., 3] * (w[..., 0] > 0)).contiguous()))
-    fk = discfill3.fill_disocclusion(*fills[0])
-    fp = discfill3.fill_disocclusion_plain(*fills[0])
-    if not torch.equal(fk, fp):
-        fail(f'fill differs at {int((fk != fp).any(-1).sum())} pixels')
+    fills = synthetic_fills(pts, col, frames_pts)
+    for x in fills:
+        fk = discfill3.fill_disocclusion(*x)
+        fp = discfill3.fill_disocclusion_plain(*x)
+        if not torch.equal(fk, fp):
+            fail(f'fill differs at {int((fk != fp).any(-1).sum())} pixels')
+    no_host_sync(lambda: discfill3.fill_disocclusion(*fills[1]), 'discfill')
     nbytes = H * W * (4 * 4 + 4 + 4 * 4)
     ms = time_ms(lambda x: discfill3.fill_disocclusion(*x), fills)
     plain_ms = time_ms(lambda x: discfill3.fill_disocclusion_plain(*x),
                        fills)
+    dev_ms = statistics.median(
+        graph_ms(lambda x: discfill3.fill_disocclusion(*x), x) for x in fills)
     b, by = bound(nbytes, 0)
-    holes = float((fills[0][1] <= 0).float().mean())
+    walks = fill_walks([x[1] for x in fills])
+    holes = walks['hole_share']
     res['discfill'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by)
-    print(f'[kernel] discfill {H}x{W} ({holes:.3%} holes): kernel '
-          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), '
-          f'bit-exact', flush=True)
+                           bound_ms=b, bound_by=by, device_ms=dev_ms,
+                           **walks)
+    print(f'[kernel] discfill {H}x{W}, {len(fills)} renders ({holes:.3%} '
+          f'holes, gap mean {walks["gap_mean"]:.2f} max '
+          f'{walks["gap_max"]:.2f} px): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
+          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), bit-exact',
+          flush=True)
 
     # --- K11 exact fill: the same renders, the ray march of 128 steps --
     from cartoonsegmentation_torch.ops import discfill
@@ -2191,9 +2368,12 @@ def main() -> None:
     print(f'[build] {len(_cuda.KERNELS)} kernel libraries in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
 
-    # 2. kernels against their plain versions ------------------------------
+    # 2. the host's cost of a kernel call; kernels against their plain
+    # versions ---------------------------------------------------------
+    host = host_phase(dev)
     gen = torch.Generator().manual_seed(args.seed)
     res = check_kernels(dev, gen)
+    res['laplacian']['host_us'] = host
     img = make_image(args.seed)
     res.update(check_crf_kernels(dev, gen, img))
     res.update(check_swinattn(dev, gen))
@@ -2225,6 +2405,7 @@ def main() -> None:
                          'pushpull', 'jitter')])
     check_instances(pipe, 'main')
     cloud_copies(pipe, 'main')
+    res['discfill_real'] = check_fill_real(real_fill_inputs(pipe))
 
     # 5. kernel frames against the plain versions on the CPU ---------------
     compare_frames(pipe, 'main')
@@ -2339,7 +2520,9 @@ def main() -> None:
           for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                     'device_ms')}),
         ('coverage', res['coverage'], 'ops/pointcloud.py:226', {}),
-        ('discfill', res['discfill'], 'ops/discfill3.py:90', {}),
+        # the synthetic renders; the shipped default clip's frames beside
+        ('discfill', res['discfill'], 'ops/discfill3.py:90',
+         {f'{k}_real': v for k, v in res['discfill_real'].items()}),
         ('bokeh', res['bokeh'], 'ops/bokeh.py:253', {}),
         ('insmedian', res['insmedian'], 'pipeline/depth.py:67', {}),
         ('median5', res['median5'], 'ops/filters.py:42', {}),

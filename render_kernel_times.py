@@ -1,26 +1,45 @@
 #!/usr/bin/env python3
-"""Device times of the render kernels K1 (splat) and K4 (bokeh) of one
-checkout of the PyTorch/CUDA port, on one GPU.
+"""Device times of the render kernels K1 (splat), K3 (the disocclusion
+fill) and K4 (bokeh), and of the laplacian (K7), of one checkout of the
+PyTorch/CUDA port, on one GPU.
 
-    python3 render_kernel_times.py [--root DIR] [--seed N]
+    python3 render_kernel_times.py --save-fill-inputs PATH [--seed N]
+    python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
+                                   [--seed N]
+    python3 render_kernel_times.py --loop [--root DIR] [--seed N]
 
-Imports ``cartoonsegmentation_torch`` from DIR (default: this file's
-directory), builds its ``splat`` and ``bokeh`` kernels, and at the
-main path's shapes (576x1024; the frame loop's compacted cloud of
-720,896 slots at C = 4, alone and with 4,096 copies of one point in
-front, the Inpaint net's 589,824 points at C = 68 and C = 2, C = 68 on
-the cloud with the copies, the 3-pass bokeh at S = 32 on a filled
-render's weights)
-prints, for each call:
+With ``--loop`` it runs the shipped default clip with DIR's package
+and times its frame loop on the host instead (16 frames a run, 7 runs:
+the enqueue and the wall time a frame), and exits.
+
+With ``--save-fill-inputs`` it runs the shipped default clip
+(``KenBurnsConfig()``, chip_smoke's edged detector) with this file's
+checkout, saves K3's inputs in 8 frames of its frame loop to PATH
+(``torch.save``) and exits.
+
+Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
+this file's directory), builds its ``splat``, ``discfill``, ``bokeh``,
+``colorize`` and ``laplacian`` kernels, and at the main path's shapes
+(576x1024; the frame loop's compacted cloud of 720,896 slots at C = 4,
+alone and with 4,096 copies of one point in front, the Inpaint net's
+589,824 points at C = 68 and C = 2, C = 68 on the cloud with the
+copies; K3 on chip_smoke's 10 renders of that cloud and, with
+``--fill-inputs``, on the saved frames of the shipped default clip; the 3-pass bokeh at
+S = 32 on a filled render's weights; the laplacian of a 576x1024x1
+mask) prints, for each call:
 - its device time (the call captured in a CUDA graph and replayed:
-  ``chip_smoke.graph_ms``), the median of 3 graphs;
-- its device time by kernel (torch.profiler over 10 calls);
+  ``chip_smoke.graph_ms``), the median of 3 graphs (of a call with
+  several inputs: for each input, and their median);
+- its ``ms`` (``chip_smoke.time_ms``: CUDA events around one call on an
+  idle card, host dispatch included);
+- its device time by kernel (torch.profiler over 10 calls on its first
+  input);
 - its largest difference from the plain version.
 The wrappers' signatures are the same in every checkout since the
 port's first slice, so two checkouts compare in one call on one card:
-run the script with each root in turn (A, B, B, A). Prints the card
-and its power limit first and one JSON line last. Needs a CUDA card;
-exits non-zero without one.
+save the inputs once, then run the script with each root in turn (A,
+B, B, A). Prints the card and its power limit first and one JSON line
+last. Needs a CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -29,6 +48,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 
 def main() -> None:
@@ -36,6 +56,13 @@ def main() -> None:
     ap.add_argument('--root', default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--fill-inputs', help='K3 inputs saved by '
+                    '--save-fill-inputs, timed as a call of their own')
+    ap.add_argument('--save-fill-inputs', metavar='PATH',
+                    help='save K3 inputs of the shipped default clip')
+    ap.add_argument('--loop', action='store_true',
+                    help="time the shipped default clip's frame loop on "
+                    'the host instead of the kernels')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -45,9 +72,15 @@ def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import chip_smoke as cs                       # timing and inputs
+    if args.save_fill_inputs:
+        save_fill_inputs(cs, args.save_fill_inputs, args.seed)
+        return
     sys.path.insert(0, root)                      # the package measured
+    if args.loop:
+        loop_times(cs, root, args.seed)
+        return
     from cartoonsegmentation_torch.ops import (_cuda, bokeh, discfill3,
-                                               pointcloud)
+                                               filters, pointcloud)
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
     from cartoonsegmentation_torch.pipeline.depth import colorize_gray_r
     from torch.autograd import DeviceType
@@ -55,7 +88,7 @@ def main() -> None:
     if not os.path.abspath(pointcloud.__file__).startswith(root):
         cs.fail(f'imported {pointcloud.__file__}, not from {root}')
     print(f'card: {cs.card_line()}; root {root}', flush=True)
-    _cuda.build(['splat', 'bokeh', 'discfill', 'colorize'])
+    _cuda.build(['splat', 'bokeh', 'discfill', 'colorize', 'laplacian'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -81,6 +114,12 @@ def main() -> None:
         'splat C=2': (frames[1][:H * W].contiguous(),
                       torch.rand((H * W, 2), generator=gen).to(dev)),
     }
+    # K3 on chip_smoke's 10 renders of the cloud (the far ones leave a
+    # band of holes along the border)
+    fills = cs.synthetic_fills(pts, col, [
+        shift_points(pts, torch.tensor(
+            [0.4 * i - 2.0, 0.25 * i - 1.0, 3.0 * i - 15.0],
+            device=dev)).contiguous() for i in range(cs.RUNS)])
     r, w = pointcloud.render_pointcloud(frames[0], data4, H, W, 512.0, 40.0)
     f = discfill3.fill_disocclusion(
         r.contiguous(), (r[..., 3] * (w[..., 0] > 0)).contiguous())
@@ -99,15 +138,38 @@ def main() -> None:
 
     def plain_bokeh(x):
         return bokeh.bokeh_core_plain(*x, 13.0, 32)
-    calls = [(k, run_splat, plain_splat, x) for k, x in splats.items()]
-    calls.append(('bokeh', run_bokeh, plain_bokeh, (img, wgt)))
+    def run_fill(x):
+        return discfill3.fill_disocclusion(*x)
+
+    def plain_fill(x):
+        return discfill3.fill_disocclusion_plain(*x)
+    # each call: (tag, kernel, plain, its inputs)
+    calls = [(k, run_splat, plain_splat, [x]) for k, x in splats.items()]
+    calls.append((f'discfill {len(fills)} renders', run_fill, plain_fill,
+                  fills))
+    if args.fill_inputs:
+        real = [tuple(t.to(dev) for t in x)
+                for x in torch.load(args.fill_inputs)]
+        calls.append((f'discfill {len(real)} frames of the shipped default',
+                      run_fill, plain_fill, real))
+    calls.append(('bokeh', run_bokeh, plain_bokeh, [(img, wgt)]))
+    mask = (torch.rand((H, W, 1), generator=gen) > 0.5).float().to(dev)
+    calls.append(('laplacian', filters.laplacian_filter,
+                  filters.laplacian_filter_plain, [mask]))
     out = {}
-    for tag, fn, plain, x in calls:
-        got, want = fn(x), plain(x)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        dev_ms = statistics.median(cs.graph_ms(fn, x) for _ in range(3))
+    for tag, fn, plain, xs in calls:
+        err = 0.0
+        for x in xs:
+            got, want = fn(x), plain(x)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max([err] + [float((a - b).abs().max())
+                               for a, b in zip(got, want)])
+        each = [statistics.median(cs.graph_ms(fn, x) for _ in range(3))
+                for x in xs]
+        dev_ms = statistics.median(each)
+        ms = cs.time_ms(fn, xs * max(1, 10 // len(xs)))
+        x = xs[0]
         fn(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -118,13 +180,80 @@ def main() -> None:
               for e in prof.key_averages()
               if e.device_type != DeviceType.CPU
               and e.self_device_time_total > 0}
-        out[tag] = dict(device_ms=dev_ms, max_abs_err=err, by_kernel=by)
-        print(f'[{tag}] device {dev_ms:.4f} ms, max err vs plain {err:.3g}; '
-              f'by kernel:', flush=True)
+        out[tag] = dict(device_ms=dev_ms, ms=ms, max_abs_err=err,
+                        by_kernel=by, device_ms_each=each)
+        print(f'[{tag}] device {dev_ms:.4f} ms, ms {ms:.4f}, max err vs '
+              f'plain {err:.3g}', flush=True)
+        if len(xs) > 1:
+            print(f'   device ms of each input: '
+                  f'{" ".join(f"{t:.4f}" for t in each)}', flush=True)
+        print('   by kernel (the first input):', flush=True)
         for k, ms in sorted(by.items(), key=lambda kv: -kv[1]):
             print(f'   {ms:.4f} ms  {k[:70]}', flush=True)
     print(json.dumps({'root': root, 'card': cs.card_line(),
                       'calls': out}), flush=True)
+
+
+def shipped_default_clip(cs, seed: int):
+    """The shipped default pipeline (``KenBurnsConfig()``, chip_smoke's
+    edged detector) of the package on sys.path, after one clip."""
+    import copy
+    import tempfile
+
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    _cuda.build()
+    pipe = KenBurnsPipeline(KenBurnsConfig(), seed=seed, device='cuda')
+    det_net, isnet = cs.edged_nets(seed)
+    pipe.ensure_detector()
+    pipe._detector.model = copy.deepcopy(det_net)
+    pipe._detector.refine.net = isnet
+    with tempfile.TemporaryDirectory(dir=str(_cuda.BUILD_DIR)) as tmp:
+        pipe.run(cs.make_image(seed), os.path.join(tmp, 'clip.mp4'))
+    return pipe
+
+
+def save_fill_inputs(cs, path: str, seed: int) -> None:
+    """Save K3's inputs in 8 frames of the shipped default clip's frame
+    loop to ``path``."""
+    import torch
+    print(f'card: {cs.card_line()}', flush=True)
+    inputs = cs.real_fill_inputs(shipped_default_clip(cs, seed))
+    torch.save([tuple(t.cpu() for t in x) for x in inputs], path)
+    print(f'saved K3 inputs of {len(inputs)} frames to {path}', flush=True)
+
+
+def loop_times(cs, root: str, seed: int, runs: int = 7) -> None:
+    """The shipped default clip's frame loop, 16 frames a run
+    (``render_frames``, as chip_smoke's [loop]): the host's enqueue
+    time and the wall time to the last result, ms a frame, each run and
+    the medians."""
+    import numpy as np
+    import torch
+    from cartoonsegmentation_torch.ops import _cuda
+    if not os.path.abspath(_cuda.__file__).startswith(root):
+        cs.fail(f'imported {_cuda.__file__}, not from {root}')
+    pipe = shipped_default_clip(cs, seed)
+    state, (obj_from, obj_to) = pipe.last_state, pipe.last_boxes
+    steps = list(np.linspace(0.0, 1.0, 16))
+    pipe.render_frames(state, obj_from, obj_to, steps, return_device=True)
+    enqueue, wall = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.render_frames(state, obj_from, obj_to, steps,
+                           return_device=True)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append((t1 - t0) / len(steps) * 1e3)
+        wall.append((time.perf_counter() - t0) / len(steps) * 1e3)
+    print(f'card: {cs.card_line()}; root {root}', flush=True)
+    print(f'[loop] host enqueue {statistics.median(enqueue):.3f} ms/frame '
+          f'({" ".join(f"{v:.3f}" for v in enqueue)}), wall '
+          f'{statistics.median(wall):.3f} ms/frame', flush=True)
+    print(json.dumps({'root': root, 'loop_enqueue_ms': enqueue,
+                      'loop_wall_ms': wall}), flush=True)
 
 
 if __name__ == '__main__':
