@@ -51,7 +51,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # would lose its upper 32 bits), i int, q long long, f float
 SIGNATURES = {
     'splat': ('kb_splat', 'ppiiiiffippppp'),
-    'coverage': ('kb_coverage', 'pipiiiffpipp'),
+    'coverage': ('kb_coverage', 'pipiiifiipp'),
     'discfill': ('kb_discfill', 'ppiiipp'),
     'bokeh': ('kb_bokeh', 'ppiiippiffpppp'),
     'insmedian': ('kb_masked_median', 'pppiippp'),
@@ -60,7 +60,7 @@ SIGNATURES = {
     'nms': ('kb_nms', 'ppifippp'),
     'maskhead': ('kb_mask_heads', 'pppppiiiiifppp'),
     'epilogue': ('kb_frame_epilogue', 'piiqiiiiippp'),
-    'colorize': ('kb_colorize', 'pqippp'),
+    'colorize': ('kb_colorize', 'pqiipp'),
     'compact': ('kb_append_masked', 'pppppippppippp'),
     'samattn': ('kb_sam_attention', 'pppiiiiiifpp'),
     'discfill_exact': ('kb_discfill_exact', 'pppiiiipp'),
@@ -76,8 +76,25 @@ CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'q': ctypes.c_longlong,
           'f': ctypes.c_float}
 
 # shared memory one block may take on the H100 (227 KB), which the
-# tiled kernels (splat, bokeh) size their blocks against
+# tiled kernels (splat, bokeh, coverage) size their blocks against
 SMEM_BYTES = 232448
+
+# constants of csrc/coverage.cu and csrc/colorize.cu that their launch
+# plans (ops/pointcloud.py:coverage_plan, pipeline/depth.py:
+# colorize_plan) size against; the sources point here
+# coverage.cu: threads a block, points a thread a tile, candidates a
+# block at most; its fixed shared memory: two mbarriers' 16 bytes and
+# two tiles of (x, y, z) (dynamic), the group's shifts and per-warp
+# counts (static)
+COVER_THREADS = 1024
+COVER_PER_THREAD = 4
+COVER_MAX_GROUP = 8
+COVER_TILES_BYTES = 16 + 2 * 12 * COVER_THREADS * COVER_PER_THREAD
+COVER_STATIC_BYTES = 4 * 3 * COVER_MAX_GROUP + 4 * 32 * COVER_MAX_GROUP
+# colorize.cu: threads a block; blocks an SM the plan asks for (the
+# kernel takes fewer if the card holds fewer at once)
+COLORIZE_THREADS = 512
+COLORIZE_BLOCKS_PER_SM = 2
 
 # launches per kernel library since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -164,6 +181,19 @@ def lib(name: str) -> ctypes.PyDLL:
 def stream_ptr(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s card."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The streaming multiprocessors of ``t``'s card (read once a card)."""
+    i = t.get_device()
+    n = _sm_counts.get(i)
+    if n is None:
+        n = _sm_counts[i] = torch.cuda.get_device_properties(
+            i).multi_processor_count
+    return n
 
 
 def launch(name: str, *args) -> None:

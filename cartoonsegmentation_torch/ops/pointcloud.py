@@ -7,7 +7,8 @@ two versions behind one wrapper:
   tensor on the CPU, and which the tests hold against the JAX package;
 - a hand-written CUDA kernel (``csrc/splat.cu``: per-tile sums in
   shared memory, channel chunks from ``splat_plan``;
-  ``csrc/coverage.cu``),
+  ``csrc/coverage.cu``: per-block bitmaps in shared memory, groups and
+  bands from ``coverage_plan``),
   which the wrapper launches for a CUDA tensor. There is no fallback:
   on a CUDA tensor the kernel runs or the wrapper raises.
 
@@ -229,10 +230,39 @@ def coverage_plain(points: torch.Tensor, shifts: torch.Tensor, H: int,
     return torch.stack(counts).to(torch.int32)
 
 
+def coverage_plan(K: int, H: int, W: int, sms: int
+                  ) -> Tuple[int, int, int]:
+    """(G, band_rows, smem bytes) of csrc/coverage.cu for K candidates
+    on an H x W raster, on a card of ``sms`` streaming multiprocessors
+    (``_cuda.sm_count``). A block keeps one bitmap (a bit a pixel) of
+    each of its G candidates in shared memory; G is about K / sms, so
+    that ~sms blocks fill the card while each point is read once for G
+    candidates, as far as G bitmaps fit beside the tiles (the kernel's
+    sizes: ``_cuda.COVER_*``). A raster whose one bitmap does not fit is
+    cut into bands of ``band_rows`` rows (a block a band of one
+    candidate); else ``band_rows`` is H. smem is the dynamic shared
+    memory of a block, as the kernel computes it."""
+    tiles = _cuda.COVER_TILES_BYTES
+    budget = _cuda.SMEM_BYTES - tiles - _cuda.COVER_STATIC_BYTES
+    bitmap = 4 * -(-(H * W) // 32)
+    if bitmap <= budget:
+        G = max(1, min(_cuda.COVER_MAX_GROUP, budget // bitmap,
+                       int(K / sms + 0.5)))
+        band_rows = H
+    else:
+        G, band_rows = 1, budget // 4 * 32 // W
+        if band_rows < 1:
+            raise ValueError(f'coverage: a raster row of {W} pixels does '
+                             f'not fit a block')
+    words = -(-(band_rows * W) // 32)
+    return G, band_rows, tiles + 4 * G * words
+
+
 def coverage(points: torch.Tensor, shifts: torch.Tensor, H: int, W: int,
              focal: float, baseline: float) -> torch.Tensor:
     """K2 wrapper: the plain version on the CPU, csrc/coverage.cu on
-    CUDA. points (N, 3), shifts (K, 3) → counts (K,) int32."""
+    CUDA (one launch, ``coverage_plan``'s groups and bands). points
+    (N, 3), shifts (K, 3) → counts (K,) int32."""
     if points.device.type == 'cpu':
         return coverage_plain(points, shifts, H, W, focal, baseline)
     dev = points.device
@@ -241,16 +271,19 @@ def coverage(points: torch.Tensor, shifts: torch.Tensor, H: int, W: int,
     if points.shape[1] != 3 or shifts.shape[1] != 3:
         raise ValueError('points and shifts must be (N, 3) and (K, 3)')
     N, K = points.shape[0], shifts.shape[0]
-    words = (H * W + 31) // 32
-    bits = torch.empty((K * words,), dtype=torch.int32, device=dev)
     counts = torch.empty((K,), dtype=torch.int32, device=dev)
+    if K == 0 or H * W == 0:
+        return counts.zero_()
+    if points.data_ptr() % 16:
+        points = points.clone()   # the bulk copies read 16-byte units
+    G, band_rows, _ = coverage_plan(K, H, W, _cuda.sm_count(points))
     _cuda.launch('coverage',
                  points.data_ptr(), N, shifts.data_ptr(), K, H, W,
-                 float(focal), float(baseline), bits.data_ptr(), words,
-                 counts.data_ptr(), _cuda.stream_ptr(points))
+                 float(focal), G, band_rows, counts.data_ptr(),
+                 _cuda.stream_ptr(points))
     return counts
 
 
-__all__ = ['BIG', 'coverage', 'coverage_plain', 'degrid', 'depth_to_points',
-           'render_pointcloud', 'shift_points', 'splat', 'splat_plain',
-           'splat_plan', 'true_div']
+__all__ = ['BIG', 'coverage', 'coverage_plain', 'coverage_plan', 'degrid',
+           'depth_to_points', 'render_pointcloud', 'shift_points', 'splat',
+           'splat_plain', 'splat_plan', 'true_div']

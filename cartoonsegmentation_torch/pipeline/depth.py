@@ -10,6 +10,8 @@ histogram with ``index_put_``) for CPU tensors and
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -108,11 +110,23 @@ def colorize_gray_r_plain(x: torch.Tensor) -> torch.Tensor:
     return (1.0 - norm) * 255.0
 
 
+def colorize_plan(n: int, sms: int) -> Tuple[int, int]:
+    """(blocks, scratch floats) of csrc/colorize.cu for a map of n
+    values on a card of ``sms`` streaming multiprocessors
+    (``_cuda.sm_count``): at most ``_cuda.COLORIZE_BLOCKS_PER_SM`` blocks
+    an SM of ``_cuda.COLORIZE_THREADS`` threads (the kernel takes fewer
+    if the card holds fewer at once), and 2 floats a block (its min and
+    max) after the map in the output buffer."""
+    blocks = max(1, min(_cuda.COLORIZE_BLOCKS_PER_SM * sms,
+                        -(-n // _cuda.COLORIZE_THREADS)))
+    return blocks, 2 * blocks
+
+
 def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:
     """K5b wrapper: the plain version on the CPU, csrc/colorize.cu on
-    CUDA, equal bit for bit. x (H, W) f32, read in place when it is one
-    channel of an interleaved buffer (the filled frame's depth) →
-    (H, W) f32, contiguous."""
+    CUDA (one launch; reads the map once), equal bit for bit. x (H, W)
+    f32, read in place when it is one channel of an interleaved buffer
+    (the filled frame's depth) → (H, W) f32, contiguous."""
     if x.device.type == 'cpu':
         return colorize_gray_r_plain(x)
     if x.dtype != torch.float32 or x.ndim != 2:
@@ -122,9 +136,10 @@ def colorize_gray_r(x: torch.Tensor) -> torch.Tensor:
     step = x.stride(1)
     if x.stride(0) != step * x.shape[1] or step < 1:
         x, step = x.contiguous(), 1
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    partials = torch.empty((2 * 264,), dtype=torch.float32, device=x.device)
-    _cuda.launch('colorize',
-                 x.data_ptr(), x.numel(), step, partials.data_ptr(),
-                 out.data_ptr(), _cuda.stream_ptr(x))
-    return out
+    n = x.numel()
+    blocks, scratch = colorize_plan(n, _cuda.sm_count(x))
+    # the map, then the blocks' partial min and max
+    out = torch.empty((n + scratch,), dtype=torch.float32, device=x.device)
+    _cuda.launch('colorize', x.data_ptr(), n, step, blocks, out.data_ptr(),
+                 _cuda.stream_ptr(x))
+    return out[:n].view(x.shape)

@@ -27,10 +27,10 @@
    the shift mask, beside SDPA; K13a and K13b at the style path's
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
-   card (median of runs on varied inputs); K1, K3, K4, the laplacian and
-   its cuDNN convolution, K15a, K15b and SDPA also by their device time
-   alone (``graph_ms``: ten calls captured in a CUDA graph and
-   replayed), the ratio to SDPA's on each attention line;
+   card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
+   the laplacian and its cuDNN convolution, K15a, K15b and SDPA also by
+   their device time alone (``graph_ms``: ten calls captured in a CUDA
+   graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
    the path of the first slice), checks the launch counters of the
    kernels it runs and re-renders 3 of its frames on the CPU, where
@@ -45,7 +45,10 @@
    is not flat, and that the 75 frames are sane; counts the copies of
    its cloud's most repeated point (K1's crowded case); holds K3 bit for
    bit against its plain version on 8 of the clip's own frames and
-   times it there, with their hole share and gaps;
+   times it there, with their hole share and gaps; holds K2's counts
+   against its plain version on the clip's own autozoom input (the
+   stride-2 miniature of its cloud and its 256 shifts) and times it
+   there;
 5. re-renders 3 frames of that state on the CPU the same way;
 6. runs the detector in f32 on the card and on the CPU with the same
    weights on the same image: the head maps within the stated
@@ -346,6 +349,21 @@ def synthetic_cloud(gen: torch.Generator, dev, n_total: int):
     return pts.to(dev), col.to(dev), depth.to(dev)
 
 
+def synthetic_coverage_inputs(pts, depth, span: float = 100.0) -> tuple:
+    """K2's arguments on the synthetic cloud as the autozoom passes
+    them: the stride-2 miniature of its grid, the 16 x 16 candidate
+    shifts over +-span px, a 288x512 raster at focal 256."""
+    from cartoonsegmentation_torch.ops import camera
+    dev = pts.device
+    mini = pts[:H * W].reshape(H, W, 3)[::2, ::2].reshape(-1, 3).contiguous()
+    dr = camera.depth_range(depth)
+    lin = torch.linspace(-span, span, 16)
+    shifts = camera.compute_shift(dr, lin.repeat(16).to(dev),
+                                  lin.repeat_interleave(16).to(dev),
+                                  dr.min_val, dr.min_val * 0.8, W, H, 512.0)
+    return mini, shifts.contiguous(), H // 2, W // 2, 256.0, 40.0
+
+
 def synthetic_fills(pts, col, frames_pts) -> list:
     """K3's inputs, (render, depth), of the synthetic cloud at each of
     the shifted clouds ``frames_pts``: the far shifts leave a band of
@@ -428,11 +446,56 @@ def check_fill_real(inputs: list) -> dict:
     return out
 
 
+def real_coverage_inputs(pipe) -> tuple:
+    """K2's arguments in the pipeline's last clip: the autozoom's
+    stride-2 miniature of ``state.raw_points`` and its 256 candidate
+    shifts, as ops/camera.py:autozoom passes them, recorded by running
+    the clip's autozoom stage again."""
+    from cartoonsegmentation_torch.ops import camera
+    seen = []
+    cover = camera.coverage
+
+    def capture(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args))
+        return cover(*args)
+    camera.coverage = capture
+    try:
+        pipe.autozoom(pipe.last_state)
+    finally:
+        camera.coverage = cover
+    return seen[0]
+
+
+def check_coverage_real(args: tuple) -> dict:
+    """K2 on the shipped default clip's own autozoom input: its counts
+    equal to the plain version's, its ms and its device time."""
+    from cartoonsegmentation_torch.ops import pointcloud
+    pts, shifts, h, w = args[:4]
+    ck = pointcloud.coverage(*args)
+    cp = pointcloud.coverage_plain(*args)
+    if not torch.equal(ck, cp):
+        fail(f'coverage on the clip\'s miniature differs at '
+             f'{int((ck != cp).sum())} of {len(ck)} candidates')
+    ms = time_ms(lambda a: pointcloud.coverage(*a), [args] * RUNS)
+    dev_ms = graph_ms(lambda a: pointcloud.coverage(*a), args)
+    N, K = pts.shape[0], shifts.shape[0]
+    valid = int((pts[:, 2] >= 0.001).sum())
+    b, by = bound(N * 12 + K * 16, K * N * 25)
+    out = dict(ms=ms, device_ms=dev_ms, bound_ms=b, bound_by=by, points=N,
+               valid_points=valid, candidates=K, raster=f'{h}x{w}',
+               max_abs_err=0.0)
+    print(f'[kernel] coverage on the shipped default clip\'s miniature '
+          f'(N={N}, {valid} with z >= 0.001, K={K}, {h}x{w}): kernel '
+          f'{ms:.4f} ms (device {dev_ms:.4f} ms), bound {b:.4f} ms ({by}), '
+          f'counts exact', flush=True)
+    return out
+
+
 def check_kernels(dev, gen: torch.Generator) -> dict:
     """Step 2: every kernel against its plain version at the main
     path's shapes. Returns per-kernel results."""
-    from cartoonsegmentation_torch.ops import (bokeh, camera, discfill3,
-                                               pointcloud)
+    from cartoonsegmentation_torch.ops import bokeh, discfill3, pointcloud
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
     from cartoonsegmentation_torch.pipeline.depth import colorize_gray_r
     res = {}
@@ -493,16 +556,13 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
               f'({by}), max err {err:.3g}', flush=True)
 
     # --- K2 coverage: 256 candidates on the stride-2 miniature --------
-    mini = pts[:H * W].reshape(H, W, 3)[::2, ::2].reshape(-1, 3).contiguous()
-    dr = camera.depth_range(depth)
-    lin = [torch.linspace(-100.0 + i, 100.0 - i, 16) for i in range(RUNS)]
-    cand = [camera.compute_shift(dr, v.repeat(16).to(dev),
-                                 v.repeat_interleave(16).to(dev),
-                                 dr.min_val, dr.min_val * 0.8, W, H,
-                                 512.0).contiguous() for v in lin]
-    ck = pointcloud.coverage(mini, cand[0], H // 2, W // 2, 256.0, 40.0)
-    cp = pointcloud.coverage_plain(mini, cand[0], H // 2, W // 2, 256.0,
-                                   40.0)
+    # RUNS candidate grids, each a little narrower than the last
+    cover = [synthetic_coverage_inputs(pts, depth, 100.0 - i)
+             for i in range(RUNS)]
+    mini, _, h, w, focal, baseline = cover[0]
+    cand = [c[1] for c in cover]
+    ck = pointcloud.coverage(*cover[0])
+    cp = pointcloud.coverage_plain(*cover[0])
     if not torch.equal(ck, cp):
         fail(f'coverage counts differ at {int((ck != cp).sum())} of 256 '
              f'candidates')
@@ -510,15 +570,16 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     nbytes = N * 12 + K * 12 + K * 4
     flops = K * N * 25   # shift 7, projection 8, corners 10
     ms = time_ms(lambda s: pointcloud.coverage(
-        mini, s, H // 2, W // 2, 256.0, 40.0), cand)
+        mini, s, h, w, focal, baseline), cand)
     plain_ms = time_ms(lambda s: pointcloud.coverage_plain(
-        mini, s, H // 2, W // 2, 256.0, 40.0), cand)
+        mini, s, h, w, focal, baseline), cand)
+    dev_ms = graph_ms(lambda x: pointcloud.coverage(*x), cover[0])
     b, by = bound(nbytes, flops)
     res['coverage'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by)
-    print(f'[kernel] coverage N={N} K={K}: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), counts exact',
-          flush=True)
+                           bound_ms=b, bound_by=by, device_ms=dev_ms)
+    print(f'[kernel] coverage N={N} K={K}: kernel {ms:.4f} ms (device '
+          f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+          f'({by}), counts exact', flush=True)
 
     # --- K3 fill: real splat renders with disocclusions ---------------
     fills = synthetic_fills(pts, col, frames_pts)
@@ -732,12 +793,16 @@ def check_frame_kernels(dev, filled) -> dict:
     # read the frame's colours once, write BGR and I420 once; per output
     # value ~42 operations (4 taps of 2 clipped reads and a mean, the
     # bilinear sum, the uint8 step), ~16 a pixel for weights and Y
+    dev_ms = graph_ms(lambda f: image.frame_epilogue(
+        f[..., :3], ch, cw, H, W, bgr, i420), filled[0])
     b, by = bound(H * W * (12 + 3 + 1.5), H * W * (3 * 42 + 16))
     res['epilogue'] = dict(max_abs_err=float(maxd), ms=ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by, bgr_equal=worst)
-    print(f'[kernel] epilogue {H}x{W} crop {ch}x{cw}: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}); BGR max diff '
-          f'{maxd}, equal {worst:.6f}; I420 exact', flush=True)
+                           bound_ms=b, bound_by=by, bgr_equal=worst,
+                           device_ms=dev_ms)
+    print(f'[kernel] epilogue {H}x{W} crop {ch}x{cw}: kernel {ms:.4f} ms '
+          f'(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+          f'{b:.4f} ms ({by}); BGR max diff {maxd}, equal {worst:.6f}; I420 '
+          f'exact', flush=True)
 
     # --- K5b: the depth channel of the filled frames, read in place ----
     maps = [f[..., 3] for f in filled]
@@ -747,11 +812,14 @@ def check_frame_kernels(dev, filled) -> dict:
             fail('colorize differs from the plain version')
     ms = time_ms(depth.colorize_gray_r, maps)
     plain_ms = time_ms(depth.colorize_gray_r_plain, maps)
+    dev_ms = statistics.median(graph_ms(depth.colorize_gray_r, x)
+                               for x in maps[:3])
     b, by = bound(H * W * 8, H * W * 6)   # min, max; sub, div, sub, mul
     res['colorize'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by)
-    print(f'[kernel] colorize {H}x{W}: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), exact', flush=True)
+                           bound_ms=b, bound_by=by, device_ms=dev_ms)
+    print(f'[kernel] colorize {H}x{W}: kernel {ms:.4f} ms (device '
+          f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+          f'({by}), exact', flush=True)
 
     # --- K10: the state's appends at M = H*W: all set, then hole-like
     # masks; a second cloud overflows on its second append -------------
@@ -2406,6 +2474,7 @@ def main() -> None:
     check_instances(pipe, 'main')
     cloud_copies(pipe, 'main')
     res['discfill_real'] = check_fill_real(real_fill_inputs(pipe))
+    res['coverage_real'] = check_coverage_real(real_coverage_inputs(pipe))
 
     # 5. kernel frames against the plain versions on the CPU ---------------
     compare_frames(pipe, 'main')
@@ -2519,7 +2588,9 @@ def main() -> None:
           for tag in ('c68', 'c4_copies')
           for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                     'device_ms')}),
-        ('coverage', res['coverage'], 'ops/pointcloud.py:226', {}),
+        # the synthetic miniature; the shipped default clip's own beside
+        ('coverage', res['coverage'], 'ops/pointcloud.py:226',
+         {f'{k}_real': v for k, v in res['coverage_real'].items()}),
         # the synthetic renders; the shipped default clip's frames beside
         ('discfill', res['discfill'], 'ops/discfill3.py:90',
          {f'{k}_real': v for k, v in res['discfill_real'].items()}),

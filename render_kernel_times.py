@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
-"""Device times of the render kernels K1 (splat), K3 (the disocclusion
-fill) and K4 (bokeh), and of the laplacian (K7), of one checkout of the
+"""Device times of the render kernels K1 (splat), K2 (the autozoom
+coverage), K3 (the disocclusion fill), K4 (bokeh) and K5b (the depth
+colorize), and of the laplacian (K7), of one checkout of the
 PyTorch/CUDA port, on one GPU.
 
-    python3 render_kernel_times.py --save-fill-inputs PATH [--seed N]
+    python3 render_kernel_times.py [--save-fill-inputs PATH]
+                                   [--save-coverage-inputs PATH] [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
-                                   [--seed N]
+                                   [--coverage-inputs PATH] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
 
 With ``--loop`` it runs the shipped default clip with DIR's package
 and times its frame loop on the host instead (16 frames a run, 7 runs:
 the enqueue and the wall time a frame), and exits.
 
-With ``--save-fill-inputs`` it runs the shipped default clip
-(``KenBurnsConfig()``, chip_smoke's edged detector) with this file's
-checkout, saves K3's inputs in 8 frames of its frame loop to PATH
-(``torch.save``) and exits.
+With ``--save-fill-inputs`` or ``--save-coverage-inputs`` it runs the
+shipped default clip (``KenBurnsConfig()``, chip_smoke's edged
+detector) with this file's checkout, saves K3's inputs in 8 frames of
+its frame loop and K2's input (the autozoom's stride-2 miniature of
+its cloud and its 256 shifts) to the given paths (``torch.save``) and
+exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
-this file's directory), builds its ``splat``, ``discfill``, ``bokeh``,
-``colorize`` and ``laplacian`` kernels, and at the main path's shapes
-(576x1024; the frame loop's compacted cloud of 720,896 slots at C = 4,
-alone and with 4,096 copies of one point in front, the Inpaint net's
-589,824 points at C = 68 and C = 2, C = 68 on the cloud with the
-copies; K3 on chip_smoke's 10 renders of that cloud and, with
-``--fill-inputs``, on the saved frames of the shipped default clip; the 3-pass bokeh at
-S = 32 on a filled render's weights; the laplacian of a 576x1024x1
-mask) prints, for each call:
+this file's directory), builds its ``splat``, ``coverage``,
+``discfill``, ``bokeh``, ``colorize`` and ``laplacian`` kernels, and at
+the main path's shapes (576x1024; the frame loop's compacted cloud of
+720,896 slots at C = 4, alone and with 4,096 copies of one point in
+front, the Inpaint net's 589,824 points at C = 68 and C = 2, C = 68 on
+the cloud with the copies; K2 on chip_smoke's synthetic miniature with
+256 shifts and, with ``--coverage-inputs``, on the saved input of the
+shipped default clip; K3 on chip_smoke's 10 renders of that cloud and,
+with ``--fill-inputs``, on the saved frames of the shipped default
+clip; the 3-pass bokeh at S = 32 on a filled render's weights; K5b on
+the depth channels of the filled frames, read in place; the laplacian
+of a 576x1024x1 mask) prints, for each call:
 - its device time (the call captured in a CUDA graph and replayed:
   ``chip_smoke.graph_ms``), the median of 3 graphs (of a call with
   several inputs: for each input, and their median);
@@ -60,6 +67,10 @@ def main() -> None:
                     '--save-fill-inputs, timed as a call of their own')
     ap.add_argument('--save-fill-inputs', metavar='PATH',
                     help='save K3 inputs of the shipped default clip')
+    ap.add_argument('--coverage-inputs', help='K2 input saved by '
+                    '--save-coverage-inputs, timed as a call of its own')
+    ap.add_argument('--save-coverage-inputs', metavar='PATH',
+                    help='save K2 input of the shipped default clip')
     ap.add_argument('--loop', action='store_true',
                     help="time the shipped default clip's frame loop on "
                     'the host instead of the kernels')
@@ -72,8 +83,9 @@ def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import chip_smoke as cs                       # timing and inputs
-    if args.save_fill_inputs:
-        save_fill_inputs(cs, args.save_fill_inputs, args.seed)
+    if args.save_fill_inputs or args.save_coverage_inputs:
+        save_inputs(cs, args.save_fill_inputs, args.save_coverage_inputs,
+                    args.seed)
         return
     sys.path.insert(0, root)                      # the package measured
     if args.loop:
@@ -82,17 +94,19 @@ def main() -> None:
     from cartoonsegmentation_torch.ops import (_cuda, bokeh, discfill3,
                                                filters, pointcloud)
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
-    from cartoonsegmentation_torch.pipeline.depth import colorize_gray_r
+    from cartoonsegmentation_torch.pipeline.depth import (
+        colorize_gray_r, colorize_gray_r_plain)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if not os.path.abspath(pointcloud.__file__).startswith(root):
         cs.fail(f'imported {pointcloud.__file__}, not from {root}')
     print(f'card: {cs.card_line()}; root {root}', flush=True)
-    _cuda.build(['splat', 'bokeh', 'discfill', 'colorize', 'laplacian'])
+    _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'colorize',
+                 'laplacian'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
-    pts, col, _ = cs.synthetic_cloud(gen, dev, 11 * (1 << 16))
+    pts, col, depth = cs.synthetic_cloud(gen, dev, 11 * (1 << 16))
     # the same cloud with 4,096 copies of one point in front of it in its
     # empty slots, as the main path's cloud holds them
     copies = pts.clone()
@@ -143,16 +157,35 @@ def main() -> None:
 
     def plain_fill(x):
         return discfill3.fill_disocclusion_plain(*x)
+
+    def run_cover(x):
+        return pointcloud.coverage(*x)
+
+    def plain_cover(x):
+        return pointcloud.coverage_plain(*x)
     # each call: (tag, kernel, plain, its inputs)
     calls = [(k, run_splat, plain_splat, [x]) for k, x in splats.items()]
+    calls.append(('coverage 256 shifts, synthetic miniature', run_cover,
+                  plain_cover, [cs.synthetic_coverage_inputs(pts, depth)]))
+    if args.coverage_inputs:
+        x = torch.load(args.coverage_inputs)
+        calls.append(('coverage 256 shifts, the shipped default clip\'s '
+                      'miniature', run_cover, plain_cover,
+                      [tuple(t.to(dev) if torch.is_tensor(t) else t
+                             for t in x)]))
     calls.append((f'discfill {len(fills)} renders', run_fill, plain_fill,
                   fills))
+    filled = [run_fill(x) for x in fills]
     if args.fill_inputs:
         real = [tuple(t.to(dev) for t in x)
                 for x in torch.load(args.fill_inputs)]
         calls.append((f'discfill {len(real)} frames of the shipped default',
                       run_fill, plain_fill, real))
+        filled = [run_fill(x) for x in real]
     calls.append(('bokeh', run_bokeh, plain_bokeh, [(img, wgt)]))
+    calls.append((f'colorize {len(filled)} filled frames\' depth channel',
+                  colorize_gray_r, colorize_gray_r_plain,
+                  [f[..., 3] for f in filled]))
     mask = (torch.rand((H, W, 1), generator=gen) > 0.5).float().to(dev)
     calls.append(('laplacian', filters.laplacian_filter,
                   filters.laplacian_filter_plain, [mask]))
@@ -163,7 +196,7 @@ def main() -> None:
             got, want = fn(x), plain(x)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            err = max([err] + [float((a - b).abs().max())
+            err = max([err] + [float((a - b).abs().max().float())
                                for a, b in zip(got, want)])
         each = [statistics.median(cs.graph_ms(fn, x) for _ in range(3))
                 for x in xs]
@@ -214,14 +247,24 @@ def shipped_default_clip(cs, seed: int):
     return pipe
 
 
-def save_fill_inputs(cs, path: str, seed: int) -> None:
+def save_inputs(cs, fill_path, coverage_path, seed: int) -> None:
     """Save K3's inputs in 8 frames of the shipped default clip's frame
-    loop to ``path``."""
+    loop to ``fill_path`` and K2's input in that clip to
+    ``coverage_path`` (either may be None)."""
     import torch
     print(f'card: {cs.card_line()}', flush=True)
-    inputs = cs.real_fill_inputs(shipped_default_clip(cs, seed))
-    torch.save([tuple(t.cpu() for t in x) for x in inputs], path)
-    print(f'saved K3 inputs of {len(inputs)} frames to {path}', flush=True)
+    pipe = shipped_default_clip(cs, seed)
+    if fill_path:
+        inputs = cs.real_fill_inputs(pipe)
+        torch.save([tuple(t.cpu() for t in x) for x in inputs], fill_path)
+        print(f'saved K3 inputs of {len(inputs)} frames to {fill_path}',
+              flush=True)
+    if coverage_path:
+        x = cs.real_coverage_inputs(pipe)
+        torch.save(tuple(t.cpu() if torch.is_tensor(t) else t for t in x),
+                   coverage_path)
+        print(f'saved K2 input ({x[0].shape[0]} points, {x[1].shape[0]} '
+              f'shifts, {x[2]}x{x[3]}) to {coverage_path}', flush=True)
 
 
 def loop_times(cs, root: str, seed: int, runs: int = 7) -> None:

@@ -189,6 +189,135 @@ def test_coverage_kernel_vs_plain(rng, cuda):
                        tpc.coverage_plain(pts, shifts, 48, 64, 48.0, 40.0))
 
 
+def _edge_cloud(H, W):
+    """z = 2 (so z/(z + 1e-7) is 1 in f32) and, at focal 2, u = x +
+    W/2 - 0.5 exactly: u, v on pixel centres (a zero corner weight), on
+    halves, at x0 = -1 and at W - 1, just outside; z just under and over
+    0.001; then 8 points with NaN and infinite coordinates."""
+    us = np.array([-1.5, -1.0, -0.5, -0.25, 0.0, 0.5, 3.0, 7.25,
+                   W - 1.5, W - 1.0, W - 0.5, W - 0.25, W, W + 0.5],
+                  np.float32)
+    vs = np.array([-1.0, -0.5, 0.0, 0.5, 2.0, H / 2 - 0.5, H - 1.5,
+                   H - 1.0, H - 0.5, H], np.float32)
+    uu, vv = np.meshgrid(us, vs)
+    pts = np.stack([uu.ravel() - np.float32(W / 2 - 0.5),
+                    vv.ravel() - np.float32(H / 2 - 0.5),
+                    np.full(uu.size, 2.0, np.float32)], 1)
+    z1 = np.float32(0.001)
+    tiny = np.array([[1e-6, 1e-6, 0.000999], [1e-6, -1e-6, z1],
+                     [-1e-6, 1e-6, np.nextafter(z1, np.float32(0))],
+                     [1e-6, 1e-6, np.nextafter(z1, np.float32(1))]])
+    bad = np.array([[np.nan, 0, 2], [0, np.nan, 2], [0, 0, np.nan],
+                    [np.inf, 0, 2], [0, -np.inf, 2], [0, 0, np.inf],
+                    [0, 0, -np.inf], [-np.inf, np.inf, 2]])
+    return np.concatenate([pts, tiny, bad]).astype(np.float32)
+
+
+def _coverage_equal(pts, shifts, H, W, focal):
+    got = tpc.coverage(pts, shifts, H, W, focal, 40.0)
+    want = tpc.coverage_plain(pts, shifts, H, W, focal, 40.0)
+    assert torch.equal(got, want), (got != want).nonzero()
+    return got
+
+
+@pytest.mark.gpu
+def test_coverage_kernel_edges(rng, cuda):
+    """Pixel centres, x0 = -1 and W - 1, z at 0.001, NaN and inf, under
+    shifts that keep the points on centres and shifts that move them."""
+    H, W = 21, 30
+    shifts = np.concatenate([
+        np.zeros((1, 3)), [[1, 0, 0], [0, -1, 0], [0.5, 0.5, 0],
+                           [0, 0, 0.0005]],
+        rng.uniform(-2, 2, (4, 3))]).astype(np.float32)
+    _coverage_equal(torch.from_numpy(_edge_cloud(H, W)).to(cuda),
+                    torch.from_numpy(shifts).to(cuda), H, W, 2.0)
+
+
+@pytest.mark.gpu
+def test_coverage_kernel_empty(rng, cuda):
+    """No points: every count 0; no candidates: no counts."""
+    shifts = torch.from_numpy(rng.uniform(-1, 1, (3, 3)).astype(
+        np.float32)).to(cuda)
+    got = _coverage_equal(torch.zeros((0, 3), device=cuda), shifts, 20, 30,
+                          16.0)
+    assert not got.any()
+    got = tpc.coverage(_cloud(rng, 500).to(cuda),
+                       torch.zeros((0, 3), device=cuda), 20, 30, 16.0, 40.0)
+    assert got.dtype == torch.int32 and got.shape == (0,)
+
+
+@pytest.mark.gpu
+def test_coverage_kernel_partial_group(rng, cuda):
+    """265 candidates in groups of two: the last group holds one. 20,001
+    points: the last tile's bulk copy stops 12 bytes short of its last
+    point, which its thread reads from global memory."""
+    shifts = torch.from_numpy(
+        rng.uniform(-3, 3, (265, 3)).astype(np.float32)).to(cuda)
+    assert tpc.coverage_plan(265, 48, 64, _cuda.sm_count(shifts))[0] == 2
+    _coverage_equal(_cloud(rng, 20001).to(cuda), shifts, 48, 64, 48.0)
+
+
+@pytest.mark.gpu
+def test_coverage_kernel_unaligned_points(rng, cuda):
+    """A cloud that starts 12 bytes into its buffer (the bulk copies
+    read 16-byte units: the wrapper copies it)."""
+    pts = _cloud(rng, 5004).to(cuda)[1:]
+    assert pts.data_ptr() % 16 == 12
+    shifts = torch.from_numpy(
+        rng.uniform(-3, 3, (7, 3)).astype(np.float32)).to(cuda)
+    _coverage_equal(pts, shifts, 48, 64, 48.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('banded', [False, True])
+def test_coverage_kernel_full_raster(rng, cuda, monkeypatch, banded):
+    """576x1024 (autozoom_stride 1): a bitmap of 72 KB in one band, and
+    with a block's shared memory cut so that the same kernel takes
+    bands of 128 rows; points on the bands' edges."""
+    H, W = 576, 1024
+    if banded:
+        monkeypatch.setattr(_cuda, 'SMEM_BYTES', _cuda.COVER_TILES_BYTES
+                            + _cuda.COVER_STATIC_BYTES + 128 * W // 8)
+    G, band_rows, _ = tpc.coverage_plan(
+        256, H, W, _cuda.sm_count(torch.empty(0, device=cuda)))
+    assert (G, band_rows) == (1, 128 if banded else H)
+    pts = np.stack([rng.uniform(-600, 600, 60000),
+                    rng.uniform(-350, 350, 60000),
+                    rng.uniform(1.5, 3, 60000)], 1).astype(np.float32)
+    edge = np.array([[u - (W / 2 - 0.5), v - (H / 2 - 0.5), 2.0]
+                     for u in (3.5, 10.0, 1022.5) for v in (
+                         127.0, 127.5, 128.0, 255.5, 511.5, 574.5)])
+    pts = np.concatenate([pts, edge]).astype(np.float32)
+    shifts = np.concatenate([np.zeros((1, 3)), rng.uniform(
+        -40, 40, (255, 3)) * [1, 1, 0.01]]).astype(np.float32)
+    _coverage_equal(torch.from_numpy(pts).to(cuda),
+                    torch.from_numpy(shifts).to(cuda), H, W, 2.0)
+
+
+@pytest.mark.gpu
+def test_coverage_kernel_grid_cloud(cuda):
+    """The autozoom's own input at the main path's size: the stride-2
+    miniature of a 576x1024 grid cloud and the 16 x 16 candidates."""
+    from cartoonsegmentation_torch.ops import camera as tcamera
+    H, W, focal = 576, 1024, 512.0
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing='ij')
+    depth = 300 + 200 * torch.sin(xx / 150) * torch.cos(yy / 90)
+    depth = torch.where((xx - 500) ** 2 + (yy - 300) ** 2 < 150 ** 2,
+                        depth * 0.3, depth).to(cuda)
+    pts = tpc.depth_to_points(depth, focal)
+    mini = pts[::2, ::2].reshape(-1, 3).contiguous()
+    dr = tcamera.depth_range(depth)
+    lin = torch.linspace(-100.0, 100.0, 16, device=cuda)
+    shifts = tcamera.compute_shift(dr, lin.repeat(16),
+                                   lin.repeat_interleave(16), dr.min_val,
+                                   dr.min_val * 0.8, W, H, focal)
+    got = _coverage_equal(mini, shifts.contiguous(), H // 2, W // 2,
+                          focal / 2)
+    assert int(got.min()) > 0
+
+
 @pytest.mark.gpu
 def test_fill_kernel_vs_plain(rng, cuda):
     img, depth = _holes(rng, 64, 96)
@@ -412,6 +541,78 @@ def test_colorize_kernel_vs_plain(rng, cuda):
     flat = torch.full((9, 11), 2.5, device=cuda)
     assert torch.equal(tdepth.colorize_gray_r(flat),
                        tdepth.colorize_gray_r_plain(flat))
+
+
+def _same_bits(got, want):
+    """Equal bit for bit; NaN where the other has NaN."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _colorize_case(rng, case, dev):
+    """(map, its RGBD buffer or None) of each K5b case."""
+    buf = torch.from_numpy(rng.rand(77, 131, 4).astype(np.float32)
+                           * 300).to(dev)
+    if case == 'view':                 # the frame loop's depth channel
+        return buf[..., 3]
+    if case == 'view_c1':
+        return buf[..., 1]
+    if case == 'odd':
+        return buf[..., 0].contiguous()[:-2, 1:]
+    if case == 'contiguous':
+        return buf[..., 2].contiguous()
+    if case == 'one':
+        return buf[:1, :1, 3]
+    if case == 'flat':
+        return torch.full((9, 11), 2.5, device=dev)
+    if case == 'large':                # more than 264 x 512 x 8 values
+        return torch.from_numpy(rng.rand(1200, 1100, 4).astype(
+            np.float32)).to(dev)[..., 3]
+    x = buf[..., 3].clone()
+    x[5, 7] = {'nan': float('nan'), 'inf': float('inf'),
+               '-inf': float('-inf')}[case]
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ['view', 'view_c1', 'odd', 'contiguous',
+                                  'one', 'flat', 'large', 'nan', 'inf',
+                                  '-inf'])
+def test_colorize_kernel_cases(rng, cuda, case):
+    """One launch against the plain version, bit for bit: the stride-4
+    channel view (read as 16-byte pixels), odd sizes, a contiguous map,
+    one element, a flat map, a map larger than the grid holds, NaN and
+    infinite values."""
+    x = _colorize_case(rng, case, cuda)
+    _cuda.reset_launches()
+    got = tdepth.colorize_gray_r(x)
+    assert _cuda.LAUNCHES['colorize'] == 1
+    assert got.shape == x.shape and got.is_contiguous()
+    _same_bits(got, tdepth.colorize_gray_r_plain(x))
+
+
+@pytest.mark.gpu
+def test_colorize_kernel_in_a_cuda_graph(rng, cuda):
+    """The cooperative launch captures in a CUDA graph and replays on
+    new values of the same buffer."""
+    buf = torch.from_numpy(rng.rand(64, 96, 4).astype(np.float32)).to(cuda)
+    x = buf[..., 3]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdepth.colorize_gray_r(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdepth.colorize_gray_r(x)
+    for scale in (300.0, 7.0):
+        buf.copy_(torch.from_numpy(rng.rand(64, 96, 4).astype(np.float32)
+                                   * scale))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_bits(out, tdepth.colorize_gray_r_plain(x))
 
 
 def _cloud_args(rng, M, dev):
