@@ -59,7 +59,7 @@ SIGNATURES = {
     'laplacian': ('kb_laplacian', 'piiiipp'),
     'nms': ('kb_nms', 'ppifippp'),
     'maskhead': ('kb_mask_heads', 'pppppiiiiifppp'),
-    'epilogue': ('kb_frame_epilogue', 'piiqiiiiippp'),
+    'epilogue': ('kb_frame_epilogue', 'piiqiiiiiiiiippp'),
     'colorize': ('kb_colorize', 'pqiipp'),
     'compact': ('kb_append_masked', 'pppppippppippp'),
     'samattn': ('kb_sam_attention', 'pppiiiiiifpp'),
@@ -67,7 +67,7 @@ SIGNATURES = {
     'roialign': ('kb_roi_align', 'pppiiiiiiiiiiiipp'),
     'nms_large': ('kb_nms_large', 'ppifippppppp'),
     'kmeans': ('kb_kmeans', 'piiipppp'),
-    'crf': ('kb_crf_step', 'pppppiiiiiiippppppffppppp'),
+    'crf': ('kb_crf', 'pppppiiiiiiipffiiipppp'),
     'swinattn': ('kb_swin_attention', 'ppppiiiiipp'),
     'pushpull': ('kb_pushpull', 'ppiiippp'),
     'jitter': ('kb_jitter', 'pppiiippp'),

@@ -19,7 +19,8 @@ Two kernels, each beside its plain version:
   ``clustered_bilateral`` as the JAX version does, or ``csrc/crf.cu``
   on CUDA (lattice pool, lattice blur, one per-pixel pass).
 ``densecrf_binary`` runs one k-means, the norm pass and the steps, and
-reads the mask off the last step.
+reads the mask off the last step; on CUDA the norm pass and the steps
+are one call of csrc/crf.cu.
 
 The plain version fixes the JAX version's unspecified orders of
 summation (the lattice pool, the upsample's two taps) to sequential
@@ -41,8 +42,9 @@ GAUSS_RADIUS = 2
 # csrc/kmeans.cu: points a block, clusters at most (csrc/crf.cu too)
 KMEANS_BLOCK_POINTS = 1024
 KMEANS_MAX_K = 16
-# csrc/crf.cu: largest lattice blur radius
+# csrc/crf.cu: largest lattice blur radius and cell side
 CRF_MAX_RADIUS = 15
+CRF_MAX_CELL = 1024
 
 
 @functools.lru_cache(maxsize=16)
@@ -263,57 +265,90 @@ def crf_step_plain(q: torch.Tensor, labels: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def _crf_tables(H: int, W: int, gaussian_sxy: float, bilateral_sxy: float,
-                dev: torch.device):
-    """Device copies of the kernel's constant tables: the 5 Gaussian
-    taps, the lattice taps, the row and column upsample taps."""
+def _crf_tables(H: int, W: int, gaussian_sxy: float, bilateral_sxy: float
+                ) -> Tuple[torch.Tensor, ...]:
+    """The kernel's constant tables on the host: the 5 Gaussian taps,
+    the lattice taps, the row and column upsample taps (index, 2
+    weights)."""
     s, gh, gw, radius = lattice(H, W, bilateral_sxy)
     ri, rw = linear_taps(gh, gh * s)
     ci, cw = linear_taps(gw, gw * s)
-    return tuple(t.contiguous().to(dev) for t in (
-        _gauss_taps_host(gaussian_sxy, GAUSS_RADIUS),
-        _gauss_taps_host(bilateral_sxy / s, radius),
-        ri[:H], rw[:H], ci[:W], cw[:W]))
+    return (_gauss_taps_host(gaussian_sxy, GAUSS_RADIUS),
+            _gauss_taps_host(bilateral_sxy / s, radius),
+            ri[:H], rw[:H], ci[:W], cw[:W])
+
+
+@functools.lru_cache(maxsize=64)
+def _crf_table_buffer(H: int, W: int, gaussian_sxy: float,
+                      bilateral_sxy: float, dev: torch.device
+                      ) -> torch.Tensor:
+    """``_crf_tables`` as one buffer of 4-byte words on ``dev``, in
+    their order (csrc/crf.cu:tables_of), copied to the card once per
+    (H, W, sxy): the calls after the first copy nothing, so a step
+    captures in a CUDA graph."""
+    words = [t.contiguous().view(torch.int32).reshape(-1)
+             for t in _crf_tables(H, W, gaussian_sxy, bilateral_sxy)]
+    return torch.cat(words).to(dev)
+
+
+def crf_work(H: int, W: int, K: int, bilateral_sxy: float,
+             steps: int) -> int:
+    """f32 scratch of a csrc/crf.cu call (its ``work``): the lattice
+    sums of K clusters x 2 channels and their blur, and one more q with
+    two steps or more (the steps alternate between it and q_out)."""
+    _, gh, gw, _ = lattice(H, W, bilateral_sxy)
+    return 4 * K * gh * gw + (2 * H * W if steps > 1 else 0)
 
 
 def _crf_launch(q: Optional[torch.Tensor], labels: torch.Tensor,
-                unary: Optional[torch.Tensor], norms: torch.Tensor,
-                dead: torch.Tensor, q_out: Optional[torch.Tensor],
-                mask: Optional[torch.Tensor], gaussian_sxy: float,
+                unary: Optional[torch.Tensor], norms: int, dead: int,
+                q_out: int, mask: int, gaussian_sxy: float,
                 gaussian_compat: float, bilateral_sxy: float,
-                bilateral_compat: float, num_clusters: int) -> None:
+                bilateral_compat: float, num_clusters: int, norm_pass: bool,
+                steps: int, mask_dead: bool, work: int) -> None:
+    """One call of csrc/crf.cu: the norm pass if asked, then ``steps``
+    steps from q. norms, dead, q_out, mask and work are addresses on
+    the card (0 for none) of buffers the caller sized."""
+    dev = labels.device
+    H, W = labels.shape
+    s, gh, gw, radius = lattice(H, W, bilateral_sxy)
+    tables = _crf_table_buffer(H, W, gaussian_sxy, bilateral_sxy, dev)
+    _cuda.launch('crf',
+                 0 if q is None else q.data_ptr(), labels.data_ptr(),
+                 0 if unary is None else unary.data_ptr(), norms, dead, H,
+                 W, num_clusters, s, gh, gw, radius, tables.data_ptr(),
+                 gaussian_compat, bilateral_compat, int(norm_pass), steps,
+                 int(mask_dead), work, q_out, mask, _cuda.stream_ptr(labels))
+
+
+def _crf_check(labels: torch.Tensor, num_clusters: int, bilateral_sxy: float,
+               **tensors: Optional[torch.Tensor]) -> None:
+    """Raise unless labels (H, W) int32 and each given tensor (H, W, 2)
+    f32 (``dead``: (1,) int32) lie contiguous on one card, the (H, W,
+    2) ones 8-byte aligned (csrc/crf.cu reads and writes a pixel's two
+    values as one float2), and the lattice and the cluster count fit
+    csrc/crf.cu."""
     dev = labels.device
     H, W = labels.shape
     _cuda.check(labels, 'labels', torch.int32, 2, dev)
-    _cuda.check(dead, 'dead', torch.int32, 1, dev)
-    for name, t in (('q', q), ('unary', unary), ('norms', norms)):
-        if t is not None:
-            _cuda.check(t, name, torch.float32, 3, dev)
-            if tuple(t.shape) != (H, W, 2):
-                raise ValueError(f'{name} is {tuple(t.shape)}, expected '
-                                 f'{(H, W, 2)}')
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if name == 'dead':
+            _cuda.check(t, name, torch.int32, 1, dev)
+            continue
+        _cuda.check(t, name, torch.float32, 3, dev)
+        if tuple(t.shape) != (H, W, 2):
+            raise ValueError(f'{name} is {tuple(t.shape)}, expected '
+                             f'{(H, W, 2)}')
+        if t.data_ptr() % 8:
+            raise ValueError(f'{name} must be 8-byte aligned')
     if not 1 <= num_clusters <= KMEANS_MAX_K:
         raise ValueError(f'crf takes 1 to {KMEANS_MAX_K} clusters')
-    s, gh, gw, radius = lattice(H, W, bilateral_sxy)
-    if radius > CRF_MAX_RADIUS:
-        raise ValueError(f'lattice radius {radius} above {CRF_MAX_RADIUS}')
-    g5, glat, ri, rw, ci, cw = _crf_tables(H, W, gaussian_sxy,
-                                           bilateral_sxy, dev)
-    pooled = torch.empty((num_clusters * 2, gh, gw), dtype=torch.float32,
-                         device=dev)
-    blurred = torch.empty_like(pooled)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    _cuda.launch('crf',
-                 ptr(q), labels.data_ptr(), ptr(unary), norms.data_ptr(),
-                 dead.data_ptr(), H, W, num_clusters, s, gh, gw, radius,
-                 g5.data_ptr(), glat.data_ptr(), ri.data_ptr(),
-                 rw.data_ptr(), ci.data_ptr(), cw.data_ptr(),
-                 gaussian_compat, bilateral_compat, pooled.data_ptr(),
-                 blurred.data_ptr(), ptr(q_out), ptr(mask),
-                 _cuda.stream_ptr(labels))
-
+    s, _, _, radius = lattice(H, W, bilateral_sxy)
+    if radius > CRF_MAX_RADIUS or s > CRF_MAX_CELL:
+        raise ValueError(f'lattice of {s} px cells, radius {radius}: above '
+                         f'{CRF_MAX_CELL} px or {CRF_MAX_RADIUS}')
 
 
 def crf_norms(labels: torch.Tensor, gaussian_sxy: float = 1.0,
@@ -328,11 +363,16 @@ def crf_norms(labels: torch.Tensor, gaussian_sxy: float = 1.0,
                                       num_clusters)
         return norms, dead.to(torch.int32).reshape(1)
     labels = labels.contiguous()
-    norms = torch.empty(labels.shape + (2,), dtype=torch.float32,
-                        device=labels.device)
-    dead = torch.zeros((1,), dtype=torch.int32, device=labels.device)
-    _crf_launch(None, labels, None, norms, dead, None, None, gaussian_sxy,
-                0.0, bilateral_sxy, 0.0, num_clusters)
+    _crf_check(labels, num_clusters, bilateral_sxy)
+    H, W = labels.shape
+    dev = labels.device
+    norms = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
+    dead = torch.empty((1,), dtype=torch.int32, device=dev)
+    work = torch.empty((crf_work(H, W, num_clusters, bilateral_sxy, 0),),
+                       dtype=torch.float32, device=dev)
+    _crf_launch(None, labels, None, norms.data_ptr(), dead.data_ptr(), 0, 0,
+                gaussian_sxy, 0.0, bilateral_sxy, 0.0, num_clusters, True, 0,
+                False, work.data_ptr())
     return norms, dead
 
 
@@ -351,12 +391,23 @@ def crf_step(q: torch.Tensor, labels: torch.Tensor, unary: torch.Tensor,
     if q.device.type == 'cpu':
         q = crf_step_plain(q, labels, unary, norms, **kw)
         return q, (q[..., 1] > q[..., 0]) & (dead == 0)
-    q, labels = q.contiguous(), labels.contiguous()
-    unary, norms = unary.contiguous(), norms.contiguous()
+    # a view off its 8-byte boundary is copied: the kernel reads a
+    # pixel's two values as one float2
+    q, unary, norms = (t.contiguous() if t.data_ptr() % 8 == 0 else
+                       t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, unary, norms))
+    labels, dead = labels.contiguous(), dead.contiguous()
+    _crf_check(labels, num_clusters, bilateral_sxy, q=q, unary=unary,
+               norms=norms, dead=dead)
+    H, W = labels.shape
     q_out = torch.empty_like(q)
-    mask = torch.empty(labels.shape, dtype=torch.bool, device=q.device)
-    _crf_launch(q, labels, unary, norms, dead.contiguous(), q_out, mask,
-                **kw)
+    mask = torch.empty((H, W), dtype=torch.bool, device=q.device)
+    work = torch.empty((crf_work(H, W, num_clusters, bilateral_sxy, 1),),
+                       dtype=torch.float32, device=q.device)
+    _crf_launch(q, labels, unary, norms.data_ptr(), dead.data_ptr(),
+                q_out.data_ptr(), mask.data_ptr(), gaussian_sxy,
+                gaussian_compat, bilateral_sxy, bilateral_compat,
+                num_clusters, False, 1, True, work.data_ptr())
     return q_out, mask
 
 
@@ -383,16 +434,42 @@ def densecrf_binary(unary_fg: torch.Tensor, rgb: torch.Tensor,
                                              device=rgb.device)
     labels = kmeans_labels(guide.reshape(-1, guide.shape[-1]).contiguous(),
                            num_clusters).reshape(H, W)
-    norms, dead = crf_norms(labels, gaussian_sxy, bilateral_sxy, num_clusters)
     q = _softmax2(-unary)
     if iterations == 0:
         return q[..., 1] > q[..., 0]
     kw = dict(gaussian_sxy=gaussian_sxy, gaussian_compat=gaussian_compat,
               bilateral_sxy=bilateral_sxy, bilateral_compat=bilateral_compat,
               num_clusters=num_clusters)
+    if q.device.type != 'cpu':
+        return _densecrf_cuda(q, labels, unary, iterations, **kw)
+    norms, dead = crf_norms(labels, gaussian_sxy, bilateral_sxy, num_clusters)
     if iterations == 1:
         # a zero norm's NaN has not spread yet after one step
         dead = torch.zeros_like(dead)
     for _ in range(iterations):
         q, mask = crf_step(q, labels, unary, norms, dead, **kw)
+    return mask
+
+
+def _densecrf_cuda(q: torch.Tensor, labels: torch.Tensor,
+                   unary: torch.Tensor, iterations: int, gaussian_sxy: float,
+                   gaussian_compat: float, bilateral_sxy: float,
+                   bilateral_compat: float, num_clusters: int
+                   ) -> torch.Tensor:
+    """The norm pass and ``iterations`` steps in one csrc/crf.cu call:
+    the norms, the flag, the steps' q and the lattice scratch in one
+    buffer (addresses into it), the mask in its own."""
+    _crf_check(labels, num_clusters, bilateral_sxy, q=q, unary=unary)
+    H, W = labels.shape
+    n = 2 * H * W
+    work = crf_work(H, W, num_clusters, bilateral_sxy, iterations)
+    buf = torch.empty((2 * n + work + 1,), dtype=torch.float32,
+                      device=q.device)
+    mask = torch.empty((H, W), dtype=torch.bool, device=q.device)
+    base = buf.data_ptr()
+    # norms, q_out, work, then the flag (an int32 in the last word)
+    _crf_launch(q, labels, unary, base, base + 4 * (2 * n + work),
+                base + 4 * n, mask.data_ptr(), gaussian_sxy, gaussian_compat,
+                bilateral_sxy, bilateral_compat, num_clusters, True,
+                iterations, iterations > 1, base + 8 * n)
     return mask

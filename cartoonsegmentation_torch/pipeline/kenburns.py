@@ -52,7 +52,7 @@ from ..ops import discfill, discfill3
 from ..ops.filters import valid_depth_mask
 from ..ops.pointcloud import (depth_to_points, render_pointcloud,
                               shift_points, true_div)
-from ..utils.image import (bgr_to_i420, frame_epilogue, i420_to_bgr_host,
+from ..utils.image import (EpiloguePlan, bgr_to_i420, i420_to_bgr_host,
                            resize_bilinear, resize_bilinear_aa,
                            scaledown_maxsize, scaledown_size)
 from ..utils.profiling import StageTimer
@@ -493,15 +493,12 @@ class KenBurnsPipeline:
             zero + 255.0, zero)
         return fp_start, fp_end
 
-    def render_one(self, state: KenBurnsState, cam: torch.Tensor,
-                   focal_planes, max_cw: int, max_ch: int,
-                   depth_field: bool, bgr: Optional[torch.Tensor] = None,
-                   i420: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One frame → (H, W, 3) uint8 BGR, written into ``bgr`` and,
-        with ``i420``, its I420 bytes (the K5a epilogue). Parity:
-        kenburns_effect.py:1015-1072."""
+    def _frame(self, state: KenBurnsState, cam: torch.Tensor, focal_planes,
+               depth_field: bool) -> torch.Tensor:
+        """One frame before its epilogue (``EpiloguePlan``, K5a): (H, W,
+        3) f32, the filled frame's colours or, with ``depth_field``, its
+        bokeh. Parity: kenburns_effect.py:1015-1072."""
         cfg = self.cfg
-        H, W = state.hw
         filled = self._splat_fill(state, cam)
         frame = filled[..., :3]
         if depth_field:
@@ -513,7 +510,7 @@ class KenBurnsPipeline:
             frame = bokeh_blur(frame.clamp(0.0, 1.0), depth_r,
                                cfg.dof_num_samples, cfg.lightness_factor,
                                cfg.depth_factor, focal_plane=fp)
-        return frame_epilogue(frame, max_ch, max_cw, H, W, bgr, i420)
+        return frame
 
     @torch.inference_mode()
     def render_frames(self, state: KenBurnsState, obj_from: Dict,
@@ -530,9 +527,10 @@ class KenBurnsPipeline:
         fps = self.focal_planes(state, cams, depth_field)
         frames = torch.empty((len(cams), H, W, 3), dtype=torch.uint8,
                              device=self.device)
+        epilogue = EpiloguePlan(max_ch, max_cw, H, W)
+        epilogue.outputs(frames)
         for i in range(len(cams)):
-            self.render_one(state, cams[i], fps, max_cw, max_ch, depth_field,
-                            bgr=frames[i])
+            epilogue(self._frame(state, cams[i], fps, depth_field), i)
         return frames if return_device else frames.cpu().numpy()
 
     @torch.inference_mode()
@@ -556,6 +554,7 @@ class KenBurnsPipeline:
         use_i420 = H % 4 == 0 and W % 2 == 0
         cams = self._cams(state, obj_from, obj_to, steps)
         planes = self.focal_planes(state, cams, depth_field)
+        epilogue = EpiloguePlan(max_ch, max_cw, H, W)
         pin = dev.type == 'cuda'
         n_chunks = -(-T // chunk)
 
@@ -622,10 +621,10 @@ class KenBurnsPipeline:
                 bgr = torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
                 i420 = torch.empty((n, H * 3 // 2, W), dtype=torch.uint8,
                                    device=dev) if use_i420 else None
+                epilogue.outputs(bgr, i420)
                 for j in range(n):
-                    self.render_one(state, cams[c0 + j], planes, max_cw,
-                                    max_ch, depth_field, bgr=bgr[j],
-                                    i420=None if i420 is None else i420[j])
+                    epilogue(self._frame(state, cams[c0 + j], planes,
+                                         depth_field), j)
                 sent = bgr if i420 is None else i420
                 host = torch.empty(sent.shape, dtype=torch.uint8,
                                    pin_memory=pin)

@@ -12,6 +12,7 @@ tail) runs ``frame_epilogue_plain`` for CPU tensors and
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -241,27 +242,67 @@ def frame_epilogue_plain(frame: torch.Tensor, crop_h: int, crop_w: int,
     return (frame.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
-def frame_epilogue(frame: torch.Tensor, crop_h: int, crop_w: int,
-                   out_h: int, out_w: int,
-                   bgr: Optional[torch.Tensor] = None,
-                   i420: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K5a wrapper: one (H, W, 3) f32 frame (channels contiguous; a
-    view of the filled (H, W, 4) buffer is read in place) → its uint8
-    BGR, written into ``bgr`` (out_h, out_w, 3) when given, and with
-    ``i420`` (out_h·3/2, out_w) its I420 bytes as ``bgr_to_i420``
-    makes them from that BGR. The plain chain on the CPU,
-    csrc/epilogue.cu on CUDA (one launch). Returns the BGR tensor."""
-    if i420 is not None and (out_h % 4 or out_w % 2):
-        raise ValueError(f'I420 needs out_h % 4 == 0 and out_w % 2 == 0, '
-                         f'got {out_h}x{out_w}')
-    if frame.device.type == 'cpu':
-        out = frame_epilogue_plain(frame, crop_h, crop_w, out_h, out_w)
-        if bgr is not None:
-            out = bgr.copy_(out)
-        if i420 is not None:
-            i420.copy_(bgr_to_i420(out[None])[0])
-        return out
-    dev = frame.device
+# csrc/epilogue.cu: output pixels a tile at most (rows, columns)
+EPILOGUE_TILE = (8, 128)
+
+
+def _first_taps(scale: np.float32, n_out: int) -> np.ndarray:
+    """The crop index of each output row's (or column's) first bilinear
+    tap, as csrc/epilogue.cu computes it: torch's source index
+    scale·(o + 0.5) − 0.5 in f32, one rounding an operation, clamped at
+    0 and truncated."""
+    o = np.arange(n_out, dtype=np.float32)
+    s = scale * (o + np.float32(0.5)) - np.float32(0.5)
+    return np.maximum(s, np.float32(0.0)).astype(np.int64)
+
+
+def epilogue_spans(n_crop: int, n_out: int, tile: int) -> np.ndarray:
+    """Crop rows (or columns) that each tile of ``tile`` output rows
+    forms in csrc/epilogue.cu: from its first row's first tap to its
+    last row's second, or the tile itself when the crop keeps its
+    size."""
+    starts = np.arange(0, n_out, tile)
+    ends = np.minimum(starts + tile, n_out) - 1
+    if n_crop == n_out:
+        return ends - starts + 1
+    first = _first_taps(np.float32(n_crop) / np.float32(n_out), n_out)
+    return np.minimum(first[ends] + 1, n_crop - 1) - first[starts] + 1
+
+
+def epilogue_smem(tile_h: int, tile_w: int, span_h: int, span_w: int
+                  ) -> int:
+    """Shared memory of one csrc/epilogue.cu block in bytes (its
+    ``smem_layout``): the tile's crop pixels and its row and column
+    taps."""
+    return (12 * span_h * span_w + 15) // 16 * 16 + 16 * (tile_h + tile_w)
+
+
+@functools.lru_cache(maxsize=64)
+def epilogue_plan(crop_h: int, crop_w: int, out_h: int, out_w: int,
+                  smem_bytes: int = _cuda.SMEM_BYTES
+                  ) -> Tuple[int, int, int, int]:
+    """(tile_h, tile_w, span_h, span_w) of csrc/epilogue.cu: the
+    largest tile from ``EPILOGUE_TILE`` down, halving the side whose
+    crop span is the wider per output pixel, whose shared memory fits
+    ``smem_bytes``; the spans are the most crop rows and columns any of
+    its tiles forms. Raises where even a 2x2 tile does not fit (a crop
+    many times the output)."""
+    th, tw = EPILOGUE_TILE
+    while True:
+        sh = int(epilogue_spans(crop_h, out_h, th).max())
+        sw = int(epilogue_spans(crop_w, out_w, tw).max())
+        if epilogue_smem(th, tw, sh, sw) <= smem_bytes:
+            return th, tw, sh, sw
+        if th == tw == 2:
+            raise ValueError(f'crop {crop_h}x{crop_w} to {out_h}x{out_w}: '
+                             f'a tile\'s source does not fit shared memory')
+        if tw == 2 or (th > 2 and sh * tw >= sw * th):
+            th //= 2
+        else:
+            tw //= 2
+
+
+def _check_frame(frame: torch.Tensor, crop_h: int, crop_w: int) -> None:
     H, W = frame.shape[0], frame.shape[1]
     if frame.dtype != torch.float32 or frame.ndim != 3 or \
             frame.shape[2] != 3 or frame.stride(2) != 1:
@@ -274,23 +315,137 @@ def frame_epilogue(frame: torch.Tensor, crop_h: int, crop_w: int,
             and (W - crop_w + 1) // 2 + crop_w + (W - crop_w + 1) % 2 <= W):
         raise ValueError(f'crop {crop_h}x{crop_w} does not fit the frame '
                          f'{H}x{W}')
+
+
+def _check_out(t: Optional[torch.Tensor], name: str, shape: tuple,
+               dev: torch.device) -> None:
+    if t is None:
+        return
+    _cuda.check(t, name, torch.uint8, len(shape), dev)
+    if tuple(t.shape) != shape:
+        raise ValueError(f'{name} is {tuple(t.shape)}, expected {shape}')
+
+
+def _i420_fits(out_h: int, out_w: int) -> None:
+    if out_h % 4 or out_w % 2:
+        raise ValueError(f'I420 needs out_h % 4 == 0 and out_w % 2 == 0, '
+                         f'got {out_h}x{out_w}')
+
+
+def _epilogue_args(frame: torch.Tensor, crop_h: int, crop_w: int,
+                   out_h: int, out_w: int) -> tuple:
+    """The arguments of csrc/epilogue.cu's kb_frame_epilogue between the
+    frame's address and the outputs': the frame's size and strides, the
+    crop, the output and its tile plan."""
+    tiles = epilogue_plan(crop_h, crop_w, out_h, out_w, _cuda.SMEM_BYTES)
+    return (frame.shape[0], frame.shape[1], frame.stride(0),
+            frame.stride(1), crop_h, crop_w, out_h, out_w, *tiles)
+
+
+def _launch_epilogue(frame: torch.Tensor, args: tuple, bgr_ptr: int,
+                     i420_ptr: int) -> None:
+    _cuda.launch('epilogue', frame.data_ptr(), *args, bgr_ptr, i420_ptr,
+                 _cuda.stream_ptr(frame))
+
+
+def frame_epilogue(frame: torch.Tensor, crop_h: int, crop_w: int,
+                   out_h: int, out_w: int,
+                   bgr: Optional[torch.Tensor] = None,
+                   i420: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5a wrapper: one (H, W, 3) f32 frame (channels contiguous; a
+    view of the filled (H, W, 4) buffer is read in place) → its uint8
+    BGR, written into ``bgr`` (out_h, out_w, 3) when given, and with
+    ``i420`` (out_h·3/2, out_w) its I420 bytes as ``bgr_to_i420``
+    makes them from that BGR. The plain chain on the CPU,
+    csrc/epilogue.cu on CUDA (one launch). Returns the BGR tensor.
+    Every call checks its arguments; a frame loop checks them once a
+    clip with ``EpiloguePlan``."""
+    if i420 is not None:
+        _i420_fits(out_h, out_w)
+    if frame.device.type == 'cpu':
+        out = frame_epilogue_plain(frame, crop_h, crop_w, out_h, out_w)
+        if bgr is not None:
+            out = bgr.copy_(out)
+        if i420 is not None:
+            i420.copy_(bgr_to_i420(out[None])[0])
+        return out
+    dev = frame.device
+    _check_frame(frame, crop_h, crop_w)
     if bgr is None:
         bgr = torch.empty((out_h, out_w, 3), dtype=torch.uint8, device=dev)
-    _cuda.check(bgr, 'bgr', torch.uint8, 3, dev)
-    if tuple(bgr.shape) != (out_h, out_w, 3):
-        raise ValueError(f'bgr is {tuple(bgr.shape)}, expected '
-                         f'{(out_h, out_w, 3)}')
-    if i420 is not None:
-        _cuda.check(i420, 'i420', torch.uint8, 2, dev)
-        if tuple(i420.shape) != (out_h * 3 // 2, out_w):
-            raise ValueError(f'i420 is {tuple(i420.shape)}, expected '
-                             f'{(out_h * 3 // 2, out_w)}')
-    _cuda.launch('epilogue',
-                 frame.data_ptr(), H, W, frame.stride(0), frame.stride(1),
-                 crop_h, crop_w, out_h, out_w, bgr.data_ptr(),
-                 0 if i420 is None else i420.data_ptr(),
-                 _cuda.stream_ptr(frame))
+    _check_out(bgr, 'bgr', (out_h, out_w, 3), dev)
+    _check_out(i420, 'i420', (out_h * 3 // 2, out_w), dev)
+    args = _epilogue_args(frame, crop_h, crop_w, out_h, out_w)
+    _launch_epilogue(frame, args, bgr.data_ptr(),
+                     0 if i420 is None else i420.data_ptr())
     return bgr
+
+
+class EpiloguePlan:
+    """K5a for the frames of one clip, checked and packed once.
+
+    ``outputs(bgr, i420)`` takes the buffers of a run of frames, (T,
+    out_h, out_w, 3) uint8 BGR and (T, out_h·3/2, out_w) uint8 I420 or
+    None, and checks them once; ``plan(frame, t)`` then writes frame
+    t's bytes, as ``frame_epilogue(frame, crop_h, crop_w, out_h, out_w,
+    bgr[t], i420[t])`` would. The frame's dtype, layout and device and
+    the crop are checked, and the launch's arguments packed, on the
+    first frame and again only when a frame's shape, strides or dtype
+    change; the slots' addresses are the buffers' plus t whole frames. No
+    allocation and no host sync: a frame captures in a CUDA graph. On
+    the CPU a call is ``frame_epilogue`` into the slots."""
+
+    def __init__(self, crop_h: int, crop_w: int, out_h: int, out_w: int):
+        self.crop = (crop_h, crop_w)
+        self.out = (out_h, out_w)
+        self._key = None
+        self._args = ()
+        self._frames = 0
+        self.bgr = self.i420 = None
+
+    def outputs(self, bgr: torch.Tensor,
+                i420: Optional[torch.Tensor] = None) -> None:
+        out_h, out_w = self.out
+        T = bgr.shape[0] if bgr.ndim == 4 else -1
+        if i420 is not None:
+            _i420_fits(out_h, out_w)
+        if bgr.device.type != 'cpu':
+            _check_out(bgr, 'bgr', (T, out_h, out_w, 3), bgr.device)
+            _check_out(i420, 'i420', (T, out_h * 3 // 2, out_w), bgr.device)
+        elif tuple(bgr.shape) != (T, out_h, out_w, 3):
+            raise ValueError(f'bgr is {tuple(bgr.shape)}, expected '
+                             f'{(T, out_h, out_w, 3)}')
+        if self.bgr is not None and bgr.device != self.bgr.device:
+            self._key = None            # the frame's device is checked anew
+        self.bgr, self.i420 = bgr, i420
+        self._frames = T
+        self._bgr_ptr = bgr.data_ptr()
+        self._i420_ptr = None if i420 is None else i420.data_ptr()
+        self._bgr_step = 3 * out_h * out_w
+        self._i420_step = out_h * 3 // 2 * out_w
+
+    def __call__(self, frame: torch.Tensor, t: int) -> None:
+        if not 0 <= t < self._frames:
+            raise IndexError(f'frame slot {t} of {self._frames}')
+        if frame.device.type == 'cpu':
+            frame_epilogue(frame, *self.crop, *self.out, self.bgr[t],
+                           None if self.i420 is None else self.i420[t])
+            return
+        key = (frame.shape, frame.stride(), frame.dtype, frame.get_device())
+        if key != self._key:
+            self._bind(frame, key)
+        i420 = 0 if self.i420 is None else \
+            self._i420_ptr + t * self._i420_step
+        _launch_epilogue(frame, self._args,
+                         self._bgr_ptr + t * self._bgr_step, i420)
+
+    def _bind(self, frame: torch.Tensor, key) -> None:
+        if frame.device != self.bgr.device:
+            raise ValueError(f'frame is on {frame.device}, the outputs on '
+                             f'{self.bgr.device}')
+        _check_frame(frame, *self.crop)
+        self._args = _epilogue_args(frame, *self.crop, *self.out)
+        self._key = key
 
 
 # OpenCV's YUV→RGB fixed-point constants (color_yuv.simd.hpp)

@@ -14,9 +14,12 @@
    the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
    with 4,096 copies of one point, as the main path's cloud has; K6 over
    100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
-   K5a at the path's crop and at a crop kept at its size; K10 with an
-   overflow; K1, K4 and K10 once under the sync debug mode, where a
-   host sync fails the run; K15a at SAM ViT-B's windowed
+   K5a at the path's crop and at a crop kept at its size, on the
+   filled view and on contiguous frames, through ``frame_epilogue``
+   and the frame loop's ``EpiloguePlan``, with the host's cost of a
+   call; K10 with an overflow; K1, K4 and K10 once under the sync
+   debug mode, where a host sync fails the run; K15a at SAM ViT-B's
+   windowed
    and global blocks, beside SDPA with the bias prebuilt, bound by the
    tensor cores' 3xTF32 rate (``bound_tc``); K11 on the
    rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
@@ -28,7 +31,8 @@
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
    card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
-   the laplacian and its cuDNN convolution, K15a, K15b and SDPA also by
+   the laplacian and its cuDNN convolution, K12b's step and norm pass,
+   K15a, K15b and SDPA also by
    their device time alone (``graph_ms``: ten calls captured in a CUDA
    graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
@@ -82,8 +86,9 @@
    weights, whose RLEs must decode to the masks exactly;
 12. runs the shipped default with the CRF depth refine,
    ``KenBurnsConfig(refine_crf=True)``, with the edged detector: K12a
-   and K12b launched (one k-means a segment), the instances, the frames
-   and 3 of them against the CPU, then refine_depth_crf on the clip's
+   and K12b launched (one k-means and one K12b call a segment; the
+   crops' sizes printed), the instances, the frames and 3 of them
+   against the CPU, then refine_depth_crf on the clip's
    own image, disparity and instances on the card and on the CPU;
 13. runs refine_depth_crf on a layered disparity over the image's shapes
    (at least 5 segments reach the CRF), card against CPU;
@@ -754,9 +759,20 @@ def check_maskrcnn_kernels(dev, gen) -> dict:
     return res
 
 
+def epilogue_bytes(H: int, W: int, crop_h: int, crop_w: int, out_h: int,
+                   out_w: int, i420: bool) -> int:
+    """Bytes K5a must move: the crop's colours read once (12 B a pixel),
+    with the extra row or column that a half-pixel corner's mean reads,
+    and 3 B of BGR (and 1.5 of I420) a pixel written once."""
+    fy, fx = (H - crop_h + 1) % 2, (W - crop_w + 1) % 2
+    return ((crop_h + fy) * (crop_w + fx) * 12
+            + out_h * out_w * (3 + 1.5 * i420))
+
+
 def check_frame_kernels(dev, filled) -> dict:
     """K5a epilogue, K5b colorize and K10 compaction against their
     plain versions on the filled frames of the render loop."""
+    from cartoonsegmentation_torch.ops import _cuda
     from cartoonsegmentation_torch.pipeline import depth, state
     from cartoonsegmentation_torch.utils import image
     res = {}
@@ -764,17 +780,20 @@ def check_frame_kernels(dev, filled) -> dict:
 
     # --- K5a: the path's crop (crop_ratio 0.97: 558x993 at 576x1024,
     # half-pixel rows) resized to the frame, and a crop at a half-pixel
-    # corner kept at its size (556x992) ---------------------------------
+    # corner kept at its size (556x992), each on the filled frames'
+    # view of the (H, W, 4) buffer and on contiguous (H, W, 3) frames
+    # (the bokeh's output, the main path's layout) ---------------------
     ch, cw = int(0.97 * H), int(0.97 * W)
     worst, maxd = 1.0, 0
     kept = (H - 20, W - 32)
+    blurred = [f[..., :3].contiguous() for f in filled]
     for crop, out in (((ch, cw), (H, W)), (kept, kept)):
-        for f in filled[:3]:
+        for f in [f[..., :3] for f in filled[:3]] + blurred[:3]:
             bgr = torch.empty((*out, 3), dtype=u8, device=dev)
             i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=u8,
                                device=dev)
-            got = image.frame_epilogue(f[..., :3], *crop, *out, bgr, i420)
-            want = image.frame_epilogue_plain(f[..., :3], *crop, *out)
+            got = image.frame_epilogue(f, *crop, *out, bgr, i420)
+            want = image.frame_epilogue_plain(f, *crop, *out)
             d = (got.int() - want.int()).abs()
             maxd = max(maxd, int(d.max()))
             worst = min(worst, float((d == 0).float().mean()))
@@ -786,23 +805,45 @@ def check_frame_kernels(dev, filled) -> dict:
         fail(f'epilogue: BGR max diff {maxd}, equal share {worst:.6f}')
     bgr = torch.empty((H, W, 3), dtype=u8, device=dev)
     i420 = torch.empty((H * 3 // 2, W), dtype=u8, device=dev)
+    # the frame loop's path: one plan a clip, checked once
+    plan = image.EpiloguePlan(ch, cw, H, W)
+    plan.outputs(bgr[None], i420[None])
+    plan(blurred[0], 0)
+    if not torch.equal(bgr, image.frame_epilogue(blurred[0], ch, cw, H, W)):
+        fail('epilogue: EpiloguePlan differs from frame_epilogue')
     ms = time_ms(lambda f: image.frame_epilogue(f[..., :3], ch, cw, H, W,
                                                 bgr, i420), filled)
+    plan_ms = time_ms(lambda f: plan(f, 0), blurred)
     plain_ms = time_ms(lambda f: image.bgr_to_i420(image.frame_epilogue_plain(
         f[..., :3], ch, cw, H, W)[None]), filled)
-    # read the frame's colours once, write BGR and I420 once; per output
-    # value ~42 operations (4 taps of 2 clipped reads and a mean, the
-    # bilinear sum, the uint8 step), ~16 a pixel for weights and Y
-    dev_ms = graph_ms(lambda f: image.frame_epilogue(
-        f[..., :3], ch, cw, H, W, bgr, i420), filled[0])
-    b, by = bound(H * W * (12 + 3 + 1.5), H * W * (3 * 42 + 16))
+    # per output value ~42 operations (4 taps of 2 clipped reads and a
+    # mean, the bilinear sum, the uint8 step), ~16 a pixel for weights
+    # and Y
+    dev_ms = statistics.median(graph_ms(lambda f: plan(f[..., :3], 0), f)
+                               for f in filled[:3])
+    dev_ms_rgb = statistics.median(graph_ms(lambda f: plan(f, 0), f)
+                                   for f in blurred[:3])
+    b, by = bound(epilogue_bytes(H, W, ch, cw, H, W, True),
+                  H * W * (3 * 42 + 16))
+    f3 = blurred[0]
+    host = host_us({
+        'frame_epilogue': lambda: image.frame_epilogue(f3, ch, cw, H, W,
+                                                       bgr, i420),
+        'EpiloguePlan call': lambda: plan(f3, 0),
+        '_cuda.launch': lambda: _cuda.launch(
+            'epilogue', f3.data_ptr(), *plan._args, bgr.data_ptr(),
+            i420.data_ptr(), _cuda.stream_ptr(f3))}, n=500)
     res['epilogue'] = dict(max_abs_err=float(maxd), ms=ms, plain_ms=plain_ms,
                            bound_ms=b, bound_by=by, bgr_equal=worst,
-                           device_ms=dev_ms)
+                           device_ms=dev_ms, device_ms_rgb=dev_ms_rgb,
+                           ms_plan_rgb=plan_ms, host_us=host)
     print(f'[kernel] epilogue {H}x{W} crop {ch}x{cw}: kernel {ms:.4f} ms '
-          f'(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
-          f'{b:.4f} ms ({by}); BGR max diff {maxd}, equal {worst:.6f}; I420 '
-          f'exact', flush=True)
+          f'(device {dev_ms:.4f} ms on the filled view, {dev_ms_rgb:.4f} '
+          f'on contiguous frames; EpiloguePlan {plan_ms:.4f} ms), plain '
+          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); BGR max diff {maxd}, '
+          f'equal {worst:.6f}; I420 exact', flush=True)
+    for k, us in host.items():
+        print(f'[host] epilogue {k}: {us:.2f} µs a call', flush=True)
 
     # --- K5b: the depth channel of the filled frames, read in place ----
     maps = [f[..., 3] for f in filled]
@@ -1759,6 +1800,25 @@ def sloppy_mask(gen: torch.Generator, h: int, w: int) -> torch.Tensor:
     return torch.where(band, noise, p).clamp(0, 1)
 
 
+def crf_cost(H: int, W: int, k: int, lattice: tuple, steps: int,
+             norm_pass: bool) -> tuple:
+    """(bytes, f32 operations) of one csrc/crf.cu call at (H, W) with k
+    clusters on ``lattice`` (crf.lattice's s, gh, gw, R): the norm pass
+    if asked (the labels read, the norms written: 12 B a pixel), then
+    ``steps`` steps (q, the labels, the unary and the norms read, q'
+    written: 36 B a pixel), the last also writing the mask (1 B)."""
+    s, gh, gw, R = lattice
+    # a plane's lattice: the pool (s^2 adds a cell) and the 9x9 blur
+    plane = gh * gw * (s * s + 2 * (2 * R + 1) ** 2)
+    nbytes = H * W * (12 * norm_pass + 36 * steps + (steps > 0))
+    # per pixel and channel: the 5x5 Gaussian (2 x 30 operations), the
+    # two-tap bilinear (6), the messages (8); per pixel the softmax
+    # (~30); the norm pass has one channel and no messages
+    flops = (norm_pass * (H * W * (60 + 6 + 2) + k * plane)
+             + steps * (H * W * (2 * (60 + 6 + 8) + 30) + 2 * k * plane))
+    return nbytes, flops
+
+
 def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
     """K12a and K12b against their plain versions at the refine's
     shapes: the k-means on the full 576x1024 guide of the image (RGB,
@@ -1816,41 +1876,37 @@ def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
                  qs)
     plain_ms = time_ms(lambda q: crf.crf_step_plain(q, labels, unary,
                                                     norms_p), qs[:3])
+    dev_ms = statistics.median(graph_ms(
+        lambda q: crf.crf_step(q, labels, unary, norms, dead), q)
+        for q in qs[:3])
+    norms_ms = time_ms(crf.crf_norms, [labels] * RUNS)
+    norms_dev_ms = graph_ms(crf.crf_norms, labels)
     mk = crf.densecrf_binary(unary_fg, rgb)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mk = crf.densecrf_binary(unary_fg, rgb)
-    torch.cuda.synchronize()
-    whole_ms = 1e3 * (time.perf_counter() - t0)
+    whole_ms = time_ms(lambda u: crf.densecrf_binary(u, rgb),
+                       [unary_fg] * RUNS)
     t0 = time.perf_counter()
     mp = crf.densecrf_binary(unary_fg.cpu(), rgb.cpu())
     cpu_s = time.perf_counter() - t0
     mask_share = float((mk.cpu() == mp).float().mean())
     s, gh, gw, R = crf.lattice(H, W, 46.0)
-    planes = 2 * k
-    # a step reads q, the labels, the unary and the norms, writes q'
-    # and the mask
-    nbytes = H * W * (8 + 4 + 8 + 8 + 8 + 1)
-    # per pixel and channel: the 5x5 Gaussian (2 x 30 operations), the
-    # two-tap bilinear (6), the messages (8); per pixel the softmax
-    # (~30); the lattice: the pool (s^2 adds) and the 9x9 blur
-    flops = H * W * (2 * (60 + 6 + 8) + 30) + planes * gh * gw * (
-        s * s + 2 * (2 * R + 1) ** 2)
-    b, by = bound(nbytes, flops)
+    b, by = bound(*crf_cost(H, W, k, (s, gh, gw, R), 1, False))
     print(f'[kernel] crf step {H}x{W} ({gh}x{gw} lattice of {s} px, {k} '
-          f'clusters): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-          f'{b:.4f} ms ({by}); norm pass max err {norm_err:.3g} (dead '
-          f'{int(dead)} / {int(dead_p)}), step max err {err:.3g}; '
-          f'densecrf_binary {whole_ms:.3f} ms on the card, {cpu_s:.2f} s the '
-          f'plain version on the CPU, masks equal {mask_share:.6f} (fg '
-          f'{float(mp.float().mean()):.4f})', flush=True)
+          f'clusters): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
+          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); norm pass '
+          f'{norms_ms:.4f} ms (device {norms_dev_ms:.4f}), max err '
+          f'{norm_err:.3g} (dead {int(dead)} / {int(dead_p)}), step max err '
+          f'{err:.3g}; densecrf_binary {whole_ms:.3f} ms on the card (k-means '
+          f'and 5 steps), {cpu_s:.2f} s the plain version on the CPU, masks '
+          f'equal {mask_share:.6f} (fg {float(mp.float().mean()):.4f})',
+          flush=True)
     if norm_err > 0 or int(dead) != int(dead_p) or err > 1e-5:
         fail('crf: the norm pass or a step differs from the plain version')
     if mask_share < CRF_MASK_SHARE:
         fail(f'crf: only {mask_share:.6f} of densecrf_binary\'s mask equal to '
              f'the plain version\'s ({CRF_MASK_SHARE} required)')
     res['crf'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                      bound_by=by, densecrf_ms=whole_ms,
+                      bound_by=by, device_ms=dev_ms, norms_ms=norms_ms,
+                      norms_device_ms=norms_dev_ms, densecrf_ms=whole_ms,
                       mask_share=mask_share)
     return res
 
@@ -1942,6 +1998,27 @@ def check_swinattn(dev, gen) -> dict:
                   f'{rng_:.3g}', flush=True)
             del cases, lib_cases
     return res
+
+
+class CrfCrops:
+    """Records the (H, W) of every densecrf_binary call that the CRF
+    refine makes until ``close()``; ``keep`` also keeps the inputs (the
+    foreground probability and the guide, on the host)."""
+
+    def __init__(self, keep: bool = False):
+        from cartoonsegmentation_torch.pipeline import crf_refine
+        self.module, self.inner = crf_refine, crf_refine.densecrf_binary
+        self.shapes, self.inputs = [], []
+
+        def recording(unary_fg, rgb, *a, **k):
+            self.shapes.append(tuple(unary_fg.shape))
+            if keep:
+                self.inputs.append((unary_fg.cpu(), rgb.cpu()))
+            return self.inner(unary_fg, rgb, *a, **k)
+        crf_refine.densecrf_binary = recording
+
+    def close(self) -> None:
+        self.module.densecrf_binary = self.inner
 
 
 def refine_inputs(pipe) -> dict:
@@ -2542,7 +2619,9 @@ def main() -> None:
     cp._detector.model = copy.deepcopy(det_net)
     cp._detector.refine.net = copy.deepcopy(isnet)
     seen = refine_inputs(cp)
+    crops = CrfCrops()
     launches_crf = run_clip(cp, img, 'crf')
+    crops.close()
     require_launches('crf', launches_crf,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
@@ -2550,7 +2629,8 @@ def main() -> None:
     print(f'[crf] depth_refine {cp.timer.seconds["depth_refine"]:.3f} s: '
           f'{launches_crf["kmeans"]} segments reached the CRF, '
           f'{launches_crf["kmeans"]} kmeans and {launches_crf["crf"]} crf '
-          f'launches', flush=True)
+          f'launches; the crops (H x W): '
+          f'{" ".join(f"{h}x{w}" for h, w in crops.shapes)}', flush=True)
     check_instances(cp, 'crf')
     compare_frames(cp, 'crf')
     ins_mask = seen['instances'].compose_masks().cpu().numpy()

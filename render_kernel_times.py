@@ -1,47 +1,70 @@
 #!/usr/bin/env python3
 """Device times of the render kernels K1 (splat), K2 (the autozoom
-coverage), K3 (the disocclusion fill), K4 (bokeh) and K5b (the depth
-colorize), and of the laplacian (K7), of one checkout of the
-PyTorch/CUDA port, on one GPU.
+coverage), K3 (the disocclusion fill), K4 (bokeh), K5a (the frame
+epilogue) and K5b (the depth colorize), of the laplacian (K7) and of
+the dense-CRF step K12b, of one checkout of the PyTorch/CUDA port, on
+one GPU.
 
     python3 render_kernel_times.py [--save-fill-inputs PATH]
-                                   [--save-coverage-inputs PATH] [--seed N]
+                                   [--save-coverage-inputs PATH]
+                                   [--save-crf-inputs PATH] [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
-                                   [--coverage-inputs PATH] [--seed N]
+                                   [--coverage-inputs PATH]
+                                   [--crf-inputs PATH] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
+    python3 render_kernel_times.py --clips [--root DIR] [--seed N]
 
 With ``--loop`` it runs the shipped default clip with DIR's package
 and times its frame loop on the host instead (16 frames a run, 7 runs:
-the enqueue and the wall time a frame), and exits.
+the enqueue and the wall time a frame), and exits. With ``--clips`` it
+runs the shipped default clip and the CRF clip with DIR's package, each
+once cold and then 3 times warm, and prints each warm run's wall
+seconds (``pipe.run`` to the mp4, synchronised) and its
+``depth_refine`` and ``stream_render`` seconds, and exits.
 
 With ``--save-fill-inputs`` or ``--save-coverage-inputs`` it runs the
 shipped default clip (``KenBurnsConfig()``, chip_smoke's edged
 detector) with this file's checkout, saves K3's inputs in 8 frames of
 its frame loop and K2's input (the autozoom's stride-2 miniature of
-its cloud and its 256 shifts) to the given paths (``torch.save``) and
-exits.
+its cloud and its 256 shifts) to the given paths (``torch.save``);
+with ``--save-crf-inputs`` it runs the CRF clip
+(``KenBurnsConfig(refine_crf=True)``, the same detector) and saves the
+inputs of its densecrf_binary calls (each segment's crop: the
+foreground probability and the guide); then it exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
 this file's directory), builds its ``splat``, ``coverage``,
-``discfill``, ``bokeh``, ``colorize`` and ``laplacian`` kernels, and at
-the main path's shapes (576x1024; the frame loop's compacted cloud of
-720,896 slots at C = 4, alone and with 4,096 copies of one point in
-front, the Inpaint net's 589,824 points at C = 68 and C = 2, C = 68 on
-the cloud with the copies; K2 on chip_smoke's synthetic miniature with
-256 shifts and, with ``--coverage-inputs``, on the saved input of the
-shipped default clip; K3 on chip_smoke's 10 renders of that cloud and,
-with ``--fill-inputs``, on the saved frames of the shipped default
-clip; the 3-pass bokeh at S = 32 on a filled render's weights; K5b on
-the depth channels of the filled frames, read in place; the laplacian
-of a 576x1024x1 mask) prints, for each call:
+``discfill``, ``bokeh``, ``epilogue``, ``colorize``, ``laplacian``,
+``kmeans`` and ``crf`` kernels, and at the main path's shapes
+(576x1024; the frame loop's compacted cloud of 720,896 slots at C = 4,
+alone and with 4,096 copies of one point in front, the Inpaint net's
+589,824 points at C = 68 and C = 2, C = 68 on the cloud with the
+copies; K2 on chip_smoke's synthetic miniature with 256 shifts and,
+with ``--coverage-inputs``, on the saved input of the shipped default
+clip; K3 on chip_smoke's 10 renders of that cloud and, with
+``--fill-inputs``, on the saved frames of the shipped default clip;
+the 3-pass bokeh at S = 32 on a filled render's weights; K5a's crop
+558x993 to 576x1024 with I420 on the filled frames' view of their
+(H, W, 4) buffer and on their bokeh (contiguous (H, W, 3), the main
+path's frames), through ``frame_epilogue`` and, where the checkout has
+it, the frame loop's ``EpiloguePlan``; K5b on the depth channels of
+the filled frames, read in place; the laplacian of a 576x1024x1 mask;
+K12b's norm pass, one step and the whole densecrf_binary at 576x1024
+on chip_smoke's image and sloppy mask and, with ``--crf-inputs``, on
+each saved crop) prints, for each call:
 - its device time (the call captured in a CUDA graph and replayed:
   ``chip_smoke.graph_ms``), the median of 3 graphs (of a call with
-  several inputs: for each input, and their median);
+  several inputs: for each input, and their median; densecrf_binary,
+  whose k-means copies a constant to the card, has none);
 - its ``ms`` (``chip_smoke.time_ms``: CUDA events around one call on an
   idle card, host dispatch included);
 - its device time by kernel (torch.profiler over 10 calls on its first
   input);
-- its largest difference from the plain version.
+- its largest difference from the plain version (densecrf_binary: the
+  share of mask pixels unlike the plain version's on the CPU);
+- for K5a and K12b, chip_smoke's bound of each input's call (K5a:
+  ``chip_smoke.epilogue_bytes``; K12b: ``chip_smoke.crf_cost``, for
+  densecrf_binary its norm pass and 5 steps), their median and sum.
 The wrappers' signatures are the same in every checkout since the
 port's first slice, so two checkouts compare in one call on one card:
 save the inputs once, then run the script with each root in turn (A,
@@ -71,6 +94,13 @@ def main() -> None:
                     '--save-coverage-inputs, timed as a call of its own')
     ap.add_argument('--save-coverage-inputs', metavar='PATH',
                     help='save K2 input of the shipped default clip')
+    ap.add_argument('--crf-inputs', help='densecrf_binary inputs saved by '
+                    '--save-crf-inputs, K12b timed on each')
+    ap.add_argument('--save-crf-inputs', metavar='PATH',
+                    help='save the CRF clip\'s densecrf_binary inputs')
+    ap.add_argument('--clips', action='store_true',
+                    help='warm seconds of the shipped default and the CRF '
+                    'clip')
     ap.add_argument('--loop', action='store_true',
                     help="time the shipped default clip's frame loop on "
                     'the host instead of the kernels')
@@ -86,23 +116,31 @@ def main() -> None:
     if args.save_fill_inputs or args.save_coverage_inputs:
         save_inputs(cs, args.save_fill_inputs, args.save_coverage_inputs,
                     args.seed)
+    if args.save_crf_inputs:
+        save_crf_inputs(cs, args.save_crf_inputs, args.seed)
+    if args.save_fill_inputs or args.save_coverage_inputs or \
+            args.save_crf_inputs:
         return
     sys.path.insert(0, root)                      # the package measured
     if args.loop:
         loop_times(cs, root, args.seed)
         return
-    from cartoonsegmentation_torch.ops import (_cuda, bokeh, discfill3,
+    if args.clips:
+        clip_times(cs, root, args.seed)
+        return
+    from cartoonsegmentation_torch.ops import (_cuda, bokeh, crf, discfill3,
                                                filters, pointcloud)
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
     from cartoonsegmentation_torch.pipeline.depth import (
         colorize_gray_r, colorize_gray_r_plain)
+    from cartoonsegmentation_torch.utils import image
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if not os.path.abspath(pointcloud.__file__).startswith(root):
         cs.fail(f'imported {pointcloud.__file__}, not from {root}')
     print(f'card: {cs.card_line()}; root {root}', flush=True)
-    _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'colorize',
-                 'laplacian'])
+    _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
+                 'colorize', 'laplacian', 'kmeans', 'crf'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -189,17 +227,22 @@ def main() -> None:
     mask = (torch.rand((H, W, 1), generator=gen) > 0.5).float().to(dev)
     calls.append(('laplacian', filters.laplacian_filter,
                   filters.laplacian_filter_plain, [mask]))
+    calls += epilogue_calls(cs, image, bokeh, colorize_gray_r, filled)
+    calls += crf_calls(cs, crf, gen, args.crf_inputs)
     out = {}
-    for tag, fn, plain, xs in calls:
+    for tag, fn, plain, xs, *opt in calls:
+        opt = opt[0] if opt else {}
         err = 0.0
-        for x in xs:
+        for x in xs if plain else ():
             got, want = fn(x), plain(x)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            err = max([err] + [float((a - b).abs().max().float())
+            err = max([err] + [float((a.to(b.device) != b).float().mean())
+                               if a.dtype == torch.bool else
+                               float((a.double() - b.double()).abs().max())
                                for a, b in zip(got, want)])
         each = [statistics.median(cs.graph_ms(fn, x) for _ in range(3))
-                for x in xs]
+                if opt.get('graph', True) else float('nan') for x in xs]
         dev_ms = statistics.median(each)
         ms = cs.time_ms(fn, xs * max(1, 10 // len(xs)))
         x = xs[0]
@@ -217,9 +260,19 @@ def main() -> None:
                         by_kernel=by, device_ms_each=each)
         print(f'[{tag}] device {dev_ms:.4f} ms, ms {ms:.4f}, max err vs '
               f'plain {err:.3g}', flush=True)
+        if 'bounds' in opt:
+            bounds = [cs.bound(*c) for c in opt['bounds']]
+            b_each = [b for b, _ in bounds]
+            out[tag].update(bound_ms=statistics.median(b_each),
+                            bound_ms_sum=sum(b_each),
+                            bound_by=sorted({by for _, by in bounds}))
+            print(f'   bound {statistics.median(b_each):.6f} ms (median of '
+                  f'the inputs; sum {sum(b_each):.6f}; '
+                  f'{"/".join(out[tag]["bound_by"])})', flush=True)
         if len(xs) > 1:
             print(f'   device ms of each input: '
-                  f'{" ".join(f"{t:.4f}" for t in each)}', flush=True)
+                  f'{" ".join(f"{t:.4f}" for t in each)} (sum '
+                  f'{sum(each):.4f})', flush=True)
         print('   by kernel (the first input):', flush=True)
         for k, ms in sorted(by.items(), key=lambda kv: -kv[1]):
             print(f'   {ms:.4f} ms  {k[:70]}', flush=True)
@@ -227,9 +280,120 @@ def main() -> None:
                       'calls': out}), flush=True)
 
 
-def shipped_default_clip(cs, seed: int):
-    """The shipped default pipeline (``KenBurnsConfig()``, chip_smoke's
-    edged detector) of the package on sys.path, after one clip."""
+def epilogue_calls(cs, image, bokeh, colorize_gray_r, filled) -> list:
+    """K5a's calls: the shipped default's crop (558x993 to 576x1024,
+    I420) on the filled frames' view and on their bokeh (contiguous),
+    through frame_epilogue and, where the checkout has it, the frame
+    loop's EpiloguePlan."""
+    import torch
+    H, W, dev = cs.H, cs.W, torch.device('cuda')
+    ch, cw = int(0.97 * H), int(0.97 * W)
+    views = [f[..., :3] for f in filled]
+    blurred = [bokeh.bokeh_core(
+        f[..., :3].clamp(0, 1).contiguous(),
+        bokeh.bokeh_weight_field(colorize_gray_r(f[..., 3]), 1,
+                                 focal_plane=25.0).contiguous(), 13.0, 32)
+        for f in filled]
+    bgr = torch.empty((1, H, W, 3), dtype=torch.uint8, device=dev)
+    i420 = torch.empty((1, H * 3 // 2, W), dtype=torch.uint8, device=dev)
+
+    def run(f):
+        return image.frame_epilogue(f, ch, cw, H, W, bgr[0], i420[0])
+
+    def plain(f):
+        return image.frame_epilogue_plain(f, ch, cw, H, W)
+    # the bytes of chip_smoke's K5a bound, its operations
+    cost = [(cs.epilogue_bytes(H, W, ch, cw, H, W, True),
+             H * W * (3 * 42 + 16))]
+    calls = [(f'epilogue {len(views)} filled frames (view)', run, plain,
+              views, {'bounds': cost * len(views)}),
+             (f'epilogue {len(blurred)} blurred frames (contiguous)', run,
+              plain, blurred, {'bounds': cost * len(blurred)})]
+    if hasattr(image, 'EpiloguePlan'):
+        plan = image.EpiloguePlan(ch, cw, H, W)
+        plan.outputs(bgr, i420)
+
+        def run_plan(f):
+            plan(f, 0)
+            return bgr[0]
+        calls += [(f'epilogue plan {len(views)} filled frames (view)',
+                   run_plan, plain, views, {'bounds': cost * len(views)}),
+                  (f'epilogue plan {len(blurred)} blurred frames '
+                   f'(contiguous)', run_plan, plain, blurred,
+                   {'bounds': cost * len(blurred)})]
+    return calls
+
+
+def crf_calls(cs, crf, gen, crf_inputs) -> list:
+    """K12b's calls: the norm pass, one step and the whole
+    densecrf_binary (the k-means and 5 steps) at 576x1024 on
+    chip_smoke's image and sloppy mask and on each saved crop of the
+    CRF clip."""
+    import numpy as np
+    import torch
+    dev = torch.device('cuda')
+    img = cs.make_image(0)
+    cases = [(cs.sloppy_mask(gen, cs.H, cs.W),
+              torch.from_numpy(np.ascontiguousarray(img[..., ::-1])))]
+    if crf_inputs:
+        cases += torch.load(crf_inputs)
+    steps, norms_in, whole = [], [], []
+    inv = torch.tensor(1.0 / 255.0, device=dev)
+    for unary_fg, rgb in cases:
+        unary_fg, rgb = unary_fg.to(dev), rgb.to(dev)
+        H, W = unary_fg.shape
+        labels = crf.kmeans_labels((rgb.float() * inv).reshape(-1, 3),
+                                   10).reshape(H, W)
+        p = torch.clamp(unary_fg, 1e-5, 1 - 1e-5)
+        unary = -torch.log(torch.stack([1 - p, p], -1))
+        norms, dead = crf.crf_norms(labels)
+        steps.append((crf._softmax2(-unary), labels, unary, norms, dead))
+        norms_in.append(labels)
+        whole.append((unary_fg, rgb))
+
+    def step(x):
+        return crf.crf_step(*x)[0]
+
+    def step_plain(x):
+        return crf.crf_step_plain(*x[:4])
+
+    def norms(x):
+        return crf.crf_norms(x)[0]
+
+    def norms_plain(x):
+        return crf.crf_norms_plain(x, 1.0, 46.0, 10)[0]
+
+    def dense(x):
+        return crf.densecrf_binary(*x)
+
+    def dense_plain(x):
+        return crf.densecrf_binary(x[0].cpu(), x[1].cpu())
+
+    def cost(sl, n_steps, norm_pass):
+        # chip_smoke's K12b bound of each input's csrc/crf.cu call
+        return [cs.crf_cost(*x.shape, 10, crf.lattice(*x.shape, 46.0),
+                            n_steps, norm_pass) for x in norms_in[sl]]
+    calls = []
+    for tag, sl in (('576x1024', slice(0, 1)),
+                    (f'the CRF clip\'s {len(cases) - 1} crops',
+                     slice(1, None))):
+        if not steps[sl]:
+            continue
+        calls += [(f'crf norm pass {tag}', norms, norms_plain, norms_in[sl],
+                   {'bounds': cost(sl, 0, True)}),
+                  (f'crf step {tag}', step, step_plain, steps[sl],
+                   {'bounds': cost(sl, 1, False)}),
+                  # the bound: K12b's norm pass and 5 steps, not the
+                  # k-means
+                  (f'densecrf_binary {tag}', dense, dense_plain, whole[sl],
+                   {'graph': False, 'bounds': cost(sl, 5, True)})]
+    return calls
+
+
+def shipped_default_clip(cs, seed: int, **cfg):
+    """The shipped default pipeline (``KenBurnsConfig(**cfg)``,
+    chip_smoke's edged detector) of the package on sys.path, after one
+    clip."""
     import copy
     import tempfile
 
@@ -237,7 +401,7 @@ def shipped_default_clip(cs, seed: int):
     from cartoonsegmentation_torch.ops import _cuda
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
     _cuda.build()
-    pipe = KenBurnsPipeline(KenBurnsConfig(), seed=seed, device='cuda')
+    pipe = KenBurnsPipeline(KenBurnsConfig(**cfg), seed=seed, device='cuda')
     det_net, isnet = cs.edged_nets(seed)
     pipe.ensure_detector()
     pipe._detector.model = copy.deepcopy(det_net)
@@ -265,6 +429,55 @@ def save_inputs(cs, fill_path, coverage_path, seed: int) -> None:
                    coverage_path)
         print(f'saved K2 input ({x[0].shape[0]} points, {x[1].shape[0]} '
               f'shifts, {x[2]}x{x[3]}) to {coverage_path}', flush=True)
+
+
+def save_crf_inputs(cs, path: str, seed: int) -> None:
+    """Save the inputs of the CRF clip's densecrf_binary calls (each
+    segment's foreground probability and guide crop) to ``path``."""
+    import torch
+    crops = cs.CrfCrops(keep=True)
+    shipped_default_clip(cs, seed, refine_crf=True)
+    crops.close()
+    torch.save(crops.inputs, path)
+    print(f'saved {len(crops.inputs)} densecrf_binary inputs to {path}: '
+          f'{" ".join(f"{h}x{w}" for h, w in crops.shapes)}', flush=True)
+
+
+def clip_times(cs, root: str, seed: int, runs: int = 3) -> None:
+    """The shipped default clip and the CRF clip of the package at
+    ``root``: ``runs`` warm runs each after a cold one, wall seconds to
+    the mp4 and two stages' seconds."""
+    import tempfile
+
+    import torch
+    from cartoonsegmentation_torch.ops import _cuda
+    if not os.path.abspath(_cuda.__file__).startswith(root):
+        cs.fail(f'imported {_cuda.__file__}, not from {root}')
+    img = cs.make_image(seed)
+    out = {}
+    for tag, cfg in (('shipped default', {}),
+                     ('CRF clip', {'refine_crf': True})):
+        pipe = shipped_default_clip(cs, seed, **cfg)
+        walls, refine, render = [], [], []
+        for _ in range(runs):
+            pipe.timer.reset()
+            with tempfile.TemporaryDirectory(dir=str(_cuda.BUILD_DIR)) as d:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.run(img, os.path.join(d, 'clip.mp4'))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            refine.append(pipe.timer.seconds.get('depth_refine', 0.0))
+            render.append(pipe.timer.seconds['stream_render'])
+        out[tag] = dict(wall_s=walls, depth_refine_s=refine,
+                        stream_render_s=render)
+        print(f'[clips] {tag} warm: {" ".join(f"{w:.3f}" for w in walls)} '
+              f's (median {statistics.median(walls):.3f}); depth_refine '
+              f'{" ".join(f"{v:.3f}" for v in refine)} s; stream_render '
+              f'{" ".join(f"{v:.3f}" for v in render)} s', flush=True)
+        del pipe
+    print(f'card: {cs.card_line()}; root {root}', flush=True)
+    print(json.dumps({'root': root, 'clips': out}), flush=True)
 
 
 def loop_times(cs, root: str, seed: int, runs: int = 7) -> None:

@@ -510,25 +510,110 @@ def test_mask_heads_kernel_vs_plain(rng, cuda):
     assert float((mk == mp).float().mean()) >= 0.9999
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('crop,out', [((60, 100), (60, 100)),
-                                      ((59, 99), (64, 128)),
-                                      ((58, 101), (64, 128))])
-def test_epilogue_kernel_vs_plain(rng, cuda, crop, out):
-    """A crop at a half-pixel corner kept at its size, and two resized
-    to the frame (integral and mixed corners); the frame is a view of
-    the filled (H, W, 4) buffer with values outside [0, 1]."""
-    buf = torch.from_numpy(rng.rand(64, 128, 4).astype(np.float32) * 1.2
-                           - 0.1).to(cuda)
-    frame = buf[..., :3]
-    i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=torch.uint8,
-                       device=cuda)
-    got = timage.frame_epilogue(frame, *crop, *out, i420=i420)
-    want = timage.frame_epilogue_plain(frame, *crop, *out)
-    d = (got.int() - want.int()).abs()
+def _epilogue_frame(rng, H, W, layout, dev):
+    """A frame of values around [0, 1]: 'rgbd' a view of an (H, W, 4)
+    buffer, 'rgbd+1' the view one float further (rows off their 16-byte
+    boundary), 'rgb' a contiguous (H, W, 3) frame."""
+    buf = torch.from_numpy(rng.rand(H, W, 4).astype(np.float32) * 1.2
+                           - 0.1).to(dev)
+    if layout == 'rgb':
+        return buf[..., :3].contiguous()
+    return buf[..., 1:] if layout == 'rgbd+1' else buf[..., :3]
+
+
+def _epilogue_close(got, want):
     # the bilinear sum may sit an ulp from torch's FMA-contracted kernel
+    d = (got.int() - want.int()).abs()
     assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.9999
-    assert torch.equal(i420, timage.bgr_to_i420(got[None])[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hw,crop,out,layout', [
+    ((64, 128), (60, 100), (60, 100), 'rgbd'),
+    ((64, 128), (59, 99), (64, 128), 'rgbd'),
+    ((64, 128), (58, 101), (64, 128), 'rgbd'),
+    ((576, 1024), (558, 993), (576, 1024), 'rgbd'),
+    ((576, 1024), (558, 993), (576, 1024), 'rgb'),
+    ((576, 1024), (556, 992), (556, 992), 'rgbd'),
+    ((576, 1024), (556, 992), (556, 992), 'rgb'),
+    ((576, 1024), (558, 993), (576, 1024), 'rgbd+1'),
+    ((683, 1024), (662, 993), (683, 1024), 'rgbd'),
+    ((64, 128), (59, 99), (61, 127), 'rgb'),
+    ((64, 128), (58, 101), (13, 21), 'rgbd'),
+    ((100, 150), (97, 141), (100, 150), 'rgbd'),
+    ((600, 600), (599, 599), (20, 20), 'rgb')])
+def test_epilogue_kernel_vs_plain(rng, cuda, hw, crop, out, layout):
+    """A crop at a half-pixel corner kept at its size and crops resized
+    to the frame (integral and mixed corners), with values outside [0,
+    1]: the path's sizes in both layouts (the shipped default's crop, a
+    crop kept at its size, the 683x1024 clip's BGR only), odd and
+    downscaled outputs, tiles cut by every edge, rows off their 16-byte
+    boundary, and a tile halved to fit shared memory; I420 where the
+    output takes it."""
+    frame = _epilogue_frame(rng, *hw, layout, cuda)
+    i420 = None
+    if out[0] % 4 == 0 and out[1] % 2 == 0:
+        i420 = torch.empty((out[0] * 3 // 2, out[1]), dtype=torch.uint8,
+                           device=cuda)
+    got = timage.frame_epilogue(frame, *crop, *out, i420=i420)
+    _epilogue_close(got, timage.frame_epilogue_plain(frame, *crop, *out))
+    if i420 is not None:
+        assert torch.equal(i420, timage.bgr_to_i420(got[None])[0])
+
+
+@pytest.mark.gpu
+def test_epilogue_kernel_small_tiles(rng, cuda, monkeypatch):
+    """A smaller shared-memory limit halves the tile: the same bytes as
+    the full tile's."""
+    frame = _epilogue_frame(rng, 576, 1024, 'rgbd', cuda)
+    full = timage.frame_epilogue(frame, 558, 993, 576, 1024)
+    monkeypatch.setattr(_cuda, 'SMEM_BYTES', 8000)
+    assert timage.epilogue_plan(558, 993, 576, 1024, 8000)[:2] < \
+        timage.EPILOGUE_TILE
+    assert torch.equal(timage.frame_epilogue(frame, 558, 993, 576, 1024),
+                       full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hw,crop,with_i420', [((576, 1024), (558, 993), True),
+                                               ((61, 127), (57, 120), False)])
+def test_epilogue_plan_slots_and_graph(rng, cuda, hw, crop, with_i420):
+    """EpiloguePlan writes each frame into its slot as frame_epilogue
+    does (odd sizes put the slots off their 16-byte boundary), and its
+    calls capture in a CUDA graph that replays on new frame values."""
+    H, W = hw
+    T = 3
+    bgr = torch.zeros((T, H, W, 3), dtype=torch.uint8, device=cuda)
+    i420 = torch.zeros((T, H * 3 // 2, W), dtype=torch.uint8,
+                       device=cuda) if with_i420 else None
+    plan = timage.EpiloguePlan(*crop, H, W)
+    plan.outputs(bgr, i420)
+    frames = [_epilogue_frame(rng, H, W, lay, cuda)
+              for lay in ('rgbd', 'rgb', 'rgbd')]
+    _cuda.reset_launches()
+    for t, f in enumerate(frames):
+        plan(f, t)
+    assert _cuda.LAUNCHES['epilogue'] == T
+    for t, f in enumerate(frames):
+        one = torch.empty((H * 3 // 2, W), dtype=torch.uint8, device=cuda)
+        want = timage.frame_epilogue(f, *crop, H, W,
+                                     i420=one if with_i420 else None)
+        assert torch.equal(bgr[t], want)
+        if with_i420:
+            assert torch.equal(i420[t], one)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plan(frames[0], 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        plan(frames[0], 1)
+    frames[0].copy_(_epilogue_frame(rng, H, W, 'rgb', cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _epilogue_close(bgr[1], timage.frame_epilogue_plain(frames[0], *crop,
+                                                        H, W))
 
 
 @pytest.mark.gpu
@@ -695,28 +780,120 @@ def test_kmeans_kernel_vs_plain(rng, cuda, H, W):
     assert float((got == want).float().mean()) >= 0.999
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('H,W', [(37, 53), (200, 300)])
-def test_crf_kernel_vs_plain(rng, cuda, H, W):
-    """The norm pass exact, one step within 1e-6, the whole CRF's mask
-    >= 99.9% equal to the plain versions' on the same labels."""
+def _crf_inputs(rng, H, W, K, dev):
     unary_fg, rgb = _crf_case(rng, H, W)
-    guide = (rgb.float() / 255.0).to(cuda)
-    labels = tcrf._kmeans_labels(guide.reshape(-1, 3), 10).reshape(H, W)
-    norms, dead = tcrf.crf_norms(labels)
-    norms_p, dead_p = tcrf.crf_norms_plain(labels, 1.0, 46.0, 10)
-    assert torch.equal(norms, norms_p) and int(dead) == int(dead_p) == 0
-    p = torch.clamp(unary_fg.to(cuda), 1e-5, 1 - 1e-5)
+    guide = (rgb.float() / 255.0).to(dev)
+    labels = tcrf._kmeans_labels(guide.reshape(-1, 3), K).reshape(H, W)
+    p = torch.clamp(unary_fg.to(dev), 1e-5, 1 - 1e-5)
     unary = -torch.log(torch.stack([1 - p, p], -1))
-    q = tcrf._softmax2(-unary)
-    got, _ = tcrf.crf_step(q, labels, unary, norms, dead)
-    want = tcrf.crf_step_plain(q, labels, unary, norms_p)
-    assert float((got - want).abs().max()) <= 1e-6
+    return labels.contiguous(), unary, tcrf._softmax2(-unary)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W,K', [(37, 53, 10), (200, 300, 10),
+                                   (576, 1024, 10), (163, 247, 10),
+                                   (301, 95, 10), (10, 17, 10), (1, 1, 10),
+                                   (37, 53, 1), (120, 90, 16)])
+def test_crf_kernel_vs_plain(rng, cuda, H, W, K):
+    """The norm pass and its flag exact, one step within 1e-6, the whole
+    CRF's mask >= 99.9% equal to the plain versions' on the same labels;
+    at 576x1024, crop-like sizes, a crop smaller than one 23-px cell,
+    K = 1 and K = 16. A zero norm (a pixel alone in its cluster's
+    reach, as at 1x1) sets the flag: the step's NaN where the plain
+    version's is, the mask empty; past it the plain version's pool
+    spreads the NaN to every cluster (NaN * 0) and the kernel's does
+    not, so a dead case compares the one step."""
+    labels, unary, q = _crf_inputs(rng, H, W, K, cuda)
+    norms, dead = tcrf.crf_norms(labels, num_clusters=K)
+    norms_p, dead_p = tcrf.crf_norms_plain(labels, 1.0, 46.0, K)
+    assert torch.equal(norms, norms_p) and int(dead) == int(dead_p)
+    if H * W == 1:
+        assert int(dead) == 1
+    got, mask = tcrf.crf_step(q, labels, unary, norms, dead, num_clusters=K)
+    want = tcrf.crf_step_plain(q, labels, unary, norms_p, num_clusters=K)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6, equal_nan=True)
+    if int(dead):
+        assert not mask.any()
+        return
     for _ in range(4):
-        got, mask = tcrf.crf_step(got, labels, unary, norms, dead)
-        want = tcrf.crf_step_plain(want, labels, unary, norms_p)
+        got, mask = tcrf.crf_step(got, labels, unary, norms, dead,
+                                  num_clusters=K)
+        want = tcrf.crf_step_plain(want, labels, unary, norms_p,
+                                   num_clusters=K)
     assert float((mask == (want[..., 1] > want[..., 0])).float().mean()) \
         >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W,iterations', [(200, 300, 5), (37, 53, 1),
+                                            (37, 53, 2), (1, 1, 5)])
+def test_crf_one_call_is_the_steps(rng, cuda, H, W, iterations):
+    """densecrf_binary's one call (the norm pass and every step) gives
+    the mask of the norm pass and steps called one at a time."""
+    unary_fg, rgb = _crf_case(rng, H, W)
+    unary_fg, rgb = unary_fg.to(cuda), rgb.to(cuda)
+    _cuda.reset_launches()
+    got = tcrf.densecrf_binary(unary_fg, rgb, iterations=iterations)
+    assert _cuda.LAUNCHES['crf'] == 1
+    guide = rgb.float() * torch.tensor(1.0 / 255.0, device=cuda)
+    labels = tcrf.kmeans_labels(guide.reshape(-1, 3), 10).reshape(H, W)
+    p = torch.clamp(unary_fg, 1e-5, 1 - 1e-5)
+    unary = -torch.log(torch.stack([1 - p, p], -1))
+    q = tcrf._softmax2(-unary)
+    norms, dead = tcrf.crf_norms(labels)
+    if iterations == 1:
+        dead = torch.zeros_like(dead)
+    for _ in range(iterations):
+        q, mask = tcrf.crf_step(q, labels, unary, norms, dead)
+    assert torch.equal(got, mask)
+
+
+@pytest.mark.gpu
+def test_crf_step_in_a_cuda_graph(rng, cuda):
+    """The norm pass and a step capture in a CUDA graph (no copy to the
+    card after the first call of a size) and replay on new q."""
+    labels, unary, q = _crf_inputs(rng, 163, 247, 10, cuda)
+    norms, dead = tcrf.crf_norms(labels)
+    tcrf.crf_step(q, labels, unary, norms, dead)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tcrf.crf_step(q, labels, unary, norms, dead)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        n2, d2 = tcrf.crf_norms(labels)
+        got, _ = tcrf.crf_step(q, labels, unary, norms, dead)
+    q.copy_(tcrf._softmax2(-unary * 1.3))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(n2, norms) and int(d2) == int(dead)
+    want = tcrf.crf_step_plain(q, labels, unary, norms)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_crf_step_unaligned_views(rng, cuda):
+    """q, the unary and the norms as contiguous views one float past an
+    8-byte boundary (the kernel reads a pixel's pair as one float2): the
+    step copies them and gives the aligned inputs' result."""
+    labels, unary, q = _crf_inputs(rng, 37, 53, 10, cuda)
+    norms, dead = tcrf.crf_norms(labels)
+    want, mask = tcrf.crf_step(q, labels, unary, norms, dead)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        v = buf[1:].view(t.shape)
+        assert v.is_contiguous() and v.data_ptr() % 8 == 4
+        return v.copy_(t)
+    _cuda.reset_launches()
+    got, got_mask = tcrf.crf_step(odd(q), labels, odd(unary), odd(norms),
+                                  dead)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES['crf'] == 1
+    assert torch.equal(got, want) and torch.equal(got_mask, mask)
+    with pytest.raises(ValueError, match='aligned'):
+        tcrf._crf_check(labels, 10, 46.0, q=odd(q))
 
 
 @pytest.mark.gpu
