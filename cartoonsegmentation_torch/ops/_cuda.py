@@ -66,7 +66,7 @@ SIGNATURES = {
     'discfill_exact': ('kb_discfill_exact', 'pppiiiipp'),
     'roialign': ('kb_roi_align', 'pppiiiiiiiiiiiipp'),
     'nms_large': ('kb_nms_large', 'ppifippppppp'),
-    'kmeans': ('kb_kmeans', 'piiipppp'),
+    'kmeans': ('kb_kmeans', 'piiiiippp'),
     'crf': ('kb_crf', 'pppppiiiiiiipffiiipppp'),
     'swinattn': ('kb_swin_attention', 'ppppiiiiipp'),
     'pushpull': ('kb_pushpull', 'ppiiippp'),

@@ -39,9 +39,15 @@ from . import _cuda
 from .pointcloud import true_div
 
 GAUSS_RADIUS = 2
-# csrc/kmeans.cu: points a block, clusters at most (csrc/crf.cu too)
-KMEANS_BLOCK_POINTS = 1024
+# csrc/kmeans.cu: clusters at most (csrc/crf.cu too); threads a block;
+# the most points one thread-block cluster takes, and its most blocks
+# (the H100's non-portable cluster size); the points a block keeps in
+# shared memory
 KMEANS_MAX_K = 16
+KMEANS_THREADS = 512
+KMEANS_CLUSTER_POINTS = 65536
+KMEANS_CLUSTER_BLOCKS = 16
+KMEANS_TILE = 8192
 # csrc/crf.cu: largest lattice blur radius and cell side
 CRF_MAX_RADIUS = 15
 CRF_MAX_CELL = 1024
@@ -175,10 +181,29 @@ def _kmeans_labels(colors: torch.Tensor, k: int, iters: int = 8
     return _sq_dist(colors, centers).argmin(1).to(torch.int32)
 
 
+def kmeans_plan(N: int, sms: int) -> Tuple[int, bool, int]:
+    """(blocks, cooperative, scratch floats) of csrc/kmeans.cu for N
+    points on a card of ``sms`` streaming multiprocessors (read only
+    past KMEANS_CLUSTER_POINTS). Up to KMEANS_CLUSTER_POINTS points: one
+    thread-block cluster of a block per KMEANS_THREADS points, at most
+    KMEANS_CLUSTER_BLOCKS (the kernel caps it at the largest cluster
+    the card can schedule), its partial sums in shared memory. More: one
+    cooperative launch of a block an SM (the kernel caps it at the
+    blocks the card holds at once), its partials in two rows of 16 × 4
+    floats a block of scratch. Block b owns the points [b·per,
+    (b+1)·per), per = ceil(N / blocks)."""
+    if N <= KMEANS_CLUSTER_POINTS:
+        return (max(1, min(KMEANS_CLUSTER_BLOCKS, -(-N // KMEANS_THREADS))),
+                False, 0)
+    return sms, True, 2 * sms * KMEANS_MAX_K * 4
+
+
 def kmeans_labels(colors: torch.Tensor, k: int, iters: int = 8
                   ) -> torch.Tensor:
     """K12a wrapper: the plain version on the CPU, csrc/kmeans.cu on
-    CUDA. colors (N, 3) f32 → (N,) int32 labels."""
+    CUDA (one launch, ``kmeans_plan``). colors (N, 3) f32 → (N,) int32
+    labels (on CUDA a view of one buffer that also holds the launch's
+    scratch)."""
     if colors.device.type == 'cpu':
         return _kmeans_labels(colors, k, iters)
     dev = colors.device
@@ -191,15 +216,15 @@ def kmeans_labels(colors: torch.Tensor, k: int, iters: int = 8
     if not 1 <= k <= KMEANS_MAX_K:
         raise ValueError(f'kmeans takes 1 to {KMEANS_MAX_K} clusters, got '
                          f'{k}')
-    n_blocks = -(-N // KMEANS_BLOCK_POINTS)
-    centers = torch.empty((k, 3), dtype=torch.float32, device=dev)
-    partials = torch.empty((n_blocks, k, 4), dtype=torch.float32, device=dev)
-    labels = torch.empty((N,), dtype=torch.int32, device=dev)
-    _cuda.launch('kmeans',
-                 colors.data_ptr(), N, k, iters, centers.data_ptr(),
-                 partials.data_ptr(), labels.data_ptr(),
+    blocks, coop, scratch = kmeans_plan(
+        N, _cuda.sm_count(colors) if N > KMEANS_CLUSTER_POINTS else 0)
+    # the labels, then the scratch from a 16-byte boundary
+    n = -(-N // 4) * 4
+    buf = torch.empty((n + scratch,), dtype=torch.int32, device=dev)
+    _cuda.launch('kmeans', colors.data_ptr(), N, k, iters, blocks, int(coop),
+                 buf.data_ptr() + 4 * n, buf.data_ptr(),
                  _cuda.stream_ptr(colors))
-    return labels
+    return buf[:N]
 
 
 def clustered_bilateral(q: torch.Tensor, guide: torch.Tensor, sxy: float,
@@ -411,6 +436,14 @@ def crf_step(q: torch.Tensor, labels: torch.Tensor, unary: torch.Tensor,
     return q_out, mask
 
 
+@functools.lru_cache(maxsize=None)
+def _inv255(device: torch.device) -> torch.Tensor:
+    """f32(1/255) as a 0-d tensor on ``device``, made once a device, so
+    that densecrf_binary copies nothing to the card on a call (and
+    captures in a CUDA graph)."""
+    return torch.tensor(1.0 / 255.0, dtype=torch.float32, device=device)
+
+
 def densecrf_binary(unary_fg: torch.Tensor, rgb: torch.Tensor,
                     iterations: int = 5, gaussian_sxy: float = 1.0,
                     gaussian_compat: float = 3.0, bilateral_sxy: float = 46.0,
@@ -430,8 +463,7 @@ def densecrf_binary(unary_fg: torch.Tensor, rgb: torch.Tensor,
     # XLA turns the JAX version's "/ 255.0" into a multiply by the f32
     # reciprocal under jit; so does the port
     guide = rgb if rgb.dtype == torch.float32 else \
-        rgb.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32,
-                                             device=rgb.device)
+        rgb.to(torch.float32) * _inv255(rgb.device)
     labels = kmeans_labels(guide.reshape(-1, guide.shape[-1]).contiguous(),
                            num_clusters).reshape(H, W)
     q = _softmax2(-unary)

@@ -13,8 +13,12 @@ the host in float64 as the JAX package does).
 
 - ``fill_disocclusion_plain``: the march step by step in torch over the
   hole pixels, all 16 directions at once.
-- ``csrc/discfill_exact.cu``: one thread per pixel, the table in
-  constant memory. The wrapper ``fill_disocclusion`` picks by device.
+- ``csrc/discfill_exact.cu``: a warp a hole pixel, its 32 lanes
+  walking the 16 directions' 32 half-lines at once from a table in
+  shared memory (``kernel_table``), each stopped as soon as its
+  direction cannot win; the non-hole pixels a coalesced copy. The
+  wrapper ``fill_disocclusion`` picks by device; both give the same
+  bits.
 """
 from __future__ import annotations
 
@@ -34,8 +38,11 @@ _DIR_Y = np.array([1, 1, 1, 0, 2, 2, 1, -1, 3, 3, 3, 3, 2, 1, -1, -2],
 
 _CHUNK = 16
 BIG = 1000000.0
-# the kernel keeps the table in 32 KB of constant memory
+# csrc/discfill_exact.cu: the most steps it takes (its table's packed
+# offsets fit 16 bits, and the table 17 KB of shared memory), and the
+# words a step in its table (16 directions and a pad)
 MAX_KERNEL_STEPS = 256
+TABLE_ROW = 17
 
 
 def _c_round(v: np.ndarray) -> np.ndarray:
@@ -61,6 +68,19 @@ def offset_table(max_steps: int) -> np.ndarray:
     offx = _c_round(s[None, :] * dx[:, None]).astype(np.int32)
     offy = _c_round(s[None, :] * dy[:, None]).astype(np.int32)
     return np.stack([offy, offx], axis=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_table(K: int) -> np.ndarray:
+    """csrc/discfill_exact.cu's step table: (K, TABLE_ROW) int32, row s
+    the 16 directions' offsets of step s + 1 of the '+dir' way
+    (``offset_table``), each packed as dy·65536 + dx, the last word of
+    a row 0 (a pad: the 32 steps of a long walk then fall in 32
+    banks)."""
+    offs = offset_table(K).astype(np.int64)
+    tab = np.zeros((K, TABLE_ROW), np.int64)
+    tab[:, :16] = (offs[..., 0] * 65536 + offs[..., 1]).T
+    return tab.astype(np.int32)
 
 
 def _first_hit(depth: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
@@ -140,9 +160,12 @@ def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor,
     if K > MAX_KERNEL_STEPS:
         raise ValueError(f'max_steps {max_steps} rounds to {K}: the kernel '
                          f'takes at most {MAX_KERNEL_STEPS} steps')
+    if H * W >= 2 ** 31:
+        raise ValueError(f'the CUDA fill takes fewer than 2^31 pixels, got '
+                         f'{H}x{W}')
     key = (K, dev)
     if key not in _tables:
-        _tables[key] = torch.from_numpy(offset_table(K)).to(dev)
+        _tables[key] = torch.from_numpy(kernel_table(K)).to(dev)
     out = torch.empty_like(img)
     _cuda.launch('discfill_exact',
                  img.data_ptr(), depth.data_ptr(), _tables[key].data_ptr(), K,

@@ -21,8 +21,9 @@
    debug mode, where a host sync fails the run; K15a at SAM ViT-B's
    windowed
    and global blocks, beside SDPA with the bias prebuilt, bound by the
-   tensor cores' 3xTF32 rate (``bound_tc``); K11 on the
-   rendered frames at 128 steps; K14a at (1000, 7x7) and (100, 14x14)
+   tensor cores' 3xTF32 rate (``bound_tc``); K11 at 128 steps on the
+   rendered frames, a frame of holes only and a render with a band of
+   holes along the border; K14a at (1000, 7x7) and (100, 14x14)
    over the 768x1344 canvas's pyramid; K14b at K = 4,756 and 2,048 with
    -inf scores and category offsets; K12a on the image's 576x1024 guide
    and a crop, K12b's norm pass, one step and a whole densecrf_binary at
@@ -31,8 +32,8 @@
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
    card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
-   the laplacian and its cuDNN convolution, K12b's step and norm pass,
-   K15a, K15b and SDPA also by
+   the laplacian and its cuDNN convolution, K11, K12a, K12b's step and
+   norm pass, K15a, K15b and SDPA also by
    their device time alone (``graph_ms``: ten calls captured in a CUDA
    graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
@@ -77,7 +78,8 @@
    the seeded Mask R-CNN set so that detections survive
    (``edged_maskrcnn``): K11, K14a and K14b launched and K3 did not,
    the instances, the disparity, the frames and 3 of them against the
-   CPU;
+   CPU; holds K11 bit for bit against its plain version on 8 of the
+   clip's own frames and times it there;
 11. runs Mask R-CNN in f32 on the card and on the CPU
    (``compare_maskrcnn``: the CPU machinery on the card's outputs exact,
    the whole detector's detections the same set within the stated
@@ -87,7 +89,10 @@
 12. runs the shipped default with the CRF depth refine,
    ``KenBurnsConfig(refine_crf=True)``, with the edged detector: K12a
    and K12b launched (one k-means and one K12b call a segment; the
-   crops' sizes printed), the instances, the frames and 3 of them
+   crops' sizes printed), K12a on each crop's guide against its plain
+   version (>= 99.9% of labels) and its device time summed over the
+   crops (their inputs kept on a replay of the clip's refine after the
+   timed run), the instances, the frames and 3 of them
    against the CPU, then refine_depth_crf on the clip's
    own image, disparity and instances on the card and on the CPU;
 13. runs refine_depth_crf on a layered disparity over the image's shapes
@@ -451,6 +456,60 @@ def check_fill_real(inputs: list) -> dict:
     return out
 
 
+def exact_fill_bytes(h: int, w: int, c: int) -> int:
+    """K11's bytes: the image read and written once, the depth read
+    once (the walks' re-reads of the depth are not counted)."""
+    return h * w * (4 * c + 4 + 4 * c)
+
+
+def band_fill(x: tuple, width: int = 24) -> tuple:
+    """A fill input (render, depth) with a band of holes ``width`` px
+    wide along the whole border: K3's slow case, where the holes of the
+    band walk long lines along it."""
+    img, depth = x[0].clone(), x[1].clone()
+    for t in (depth[:width], depth[-width:], depth[:, :width],
+              depth[:, -width:]):
+        t.zero_()
+    img[depth <= 0] = 0.0
+    return img, depth
+
+
+def holes_only(x: tuple) -> tuple:
+    """A fill input of the render's size with every pixel a hole: every
+    half-line walks to the frame's edge or its last step."""
+    return x[0].clone(), torch.zeros_like(x[1])
+
+
+def check_exact_fill(inputs: list, tag: str, steps: int = 128) -> dict:
+    """K11 on ``inputs`` ((render, depth) pairs): bit-exact against its
+    plain version on each, its ms over them and its device time (the
+    median over the inputs of ``graph_ms``; each input's and their sum
+    kept), their hole share, and the bound of one call."""
+    from cartoonsegmentation_torch.ops import discfill
+    for i, x in enumerate(inputs):
+        fk = discfill.fill_disocclusion(*x, steps)
+        fp = discfill.fill_disocclusion_plain(*x, steps)
+        if not torch.equal(fk, fp):
+            fail(f'exact fill, {tag} {i}: differs at '
+                 f'{int((fk != fp).any(-1).sum())} pixels')
+    ms = time_ms(lambda x: discfill.fill_disocclusion(*x, steps),
+                 (inputs * RUNS)[:max(RUNS, len(inputs))])
+    each = [graph_ms(lambda x: discfill.fill_disocclusion(*x, steps), x)
+            for x in inputs]
+    h, w, c = inputs[0][0].shape
+    b, by = bound(exact_fill_bytes(h, w, c), 0)
+    holes = statistics.mean(float((x[1] <= 0).float().mean())
+                            for x in inputs)
+    dev_ms = statistics.median(each)
+    print(f'[kernel] discfill_exact on {tag} ({len(inputs)} inputs, '
+          f'{holes:.3%} holes, {steps} steps): kernel {ms:.4f} ms (device '
+          f'{dev_ms:.4f} ms, each {" ".join(f"{t:.4f}" for t in each)}), '
+          f'bound {b:.4f} ms ({by}), bit-exact', flush=True)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                device_ms_sum=sum(each), bound_ms=b, bound_by=by,
+                hole_share=holes, inputs=len(inputs))
+
+
 def real_coverage_inputs(pipe) -> tuple:
     """K2's arguments in the pipeline's last clip: the autozoom's
     stride-2 miniature of ``state.raw_points`` and its 256 candidate
@@ -612,21 +671,22 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
           f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), bit-exact',
           flush=True)
 
-    # --- K11 exact fill: the same renders, the ray march of 128 steps --
+    # --- K11 exact fill: the same renders, the ray march of 128 steps;
+    # a frame of holes only and a render with a band of holes along the
+    # border --------------------------------------------------------------
     from cartoonsegmentation_torch.ops import discfill
-    fk = discfill.fill_disocclusion(*fills[0], 128)
-    fp = discfill.fill_disocclusion_plain(*fills[0], 128)
-    if not torch.equal(fk, fp):
-        fail(f'exact fill differs at {int((fk != fp).any(-1).sum())} pixels')
-    ms = time_ms(lambda x: discfill.fill_disocclusion(*x, 128), fills)
     plain_ms = time_ms(lambda x: discfill.fill_disocclusion_plain(*x, 128),
                        fills[:3])
-    b, by = bound(nbytes, 0)
-    res['discfill_exact'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b, bound_by=by)
-    print(f'[kernel] discfill_exact {H}x{W} ({holes:.3%} holes, 128 steps): '
-          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms '
-          f'({by}), bit-exact', flush=True)
+    res['discfill_exact'] = dict(check_exact_fill(fills, 'the renders'),
+                                 plain_ms=plain_ms)
+    # after the first call of a step count, which copies its table
+    no_host_sync(lambda: discfill.fill_disocclusion(*fills[1], 128),
+                 'discfill_exact')
+    for tag, x in (('holes_only', holes_only(fills[0])),
+                   ('band', band_fill(fills[0]))):
+        r = check_exact_fill([x], tag.replace('_', ' '))
+        res['discfill_exact'].update({f'{k}_{tag}': r[k] for k in (
+            'ms', 'device_ms', 'bound_ms')})
 
     # --- K4 bokeh: filled frames, weights from their depth ------------
     bok = []
@@ -1819,6 +1879,54 @@ def crf_cost(H: int, W: int, k: int, lattice: tuple, steps: int,
     return nbytes, flops
 
 
+def kmeans_cost(N: int, k: int, iters: int = 8) -> tuple:
+    """(bytes, f32 operations) of one k-means: the colours read once
+    and the labels written once (16 B a point); per point and cluster
+    in each of the iters + 1 assignments 3 subtracts, a multiply, 2
+    fused multiply-adds (2 each) and a compare, and per point in each
+    of the iters recentrings 4 adds."""
+    return N * 16, N * k * 9 * (iters + 1) + N * 4 * iters
+
+
+def crf_guide(rgb: torch.Tensor) -> torch.Tensor:
+    """densecrf_binary's k-means input: the (H, W, 3) guide (uint8
+    times f32(1/255), or f32 as it is), as (H·W, 3)."""
+    g = rgb if rgb.dtype == torch.float32 else \
+        rgb.float() * torch.tensor(1.0 / 255.0, device=rgb.device)
+    return g.reshape(-1, 3).contiguous()
+
+
+def check_kmeans_crops(inputs: list, k: int = 10) -> dict:
+    """K12a on the guides of the CRF clip's densecrf_binary calls
+    (``CrfCrops(keep=True).inputs`` on a replay of its refine): each
+    crop's labels against the plain version (>= KMEANS_SHARE), each crop's device time
+    (``graph_ms``), their sum and median, and the bounds' sum."""
+    from cartoonsegmentation_torch.ops import crf
+    guides = [crf_guide(rgb.cuda()) for _, rgb in inputs]
+    shares, each, bounds = [], [], []
+    for g in guides:
+        got = crf.kmeans_labels(g, k)
+        shares.append(float((got == crf._kmeans_labels(g, k)).float()
+                            .mean()))
+        each.append(graph_ms(lambda x: crf.kmeans_labels(x, k), g))
+        bounds.append(bound(*kmeans_cost(g.shape[0], k))[0])
+    ms = time_ms(lambda x: crf.kmeans_labels(x, k), guides)
+    out = dict(crops=len(guides), points=sum(g.shape[0] for g in guides),
+               label_share_min=min(shares), ms=ms,
+               device_ms=statistics.median(each), device_ms_sum=sum(each),
+               bound_ms=statistics.median(bounds), bound_ms_sum=sum(bounds))
+    print(f'[kernel] kmeans on the CRF clip\'s {out["crops"]} crops '
+          f'({out["points"]} points): kernel {ms:.4f} ms (median), device '
+          f'{out["device_ms"]:.4f} ms median, {out["device_ms_sum"]:.4f} '
+          f'summed; bound {out["bound_ms"]:.6f} median, '
+          f'{out["bound_ms_sum"]:.6f} summed; labels equal >= '
+          f'{out["label_share_min"]:.6f}', flush=True)
+    if out['label_share_min'] < KMEANS_SHARE:
+        fail(f'kmeans crops: only {out["label_share_min"]:.6f} of a crop\'s '
+             f'labels equal to the plain version ({KMEANS_SHARE} required)')
+    return out
+
+
 def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
     """K12a and K12b against their plain versions at the refine's
     shapes: the k-means on the full 576x1024 guide of the image (RGB,
@@ -1831,10 +1939,9 @@ def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
     from cartoonsegmentation_torch.ops import crf
     res = {}
     rgb = torch.from_numpy(np.ascontiguousarray(img[..., ::-1])).to(dev)
-    inv = torch.tensor(1.0 / 255.0, device=dev)
     k, iters = 10, 8
     for tag, part in (('full', rgb), ('crop', rgb[120:420, 260:700])):
-        g = (part.float() * inv).reshape(-1, 3).contiguous()
+        g = crf_guide(part)
         N = g.shape[0]
         got = crf.kmeans_labels(g, k, iters)
         want = crf._kmeans_labels(g, k, iters)
@@ -1843,26 +1950,24 @@ def check_crf_kernels(dev, gen, img: np.ndarray) -> dict:
         ms = time_ms(lambda x: crf.kmeans_labels(x, k, iters), cases)
         plain_ms = time_ms(lambda x: crf._kmeans_labels(x, k, iters),
                            cases[:3])
-        # per point and cluster in each of the 9 passes: 3 subtracts, a
-        # multiply, 2 fused multiply-adds (2 each) and a compare; per
-        # point in each of the 8 recentrings: 4 adds
-        flops = N * k * 9 * (iters + 1) + N * 4 * iters
-        b, by = bound(N * 12 + N * 4, flops)
-        print(f'[kernel] kmeans {tag} N={N} k={k}: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); labels equal '
-              f'{share:.6f} ({len(torch.unique(got))} clusters used)',
-              flush=True)
+        dev_ms = graph_ms(lambda x: crf.kmeans_labels(x, k, iters), g)
+        b, by = bound(*kmeans_cost(N, k, iters))
+        print(f'[kernel] kmeans {tag} N={N} k={k}: kernel {ms:.4f} ms '
+              f'(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+              f'{b:.4f} ms ({by}); labels equal {share:.6f} '
+              f'({len(torch.unique(got))} clusters used)', flush=True)
         if share < KMEANS_SHARE:
             fail(f'kmeans {tag}: only {share:.6f} of labels equal to the '
                  f'plain version ({KMEANS_SHARE} required)')
+        no_host_sync(lambda: crf.kmeans_labels(g, k, iters), f'kmeans {tag}')
         res[f'kmeans_{tag}'] = dict(label_share=share, ms=ms,
                                     plain_ms=plain_ms, bound_ms=b,
-                                    bound_by=by, max_abs_err=1.0 - share)
+                                    bound_by=by, max_abs_err=1.0 - share,
+                                    device_ms=dev_ms)
 
     # K12b on the whole 576x1024 image
     unary_fg = sloppy_mask(gen, H, W).to(dev)
-    guide = rgb.float() * inv
-    labels = crf.kmeans_labels(guide.reshape(-1, 3), k).reshape(H, W)
+    labels = crf.kmeans_labels(crf_guide(rgb), k).reshape(H, W)
     norms, dead = crf.crf_norms(labels)
     norms_p, dead_p = crf.crf_norms_plain(labels, 1.0, 46.0, k)
     norm_err = float((norms - norms_p).abs().max())
@@ -2605,6 +2710,9 @@ def main() -> None:
         fail(f'maskrcnn: K3 launched {launches_mr["discfill"]} times under '
              f'discfill_mode exact')
     check_instances(mp, 'maskrcnn')
+    res['discfill_exact_real'] = check_exact_fill(
+        real_fill_inputs(mp), 'the Mask R-CNN clip\'s frames',
+        mp.cfg.discfill_max_steps)
     compare_frames(mp, 'maskrcnn')
     del mp
 
@@ -2634,9 +2742,20 @@ def main() -> None:
     check_instances(cp, 'crf')
     compare_frames(cp, 'crf')
     ins_mask = seen['instances'].compose_masks().cpu().numpy()
-    compare_refine('crf', seen['img'],
-                   seen['disparity'][..., 0].cpu().numpy(),
-                   ins_mask if ins_mask.any() else None)
+    ins_mask = ins_mask if ins_mask.any() else None
+    crf_disp = seen['disparity'][..., 0].cpu().numpy()
+    # the crops' inputs, kept on a replay of the clip's refine after its
+    # timed run (keeping them copies each to the host)
+    from cartoonsegmentation_torch.pipeline.crf_refine import \
+        refine_depth_crf
+    kept = CrfCrops(keep=True)
+    refine_depth_crf(seen['img'], crf_disp, ins_mask, device='cuda')
+    kept.close()
+    if kept.shapes != crops.shapes:
+        fail(f'crf: the refine\'s replay made crops {kept.shapes}, the clip '
+             f'{crops.shapes}')
+    res['kmeans_crops'] = check_kmeans_crops(kept.inputs)
+    compare_refine('crf', seen['img'], crf_disp, ins_mask)
 
     # 13. refine_depth_crf on layers over the image's shapes --------------
     segments = compare_refine('crf layers', img, layered_disparity(args.seed),
@@ -2691,7 +2810,10 @@ def main() -> None:
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
              'bound_unit', 'bound_ms_simt', 'library_ms', 'device_ms',
              'library_device_ms')}),
-        ('discfill_exact', res['discfill_exact'], 'ops/discfill.py:225', {}),
+        # the synthetic renders (a frame of holes only and a band beside
+        # them); the Mask R-CNN clip's frames beside
+        ('discfill_exact', res['discfill_exact'], 'ops/discfill.py:225',
+         {f'{k}_real': v for k, v in res['discfill_exact_real'].items()}),
         # the box head's (1000, 7x7); the mask head's (100, 14x14) beside
         ('roialign', res['roialign_7'], 'models/maskrcnn.py:248',
          {f'{k}_14': res['roialign_14'][k] for k in (
@@ -2700,10 +2822,12 @@ def main() -> None:
         ('nms_large', res['nms_large_rpn'], 'models/maskrcnn.py:235',
          {f'{k}_det': res['nms_large_det'][k] for k in (
              'ms', 'plain_ms', 'bound_ms')}),
-        # the full 576x1024 guide; the crop beside it
+        # the full 576x1024 guide; a 300x440 crop and the CRF clip's
+        # crops beside it
         ('kmeans', res['kmeans_full'], 'ops/crf.py:55',
-         {f'{k}_crop': res['kmeans_crop'][k] for k in (
-             'label_share', 'ms', 'plain_ms', 'bound_ms')}),
+         {**{f'{k}_crop': res['kmeans_crop'][k] for k in (
+             'label_share', 'ms', 'plain_ms', 'bound_ms', 'device_ms')},
+          **{f'{k}_clip': v for k, v in res['kmeans_crops'].items()}}),
         # one mean-field step at 576x1024
         ('crf', res['crf'], 'ops/crf.py:95', {}),
         # stage 0 with the shift mask; every stage, with and without

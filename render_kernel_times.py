@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """Device times of the render kernels K1 (splat), K2 (the autozoom
 coverage), K3 (the disocclusion fill), K4 (bokeh), K5a (the frame
-epilogue) and K5b (the depth colorize), of the laplacian (K7) and of
-the dense-CRF step K12b, of one checkout of the PyTorch/CUDA port, on
-one GPU.
+epilogue), K5b (the depth colorize) and K11 (the exact fill), of the
+laplacian (K7) and of the dense CRF's k-means K12a and step K12b, of
+one checkout of the PyTorch/CUDA port, on one GPU.
 
     python3 render_kernel_times.py [--save-fill-inputs PATH]
                                    [--save-coverage-inputs PATH]
-                                   [--save-crf-inputs PATH] [--seed N]
+                                   [--save-crf-inputs PATH]
+                                   [--save-exact-fill-inputs PATH]
+                                   [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
                                    [--coverage-inputs PATH]
-                                   [--crf-inputs PATH] [--seed N]
+                                   [--crf-inputs PATH]
+                                   [--exact-fill-inputs PATH]
+                                   [--only WORD[,WORD...]] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
     python3 render_kernel_times.py --clips [--root DIR] [--seed N]
 
 With ``--loop`` it runs the shipped default clip with DIR's package
 and times its frame loop on the host instead (16 frames a run, 7 runs:
 the enqueue and the wall time a frame), and exits. With ``--clips`` it
-runs the shipped default clip and the CRF clip with DIR's package, each
-once cold and then 3 times warm, and prints each warm run's wall
-seconds (``pipe.run`` to the mp4, synchronised) and its
-``depth_refine`` and ``stream_render`` seconds, and exits.
+runs the shipped default clip, the Mask R-CNN clip
+(``detector='maskrcnn', discfill_mode='exact'``) and the CRF clip with
+DIR's package, each once cold and then 3 times warm, and prints each
+warm run's wall seconds (``pipe.run`` to the mp4, synchronised) and
+its ``depth_refine`` and ``stream_render`` seconds, and exits.
 
 With ``--save-fill-inputs`` or ``--save-coverage-inputs`` it runs the
 shipped default clip (``KenBurnsConfig()``, chip_smoke's edged
@@ -30,12 +35,16 @@ its cloud and its 256 shifts) to the given paths (``torch.save``);
 with ``--save-crf-inputs`` it runs the CRF clip
 (``KenBurnsConfig(refine_crf=True)``, the same detector) and saves the
 inputs of its densecrf_binary calls (each segment's crop: the
-foreground probability and the guide); then it exits.
+foreground probability and the guide); with
+``--save-exact-fill-inputs`` it runs the Mask R-CNN clip (chip_smoke's
+edged Mask R-CNN) and saves K11's inputs in 8 frames of its frame
+loop; then it exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
 this file's directory), builds its ``splat``, ``coverage``,
 ``discfill``, ``bokeh``, ``epilogue``, ``colorize``, ``laplacian``,
-``kmeans`` and ``crf`` kernels, and at the main path's shapes
+``discfill_exact``, ``kmeans`` and ``crf`` kernels, and at the main
+path's shapes
 (576x1024; the frame loop's compacted cloud of 720,896 slots at C = 4,
 alone and with 4,096 copies of one point in front, the Inpaint net's
 589,824 points at C = 68 and C = 2, C = 68 on the cloud with the
@@ -43,28 +52,37 @@ copies; K2 on chip_smoke's synthetic miniature with 256 shifts and,
 with ``--coverage-inputs``, on the saved input of the shipped default
 clip; K3 on chip_smoke's 10 renders of that cloud and, with
 ``--fill-inputs``, on the saved frames of the shipped default clip;
+K11 at 128 steps on the 10 renders, a frame of holes only, a render
+with a band of holes along the border and, with
+``--exact-fill-inputs``, the saved frames of the Mask R-CNN clip;
 the 3-pass bokeh at S = 32 on a filled render's weights; K5a's crop
 558x993 to 576x1024 with I420 on the filled frames' view of their
 (H, W, 4) buffer and on their bokeh (contiguous (H, W, 3), the main
 path's frames), through ``frame_epilogue`` and, where the checkout has
 it, the frame loop's ``EpiloguePlan``; K5b on the depth channels of
 the filled frames, read in place; the laplacian of a 576x1024x1 mask;
-K12b's norm pass, one step and the whole densecrf_binary at 576x1024
-on chip_smoke's image and sloppy mask and, with ``--crf-inputs``, on
-each saved crop) prints, for each call:
+K12a on chip_smoke's image's guide at 576x1024 and 300x440 and, with
+``--crf-inputs``, on each saved crop's guide; K12b's norm pass, one
+step and the whole densecrf_binary at 576x1024 on chip_smoke's image
+and sloppy mask and, with ``--crf-inputs``, on each saved crop) prints,
+for each call (with ``--only``, for the calls whose tag holds one of
+the words):
 - its device time (the call captured in a CUDA graph and replayed:
   ``chip_smoke.graph_ms``), the median of 3 graphs (of a call with
-  several inputs: for each input, and their median; densecrf_binary,
-  whose k-means copies a constant to the card, has none);
+  several inputs: for each input, and their median and sum;
+  densecrf_binary of a checkout that copies its 1/255 to the card on
+  every call has none);
 - its ``ms`` (``chip_smoke.time_ms``: CUDA events around one call on an
   idle card, host dispatch included);
 - its device time by kernel (torch.profiler over 10 calls on its first
   input);
 - its largest difference from the plain version (densecrf_binary: the
-  share of mask pixels unlike the plain version's on the CPU);
-- for K5a and K12b, chip_smoke's bound of each input's call (K5a:
-  ``chip_smoke.epilogue_bytes``; K12b: ``chip_smoke.crf_cost``, for
-  densecrf_binary its norm pass and 5 steps), their median and sum.
+  share of mask pixels unlike the plain version's on the CPU; K12a:
+  the share of labels);
+- for K5a, K11, K12a and K12b, chip_smoke's bound of each input's call
+  (K5a: ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
+  K12a: ``kmeans_cost``; K12b: ``crf_cost``, for densecrf_binary its
+  norm pass and 5 steps), their median and sum.
 The wrappers' signatures are the same in every checkout since the
 port's first slice, so two checkouts compare in one call on one card:
 save the inputs once, then run the script with each root in turn (A,
@@ -98,6 +116,12 @@ def main() -> None:
                     '--save-crf-inputs, K12b timed on each')
     ap.add_argument('--save-crf-inputs', metavar='PATH',
                     help='save the CRF clip\'s densecrf_binary inputs')
+    ap.add_argument('--exact-fill-inputs', help='K11 inputs saved by '
+                    '--save-exact-fill-inputs, timed as a call of their own')
+    ap.add_argument('--save-exact-fill-inputs', metavar='PATH',
+                    help='save K11 inputs of the Mask R-CNN clip')
+    ap.add_argument('--only', help='comma-separated words: time only the '
+                    'calls whose tag holds one of them')
     ap.add_argument('--clips', action='store_true',
                     help='warm seconds of the shipped default and the CRF '
                     'clip')
@@ -118,8 +142,10 @@ def main() -> None:
                     args.seed)
     if args.save_crf_inputs:
         save_crf_inputs(cs, args.save_crf_inputs, args.seed)
+    if args.save_exact_fill_inputs:
+        save_exact_fill_inputs(cs, args.save_exact_fill_inputs, args.seed)
     if args.save_fill_inputs or args.save_coverage_inputs or \
-            args.save_crf_inputs:
+            args.save_crf_inputs or args.save_exact_fill_inputs:
         return
     sys.path.insert(0, root)                      # the package measured
     if args.loop:
@@ -128,8 +154,9 @@ def main() -> None:
     if args.clips:
         clip_times(cs, root, args.seed)
         return
-    from cartoonsegmentation_torch.ops import (_cuda, bokeh, crf, discfill3,
-                                               filters, pointcloud)
+    from cartoonsegmentation_torch.ops import (_cuda, bokeh, crf, discfill,
+                                               discfill3, filters,
+                                               pointcloud)
     from cartoonsegmentation_torch.ops.pointcloud import shift_points
     from cartoonsegmentation_torch.pipeline.depth import (
         colorize_gray_r, colorize_gray_r_plain)
@@ -140,7 +167,7 @@ def main() -> None:
         cs.fail(f'imported {pointcloud.__file__}, not from {root}')
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
-                 'colorize', 'laplacian', 'kmeans', 'crf'])
+                 'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -227,8 +254,13 @@ def main() -> None:
     mask = (torch.rand((H, W, 1), generator=gen) > 0.5).float().to(dev)
     calls.append(('laplacian', filters.laplacian_filter,
                   filters.laplacian_filter_plain, [mask]))
+    calls += exact_fill_calls(cs, discfill, fills, args.exact_fill_inputs)
     calls += epilogue_calls(cs, image, bokeh, colorize_gray_r, filled)
+    calls += kmeans_calls(cs, crf, args.crf_inputs)
     calls += crf_calls(cs, crf, gen, args.crf_inputs)
+    if args.only:
+        words = args.only.split(',')
+        calls = [c for c in calls if any(wd in c[0] for wd in words)]
     out = {}
     for tag, fn, plain, xs, *opt in calls:
         opt = opt[0] if opt else {}
@@ -238,7 +270,8 @@ def main() -> None:
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             err = max([err] + [float((a.to(b.device) != b).float().mean())
-                               if a.dtype == torch.bool else
+                               if a.dtype == torch.bool or opt.get('share')
+                               else
                                float((a.double() - b.double()).abs().max())
                                for a, b in zip(got, want)])
         each = [statistics.median(cs.graph_ms(fn, x) for _ in range(3))
@@ -278,6 +311,59 @@ def main() -> None:
             print(f'   {ms:.4f} ms  {k[:70]}', flush=True)
     print(json.dumps({'root': root, 'card': cs.card_line(),
                       'calls': out}), flush=True)
+
+
+def exact_fill_calls(cs, discfill, fills, inputs_path) -> list:
+    """K11's calls at 128 steps: chip_smoke's 10 renders, a frame of
+    holes only, a render with a band of holes along the border and,
+    with ``inputs_path``, the saved frames of the Mask R-CNN clip; the
+    bound of each input's call (``chip_smoke.exact_fill_bytes``)."""
+    import torch
+
+    def run(x):
+        return discfill.fill_disocclusion(*x, 128)
+
+    def plain(x):
+        return discfill.fill_disocclusion_plain(*x, 128)
+
+    def cost(xs):
+        return [(cs.exact_fill_bytes(*x[0].shape), 0) for x in xs]
+    cases = [(f'discfill_exact {len(fills)} renders', fills),
+             ('discfill_exact holes only', [cs.holes_only(fills[0])]),
+             ('discfill_exact border band', [cs.band_fill(fills[0])])]
+    if inputs_path:
+        dev = fills[0][0].device
+        real = [tuple(t.to(dev) for t in x) for x in torch.load(inputs_path)]
+        cases.append((f'discfill_exact {len(real)} frames of the Mask R-CNN '
+                      f'clip', real))
+    return [(tag, run, plain, xs, {'bounds': cost(xs)}) for tag, xs in cases]
+
+
+def kmeans_calls(cs, crf, crf_inputs) -> list:
+    """K12a's calls (10 clusters, 8 iterations): chip_smoke's image at
+    576x1024 and its 300x440 crop and, with ``crf_inputs``, the guides
+    of the CRF clip's saved densecrf_binary calls; the bound of each
+    (``chip_smoke.kmeans_cost``). The error printed is the share of
+    labels unlike the plain version's."""
+    import numpy as np
+    import torch
+    img = torch.from_numpy(np.ascontiguousarray(
+        cs.make_image(0)[..., ::-1])).cuda()
+    cases = [('kmeans 576x1024', [cs.crf_guide(img)]),
+             ('kmeans 300x440', [cs.crf_guide(img[120:420, 260:700])])]
+    if crf_inputs:
+        guides = [cs.crf_guide(rgb.cuda()) for _, rgb in torch.load(
+            crf_inputs)]
+        cases.append((f'kmeans the CRF clip\'s {len(guides)} crops', guides))
+
+    def run(x):
+        return crf.kmeans_labels(x, 10)
+
+    def plain(x):
+        return crf._kmeans_labels(x, 10)
+    return [(tag, run, plain, xs,
+             {'bounds': [cs.kmeans_cost(x.shape[0], 10) for x in xs],
+              'share': True}) for tag, xs in cases]
 
 
 def epilogue_calls(cs, image, bokeh, colorize_gray_r, filled) -> list:
@@ -373,6 +459,9 @@ def crf_calls(cs, crf, gen, crf_inputs) -> list:
         # chip_smoke's K12b bound of each input's csrc/crf.cu call
         return [cs.crf_cost(*x.shape, 10, crf.lattice(*x.shape, 46.0),
                             n_steps, norm_pass) for x in norms_in[sl]]
+    # a checkout whose densecrf_binary copies its 1/255 to the card on
+    # every call cannot capture it in a graph
+    captures = hasattr(crf, '_inv255')
     calls = []
     for tag, sl in (('576x1024', slice(0, 1)),
                     (f'the CRF clip\'s {len(cases) - 1} crops',
@@ -386,14 +475,14 @@ def crf_calls(cs, crf, gen, crf_inputs) -> list:
                   # the bound: K12b's norm pass and 5 steps, not the
                   # k-means
                   (f'densecrf_binary {tag}', dense, dense_plain, whole[sl],
-                   {'graph': False, 'bounds': cost(sl, 5, True)})]
+                   {'graph': captures, 'bounds': cost(sl, 5, True)})]
     return calls
 
 
 def shipped_default_clip(cs, seed: int, **cfg):
-    """The shipped default pipeline (``KenBurnsConfig(**cfg)``,
-    chip_smoke's edged detector) of the package on sys.path, after one
-    clip."""
+    """The pipeline ``KenBurnsConfig(**cfg)`` of the package on
+    sys.path with chip_smoke's edged detector (``edged_nets``, or
+    ``edged_maskrcnn`` for ``detector='maskrcnn'``), after one clip."""
     import copy
     import tempfile
 
@@ -402,12 +491,16 @@ def shipped_default_clip(cs, seed: int, **cfg):
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
     _cuda.build()
     pipe = KenBurnsPipeline(KenBurnsConfig(**cfg), seed=seed, device='cuda')
-    det_net, isnet = cs.edged_nets(seed)
+    img = cs.make_image(seed)
     pipe.ensure_detector()
-    pipe._detector.model = copy.deepcopy(det_net)
-    pipe._detector.refine.net = isnet
+    if pipe.cfg.detector == 'maskrcnn':
+        pipe._detector.model = cs.edged_maskrcnn(seed, img)
+    else:
+        det_net, isnet = cs.edged_nets(seed)
+        pipe._detector.model = copy.deepcopy(det_net)
+        pipe._detector.refine.net = isnet
     with tempfile.TemporaryDirectory(dir=str(_cuda.BUILD_DIR)) as tmp:
-        pipe.run(cs.make_image(seed), os.path.join(tmp, 'clip.mp4'))
+        pipe.run(img, os.path.join(tmp, 'clip.mp4'))
     return pipe
 
 
@@ -443,6 +536,19 @@ def save_crf_inputs(cs, path: str, seed: int) -> None:
           f'{" ".join(f"{h}x{w}" for h, w in crops.shapes)}', flush=True)
 
 
+def save_exact_fill_inputs(cs, path: str, seed: int) -> None:
+    """Save K11's inputs in 8 frames of the Mask R-CNN clip's frame loop
+    (``KenBurnsConfig(detector='maskrcnn', discfill_mode='exact')``,
+    chip_smoke's edged Mask R-CNN) to ``path``."""
+    import torch
+    print(f'card: {cs.card_line()}', flush=True)
+    pipe = shipped_default_clip(cs, seed, detector='maskrcnn',
+                                discfill_mode='exact')
+    inputs = cs.real_fill_inputs(pipe)
+    torch.save([tuple(t.cpu() for t in x) for x in inputs], path)
+    print(f'saved K11 inputs of {len(inputs)} frames to {path}', flush=True)
+
+
 def clip_times(cs, root: str, seed: int, runs: int = 3) -> None:
     """The shipped default clip and the CRF clip of the package at
     ``root``: ``runs`` warm runs each after a cold one, wall seconds to
@@ -456,6 +562,8 @@ def clip_times(cs, root: str, seed: int, runs: int = 3) -> None:
     img = cs.make_image(seed)
     out = {}
     for tag, cfg in (('shipped default', {}),
+                     ('Mask R-CNN clip', {'detector': 'maskrcnn',
+                                          'discfill_mode': 'exact'}),
                      ('CRF clip', {'refine_crf': True})):
         pipe = shipped_default_clip(cs, seed, **cfg)
         walls, refine, render = [], [], []

@@ -339,6 +339,114 @@ def test_fill_exact_kernel_vs_plain(rng, cuda, max_steps):
         tdiscfill.fill_disocclusion_plain(img, depth, max_steps))
 
 
+def _device_ops(fn):
+    """The device operations (kernels, copies, memsets) of one call of
+    fn, after a warm-up call, by name under torch.profiler (profiled
+    once more if the first profile recorded no device activity at
+    all)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    return ops
+
+
+def _in_graph(fn):
+    """fn() captured in a CUDA graph (after a warm-up on a side stream):
+    returns (graph, the captured output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _no_sync(fn):
+    """fn() under the sync debug mode 'error': a host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _exact_case(rng, case):
+    """(img, depth, max_steps) of a K11 case."""
+    C = {'c1': 1, 'c3': 3}.get(case, 4)
+    if case == 'k256':
+        # a run of holes 400 px wide across every row: the horizontal
+        # walks from its middle need more than 128 steps
+        img, depth = _holes(rng, 48, 700, C)
+        depth[:, 150:550] = 0.0
+        return img, depth, 256
+    img, depth = _holes(rng, 200, 300, C)
+    if case == 'holes_only':
+        depth[:] = 0.0
+    elif case == 'band':
+        for t in (depth[:12], depth[-12:], depth[:, :12], depth[:, -12:]):
+            t.zero_()
+    return img, depth, 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', ['holes_only', 'band', 'k256', 'c1', 'c3',
+                                  'c4', 'unaligned'])
+def test_fill_exact_kernel_cases(rng, cuda, case):
+    """Bit-exact to the plain version on a frame of holes only, a band
+    of holes along the border, K = 256 (where it differs from K = 128),
+    C = 1, 3 and 4, and a C = 4 buffer off its 16-byte alignment (the
+    scalar path)."""
+    img, depth, K = _exact_case(rng, case)
+    img, depth = img.to(cuda), depth.to(cuda)
+    if case == 'unaligned':
+        buf = torch.empty(img.numel() + 1, device=cuda)
+        img = buf[1:].view(img.shape).copy_(img)
+        assert img.data_ptr() % 16 == 4
+    want = tdiscfill.fill_disocclusion_plain(img, depth, K)
+    assert torch.equal(tdiscfill.fill_disocclusion(img, depth, K), want)
+    if case == 'k256':
+        assert not torch.equal(
+            want, tdiscfill.fill_disocclusion_plain(img, depth, 128))
+
+
+@pytest.mark.gpu
+def test_fill_exact_kernel_one_launch_graph_no_sync(rng, cuda):
+    """One kernel and no copy a call (the step table is cached on the
+    card), no host sync, two calls bit-equal, and the call captures in
+    a CUDA graph that replays on new inputs."""
+    img, depth, _ = _exact_case(rng, 'c4')
+    img, depth = img.to(cuda), depth.to(cuda)
+
+    def call():
+        return tdiscfill.fill_disocclusion(img, depth, 128)
+    ops = _device_ops(call)
+    assert len(ops) == 1 and 'discfill_exact' in ops[0], ops
+    first = _no_sync(call)
+    assert torch.equal(first, call())
+    graph, out = _in_graph(call)
+    img2, depth2, _ = _exact_case(np.random.RandomState(5), 'band')
+    img.copy_(img2)
+    depth.copy_(depth2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tdiscfill.fill_disocclusion_plain(img, depth,
+                                                              128))
+
+
 @pytest.mark.gpu
 def test_bokeh_kernel_vs_plain(rng, cuda):
     img = torch.from_numpy(rng.rand(64, 96, 3).astype(np.float32)).to(cuda)
@@ -780,6 +888,53 @@ def test_kmeans_kernel_vs_plain(rng, cuda, H, W):
     assert float((got == want).float().mean()) >= 0.999
 
 
+def _kmeans_guide(rng, N, dev):
+    """N colours of a flat-colour guide with noisy edges (_crf_case)."""
+    W = 512
+    _, rgb = _crf_case(rng, -(-N // W), W)
+    return (rgb.float() / 255.0).reshape(-1, 3)[:N].contiguous().to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('N,k', [(300, 10), (1000, 10), (20000, 1),
+                                 (20000, 16), (65536, 10), (65537, 10),
+                                 (1200000, 10)])
+def test_kmeans_kernel_paths(rng, cuda, N, k):
+    """>= 99.9% of labels equal to the plain version's below one block
+    of points, on a cluster (up to 65,536 points), on the cooperative
+    grid past it and past what its blocks hold in shared memory
+    (1,200,000 points: tiles read again each pass); k = 1 and 16."""
+    g = _kmeans_guide(rng, N, cuda)
+    got = tcrf.kmeans_labels(g, k)
+    want = tcrf._kmeans_labels(g, k)
+    assert got.shape == (N,) and got.dtype == torch.int32
+    assert float((got == want).float().mean()) >= 0.999
+    if k == 1:
+        assert not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('N', [20000, 100000])
+def test_kmeans_kernel_one_launch_graph_no_sync(rng, cuda, N):
+    """A cluster (20,000 points) and a cooperative grid (100,000): one
+    kernel and no copy a call, no host sync, two calls bit-equal, and
+    the call captures in a CUDA graph that replays on new colours."""
+    g = _kmeans_guide(rng, N, cuda)
+
+    def call():
+        return tcrf.kmeans_labels(g, 10)
+    ops = _device_ops(call)
+    assert len(ops) == 1 and 'kmeans' in ops[0], ops
+    first = _no_sync(call)
+    assert torch.equal(first, call())
+    graph, out = _in_graph(call)
+    g.copy_(_kmeans_guide(np.random.RandomState(9), N, cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tcrf.kmeans_labels(g, 10))
+    assert float((out == tcrf._kmeans_labels(g, 10)).float().mean()) >= 0.999
+
+
 def _crf_inputs(rng, H, W, K, dev):
     unary_fg, rgb = _crf_case(rng, H, W)
     guide = (rgb.float() / 255.0).to(dev)
@@ -870,6 +1025,20 @@ def test_crf_step_in_a_cuda_graph(rng, cuda):
     assert torch.equal(n2, norms) and int(d2) == int(dead)
     want = tcrf.crf_step_plain(q, labels, unary, norms)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_densecrf_binary_in_a_cuda_graph(rng, cuda):
+    """The whole densecrf_binary (its k-means and its one K12b call)
+    copies nothing to the card after the first call of a card, so it
+    captures in a CUDA graph; the replay gives the mask of a call."""
+    unary_fg, rgb = _crf_case(rng, 120, 90)
+    unary_fg, rgb = unary_fg.to(cuda), rgb.to(cuda)
+    want = tcrf.densecrf_binary(unary_fg, rgb)
+    graph, got = _in_graph(lambda: tcrf.densecrf_binary(unary_fg, rgb))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
