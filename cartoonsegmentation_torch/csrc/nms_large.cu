@@ -15,27 +15,68 @@
 // IoU = inter / max(area_a + area_b - inter, 1e-9), in that order.
 //
 // Bound on the card: latency. The IoUs (11.3 M pairs at K = 4,756,
-// ~0.003 ms of f32 work) spread over many blocks; the greedy walk is
-// serial. Three kernels on the stream:
-//   1. one block sorts the (score key, index) pairs in dynamic shared
-//      memory (a bitonic sort of the next power of two, up to 16,384 x
-//      8 bytes) and writes the order, the sorted boxes and scores;
-//   2. a grid of 64 x 64 tiles of the upper triangle writes the
-//      suppression bitmask, one 64-bit word per (row, column tile),
-//      one thread per row;
-//   3. one block walks the rows a 64-row tile at a time: one warp
-//      resolves the tile's rows in order from their diagonal words in
-//      registers, then all threads OR the kept rows' words into the
-//      later tiles' "removed" words in shared memory; then all threads
-//      sort the kept boxes again for the output.
+// ~0.002 ms of f32 work) spread over many blocks; the greedy walk is a
+// chain of dependent steps. Three kernels on the stream, no dynamic
+// shared memory (so no per-call attribute):
+//   1. rank_kernel: the sort as a rank. key(i) = total_order(-score) <<
+//      32 | i is unique, and i's place in `order` is the number of keys
+//      below its own. A block counts it for 32 candidates (a lane each)
+//      against all K score keys, staged in shared memory 8,192 at a
+//      time (all loads issued first), each of its 32 warps taking a
+//      share of the tile, ties going by index; then it
+//      scatters `order`, the sorted boxes and the sorted scores. The
+//      grid (K / 32 blocks) spreads the K^2 comparisons over the card.
+//   2. mask_kernel: a grid of 64 x 64 tiles of the upper triangle
+//      writes the suppression bitmask, one 64-bit word per (row, column
+//      tile), one thread per row; IoU > thr is decided exactly without
+//      the division (15 us less at the RPN's K than with it). A diagonal
+//      tile holds the whole block, rows before the row's own included:
+//      the IoU is symmetric bit for bit (the same f32 operations on the
+//      two boxes, the area sum commutative), so row i's word there is
+//      both the rows it suppresses (bits above i) and the rows that
+//      suppress it (bits below i), and the walk needs no transpose.
+//   3. walk_kernel: one block, one __syncthreads a 64-row tile. Warp 0
+//      decides tile r's rows all at once, in rounds of four ballots: a
+//      row not yet decided is removed once a kept row suppresses it,
+//      kept once every candidate that could suppress it is decided and
+//      none is kept (the greedy order as a fixed point; the rounds
+//      number the tile's longest chain of rows waiting on one another).
+//      It holds a lane's two rows' diagonal and next-column words in
+//      registers, loaded a tile ahead, and forms the next tile's
+//      `removed` word itself (a warp reduce of the kept rows' words in
+//      that column). In the same step the other 15 warps OR tile r - 1's
+//      kept rows into the words from r + 1 on (a thread a word and a
+//      share of the rows, its loads issued first, one atomic a half
+//      word). The walk stops once the output is known (below); then the
+//      block writes the output rows without a second sort.
+//
+// Why the walk may stop early, and the output without a second sort.
+// Let e = total_order(-(-1.0f)), the key of a row that is not kept. The
+// output is top = stable argsort(key2)[:n_out], key2(p) =
+// total_order(-(kept(p) ? score(p) : -1.0f)). A kept row's key2 is its
+// key from the first sort, and the first sort put the rows in that key
+// order with ties by index, so the kept rows already stand in key2
+// order. Every row not kept has key2 = e. So top is three groups, each
+// in row order:
+//   G1 the kept rows with key2 < e,
+//   G2 the rows with key2 = e: not kept, or kept with score exactly -1,
+//   G3 the kept rows with key2 > e (-inf; NaN where its key falls so),
+// truncated to n_out. G1 grows only as the walk advances and comes
+// first, so once the walk has found n_out rows of G1 the output is
+// those rows and no later row can enter it: the walk stops there.
+// Otherwise the walk runs to the end and one block scan over the K rows
+// places G2 and G3 after G1.
 #include "kb_common.cuh"
 
 namespace {
 
 constexpr int kMaxK = 16384;
-constexpr int kThreads = 1024;
 constexpr int kTile = 64;
 constexpr int kMaxWords = kMaxK / kTile;
+constexpr int kRankThreads = 1024;
+constexpr int kRankTile = 8192;
+constexpr int kWalkThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
 
 // float → unsigned int, increasing in the float total order
 __device__ __forceinline__ unsigned int total_order(float f) {
@@ -43,48 +84,57 @@ __device__ __forceinline__ unsigned int total_order(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ void bitonic_sort(unsigned long long* key, int n2) {
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = key[i], b = key[ixj];
-          const bool ascending = (i & k) == 0;
-          if ((a > b) == ascending) {
-            key[i] = b;
-            key[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// 1. order = stable argsort(-scores); the sorted boxes and scores
-__global__ void __launch_bounds__(kThreads)
-    sort_kernel(const float* __restrict__ boxes,
-                const float* __restrict__ scores, int K, int n2,
+// 1. order = stable argsort(-scores) as ranks; the sorted boxes, scores.
+// key(j) < key(i) when total_order(-score) is lower, or equal with j < i
+__global__ void __launch_bounds__(kRankThreads)
+    rank_kernel(const float4* __restrict__ boxes,
+                const float* __restrict__ scores, int K,
                 int* __restrict__ order, float4* __restrict__ sboxes,
                 float* __restrict__ sscores) {
-  extern __shared__ unsigned long long key[];
-  for (int i = threadIdx.x; i < n2; i += blockDim.x)
-    key[i] = i < K ? ((unsigned long long)total_order(-scores[i]) << 32) |
-                         (unsigned int)i
-                   : ~0ull;
+  constexpr int kWarps = kRankThreads / 32;
+  constexpr int kLoads = kRankTile / kRankThreads;
+  __shared__ unsigned int keys[kRankTile];
+  __shared__ int part[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const unsigned int mine = i < K ? total_order(-scores[i]) : ~0u;
+  int below = 0;
+  for (int t0 = 0; t0 < K; t0 += kRankTile) {
+    const int n = min(kRankTile, K - t0);
+    unsigned int v[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int j = q * kRankThreads + threadIdx.x;
+      v[q] = j < n ? total_order(-scores[t0 + j]) : 0u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int j = q * kRankThreads + threadIdx.x;
+      if (j < n) keys[j] = v[q];
+    }
+    __syncthreads();
+    const int per = (n + kWarps - 1) / kWarps;
+    const int j0 = min(n, warp * per), j1 = min(n, j0 + per);
+    // the keys before i: <=; from i on: <
+    const int split = min(j1, max(j0, i - t0));
+#pragma unroll 4
+    for (int j = j0; j < split; ++j) below += keys[j] <= mine;
+#pragma unroll 4
+    for (int j = split; j < j1; ++j) below += keys[j] < mine;
+  }
+  part[warp][lane] = below;
   __syncthreads();
-  bitonic_sort(key, n2);
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const int o = (int)(key[i] & 0xffffffffu);
-    order[i] = o;
-    sboxes[i] = make_float4(boxes[4 * o], boxes[4 * o + 1], boxes[4 * o + 2],
-                            boxes[4 * o + 3]);
-    sscores[i] = scores[o];
+  if (warp == 0 && i < K) {
+    int r = 0;
+    for (int w = 0; w < kWarps; ++w) r += part[w][lane];
+    order[r] = i;
+    sboxes[r] = boxes[i];
+    sscores[r] = scores[i];
   }
 }
 
-// 2. word (i, c): bit b set when j = 64c + b > i and IoU(i, j) > thr;
+// 2. word (i, c): bit b set when j = 64c + b != i and IoU(i, j) > thr;
 // only the tiles with c >= i / 64 are written (and read)
 __global__ void __launch_bounds__(kTile)
     mask_kernel(const float4* __restrict__ sboxes, int K, int words,
@@ -92,136 +142,297 @@ __global__ void __launch_bounds__(kTile)
   const int r = blockIdx.y, c = blockIdx.x;
   if (c < r) return;
   __shared__ float4 cb[kTile];
+  __shared__ float ca[kTile];
   const int t = threadIdx.x;
   const int jc = c * kTile + t;
-  if (jc < K) cb[t] = sboxes[jc];
+  if (jc < K) {
+    const float4 o = sboxes[jc];
+    cb[t] = o;
+    ca[t] = fmaxf(o.z - o.x, 0.0f) * fmaxf(o.w - o.y, 0.0f);
+  }
   __syncthreads();
   const int i = r * kTile + t;
   if (i >= K) return;
   const float4 a = sboxes[i];
   const float area_a = fmaxf(a.z - a.x, 0.0f) * fmaxf(a.w - a.y, 0.0f);
+  const int b1 = min(kTile, K - c * kTile);
+  // RN(inter / den) > thr without the division: inter > m * den in
+  // float64, m the midpoint of thr and the next float up (both exact:
+  // m has 25 significant bits, den 24); at m itself round-to-nearest-
+  // even decides. Non-finite values take the division.
+  const float up = nextafterf(iou_thr, INFINITY);
+  const double mid = 0.5 * ((double)iou_thr + (double)up);
+  const bool tie_up = (__float_as_uint(up) & 1u) == 0;
   unsigned long long bits = 0;
-  for (int b = 0; b < kTile; ++b) {
-    const int j = c * kTile + b;
-    if (j <= i || j >= K) continue;
+  for (int b = 0; b < b1; ++b) {
     const float4 o = cb[b];
-    const float area_b = fmaxf(o.z - o.x, 0.0f) * fmaxf(o.w - o.y, 0.0f);
     const float iw = fmaxf(fminf(a.z, o.z) - fmaxf(a.x, o.x), 0.0f);
     const float ih = fmaxf(fminf(a.w, o.w) - fmaxf(a.y, o.y), 0.0f);
     const float inter = iw * ih;
-    const float iou = inter / fmaxf(area_a + area_b - inter, 1e-9f);
-    if (iou > iou_thr) bits |= 1ull << b;
+    const float den = fmaxf(area_a + ca[b] - inter, 1e-9f);
+    const double p = mid * (double)den;
+    const bool hit = isfinite(inter) && isfinite(den)
+                         ? (double)inter > p || ((double)inter == p && tie_up)
+                         : inter / den > iou_thr;
+    if (hit) bits |= 1ull << b;
   }
+  if (c == r) bits &= ~(1ull << t);  // a row does not suppress itself
   mask[(long long)i * words + c] = bits;
 }
 
-// 3. the greedy walk, a 64-row tile at a time, then
-// top = stable argsort(-where(kept, score, -1)). Tile r's rows can only
-// be suppressed by kept rows before them: those of earlier tiles are
-// already OR-ed into removed[r], and the tile's own come from its
-// diagonal words, so one warp resolves the tile's 64 rows from
-// registers; then every thread ORs the kept rows' words into the later
-// words of `removed` (independent loads, shared-memory atomics).
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned long long warp_or(unsigned long long v) {
+  return ((unsigned long long)__reduce_or_sync(kFull, (unsigned)(v >> 32))
+          << 32) |
+         __reduce_or_sync(kFull, (unsigned)v);
+}
+
+// a lane's two rows of tile r (lane and 32 + lane): their words in the
+// diagonal tile and the next column, and their scores
+struct Rows {
+  unsigned long long da, db, na, nb;
+  float sa, sb;
+};
+
+__device__ __forceinline__ Rows load_rows(
+    const unsigned long long* __restrict__ mask,
+    const float* __restrict__ sscores, int K, int words, int r, int lane) {
+  Rows o = {0ull, 0ull, 0ull, 0ull, 0.0f, 0.0f};
+  const int ra = r * kTile + lane, rb = ra + 32;
+  if (ra < K) {
+    o.da = mask[(long long)ra * words + r];
+    if (r + 1 < words) o.na = mask[(long long)ra * words + r + 1];
+    o.sa = sscores[ra];
+  }
+  if (rb < K) {
+    o.db = mask[(long long)rb * words + r];
+    if (r + 1 < words) o.nb = mask[(long long)rb * words + r + 1];
+    o.sb = sscores[rb];
+  }
+  return o;
+}
+
+// 3. the greedy walk and the output
+__global__ void __launch_bounds__(kWalkThreads)
     walk_kernel(const unsigned long long* __restrict__ mask,
                 const int* __restrict__ order,
-                const float* __restrict__ sscores, int K, int n2, int words,
+                const float* __restrict__ sscores, int K, int words,
                 int n_out, long long* __restrict__ keep_idx,
                 uint8_t* __restrict__ keep_mask) {
-  extern __shared__ unsigned long long key[];
-  uint8_t* kept = reinterpret_cast<uint8_t*>(key + n2);
+  // removed[w]: the rows of tile w removed by kept rows two or more
+  // tiles before it (the pushers' ORs); keptw[r]: tile r's kept rows,
+  // g1m[r] those of them in G1, g1w[r] the G1 rows before tile r;
+  // kept_rows[r & 1]: tile r's kept rows' offsets, for the pushers
   __shared__ unsigned long long removed[kMaxWords];
-  __shared__ unsigned long long tile_kept;
-  const int t = threadIdx.x;
-  for (int w = t; w < words; w += blockDim.x) removed[w] = 0;
-  __syncthreads();
-  for (int r = 0; r < words; ++r) {
-    const int row0 = r * kTile;
-    if (t < 32) {
-      // the diagonal words of rows row0 + t and row0 + 32 + t
-      const int ra = row0 + t, rb = row0 + 32 + t;
-      const unsigned long long da =
-          ra < K ? mask[(long long)ra * words + r] : 0ull;
-      const unsigned long long db =
-          rb < K ? mask[(long long)rb * words + r] : 0ull;
-      unsigned long long word = removed[r], bits = 0;
-      const int n = min(kTile, K - row0);
-      for (int j = 0; j < n; ++j) {
-        const unsigned long long dj =
-            __shfl_sync(0xffffffffu, j < 32 ? da : db, j & 31);
-        if (!((word >> j) & 1ull)) {
-          bits |= 1ull << j;
-          word |= dj;
-        }
-      }
-      if (ra < K) kept[ra] = (bits >> t) & 1ull;
-      if (rb < K) kept[rb] = (bits >> (32 + t)) & 1ull;
-      if (t == 0) tile_kept = bits;
-    }
-    __syncthreads();
-    const unsigned long long bits = tile_kept;
-    const int later = words - r - 1;
-    for (int q = t; q < kTile * later; q += blockDim.x) {
-      const int j = q / later, w = r + 1 + (q - j * later);
-      if ((bits >> j) & 1ull) {
-        const unsigned long long v = mask[(long long)(row0 + j) * words + w];
-        if (v) atomicOr(&removed[w], v);
-      }
-    }
-    __syncthreads();
+  __shared__ unsigned long long keptw[kMaxWords];
+  __shared__ unsigned long long g1m[kMaxWords];
+  __shared__ int g1w[kMaxWords + 1];
+  __shared__ unsigned char kept_rows[2][kTile];
+  __shared__ int stop;
+  __shared__ unsigned int warp_sum[kWalkThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int w = t; w < words; w += blockDim.x) removed[w] = 0ull;
+  if (t == 0) {
+    g1w[0] = 0;
+    stop = 0;
   }
-  for (int p = t; p < n2; p += blockDim.x)
-    key[p] = p < K ? ((unsigned long long)total_order(
-                          -(kept[p] ? sscores[p] : -1.0f)) << 32) |
-                         (unsigned int)p
-                   : ~0ull;
   __syncthreads();
-  bitonic_sort(key, n2);
-  for (int q = t; q < n_out; q += blockDim.x) {
-    const int p = (int)(key[q] & 0xffffffffu);
-    keep_idx[q] = (long long)order[p];
-    keep_mask[q] = kept[p] && sscores[p] > -1.0f;
+  const unsigned int e = total_order(1.0f);
+  const unsigned long long below_a = (1ull << lane) - 1;
+  const unsigned long long below_b = (1ull << (32 + lane)) - 1;
+
+  // warp 0: tile r's rows, and the kept rows' words in column r + 1
+  Rows cur = {0ull, 0ull, 0ull, 0ull, 0.0f, 0.0f};
+  if (warp == 0) cur = load_rows(mask, sscores, K, words, 0, lane);
+  unsigned long long carry = 0ull;
+  int g1 = 0, walked = words;
+  for (int r = 0; r < words; ++r) {
+    if (warp == 0) {
+      // the next tile's loads, first used a step later
+      const Rows nxt = r + 1 < words
+                           ? load_rows(mask, sscores, K, words, r + 1, lane)
+                           : cur;
+      const int n = min(kTile, K - r * kTile);
+      const unsigned long long cand = ~(removed[r] | carry) &
+                                      (n == kTile ? ~0ull : (1ull << n) - 1);
+      // the greedy order as a fixed point, all 64 rows at once: an
+      // undecided row is removed once a kept row suppresses it, kept
+      // once every candidate that could suppress it is decided and none
+      // is kept. The lowest undecided row is decided in every round, so
+      // the rounds number the longest chain of rows that wait on one
+      // another, not the kept rows; each round is four ballots.
+      const unsigned long long pa = cur.da & below_a & cand;
+      const unsigned long long pb = cur.db & below_b & cand;
+      unsigned long long kept = 0ull, undecided = cand;
+      while (undecided) {
+        const bool oa = (undecided >> lane) & 1ull;
+        const bool ob = (undecided >> (32 + lane)) & 1ull;
+        const bool ka = oa && !(pa & (kept | undecided));
+        const bool kb = ob && !(pb & (kept | undecided));
+        const bool ra = oa && (pa & kept), rb = ob && (pb & kept);
+        const unsigned long long nk =
+            (unsigned long long)__ballot_sync(kFull, ka) |
+            ((unsigned long long)__ballot_sync(kFull, kb) << 32);
+        const unsigned long long nr =
+            (unsigned long long)__ballot_sync(kFull, ra) |
+            ((unsigned long long)__ballot_sync(kFull, rb) << 32);
+        kept |= nk;
+        undecided &= ~(nk | nr);
+      }
+      const bool kpa = (kept >> lane) & 1ull;
+      const bool kpb = (kept >> (32 + lane)) & 1ull;
+      carry = warp_or((kpa ? cur.na : 0ull) | (kpb ? cur.nb : 0ull));
+      const unsigned long long lt =
+          (unsigned long long)__ballot_sync(
+              kFull, total_order(-cur.sa) < e) |
+          ((unsigned long long)__ballot_sync(
+               kFull, total_order(-cur.sb) < e)
+           << 32);
+      // the kept rows' list for the pushers
+      unsigned char* list = kept_rows[r & 1];
+      if (kpa) list[__popcll(kept & below_a)] = (unsigned char)lane;
+      if (kpb)
+        list[__popcll(kept & below_b)] = (unsigned char)(32 + lane);
+      g1 += __popcll(kept & lt);
+      if (lane == 0) {
+        keptw[r] = kept;
+        g1m[r] = kept & lt;
+        g1w[r + 1] = g1;
+        if (g1 >= n_out) stop = 1;
+      }
+      cur = nxt;
+    } else if (r > 0) {
+      // the pushers: tile r - 1's kept rows into removed[r + 1 ..]. A
+      // thread takes one word (consecutive threads on consecutive words
+      // of a row: coalesced) and every groups-th kept row, its loads
+      // issued before the ORs, then one 32-bit atomic a half word
+      const int h = t - 32, nh = kWalkThreads - 32;
+      const int w0 = r + 1, later = words - w0;
+      const int nk = __popcll(keptw[r - 1]);
+      const int groups = later > 0 ? max(1, nh / later) : 0;
+      const int g = later > 0 ? h / later : 0;
+      if (g < groups && g < nk) {
+        const int w = w0 + (h - g * later);
+        const unsigned char* list = kept_rows[(r - 1) & 1];
+        const unsigned long long* m =
+            mask + (long long)(r - 1) * kTile * words + w;
+        unsigned long long acc = 0ull;
+        int k = g;
+        for (; k + 3 * groups < nk; k += 4 * groups) {
+          const unsigned long long x0 = m[(long long)list[k] * words];
+          const unsigned long long x1 =
+              m[(long long)list[k + groups] * words];
+          const unsigned long long x2 =
+              m[(long long)list[k + 2 * groups] * words];
+          const unsigned long long x3 =
+              m[(long long)list[k + 3 * groups] * words];
+          acc |= x0 | x1 | x2 | x3;
+        }
+        for (; k < nk; k += groups) acc |= m[(long long)list[k] * words];
+        unsigned int* half = reinterpret_cast<unsigned int*>(&removed[w]);
+        if ((unsigned int)acc) atomicOr(half, (unsigned int)acc);
+        if ((unsigned int)(acc >> 32))
+          atomicOr(half + 1, (unsigned int)(acc >> 32));
+      }
+    }
+    __syncthreads();
+    if (stop) {
+      walked = r + 1;
+      break;
+    }
+  }
+  // G1: the kept rows keyed below -1's key, in row order
+  for (int p = t; p < walked * kTile; p += kWalkThreads) {
+    const unsigned long long g = g1m[p >> 6];
+    const int j = p & 63;
+    if (!((g >> j) & 1ull)) continue;
+    const int q = g1w[p >> 6] + __popcll(g & ((1ull << j) - 1));
+    if (q < n_out) {
+      keep_idx[q] = (long long)order[p];
+      keep_mask[q] = sscores[p] > -1.0f;
+    }
+  }
+  const int g1n = g1w[walked];
+  if (g1n >= n_out) return;
+
+  // the walk ran to the end: G2 and G3 after G1, each in row order. A
+  // thread takes `per` consecutive rows; one block scan of its counts
+  // (G2 in the low 16 bits, G3 in the high 16: K <= 16384)
+  const int per = (K + kWalkThreads - 1) / kWalkThreads;
+  const int p0 = min(K, t * per), p1 = min(K, p0 + per);
+  unsigned int cnt = 0;
+  for (int p = p0; p < p1; ++p) {
+    const bool kp = (keptw[p >> 6] >> (p & 63)) & 1ull;
+    const unsigned int k1 = total_order(-sscores[p]);
+    cnt += (!kp || k1 == e) ? 1u : (k1 > e ? 65536u : 0u);
+  }
+  unsigned int inc = cnt;
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned int o = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) warp_sum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned int s = lane < kWalkThreads / 32 ? warp_sum[lane] : 0u;
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned int o = __shfl_up_sync(kFull, s, d);
+      if (lane >= d) s += o;
+    }
+    if (lane < kWalkThreads / 32) warp_sum[lane] = s;  // inclusive
+  }
+  __syncthreads();
+  const unsigned int before = inc - cnt + (warp ? warp_sum[warp - 1] : 0u);
+  const int n2 = (int)(warp_sum[kWalkThreads / 32 - 1] & 0xffffu);
+  int q2 = g1n + (int)(before & 0xffffu);
+  int q3 = g1n + n2 + (int)(before >> 16);
+  for (int p = p0; p < p1; ++p) {
+    const bool kp = (keptw[p >> 6] >> (p & 63)) & 1ull;
+    const float s = sscores[p];
+    const unsigned int k1 = total_order(-s);
+    int q;
+    if (!kp || k1 == e)
+      q = q2++;
+    else if (k1 > e)
+      q = q3++;
+    else
+      continue;  // G1, written above
+    if (q < n_out) {
+      keep_idx[q] = (long long)order[p];
+      keep_mask[q] = kp && s > -1.0f;
+    }
   }
 }
 
 }  // namespace
 
-// boxes (K, 4), scores (K,) f32 with 1 <= K <= 16384; keep_idx (n_out,)
-// int64, keep_mask (n_out,) u8, 1 <= n_out <= K; scratch: order (K,)
-// int32, sboxes (K, 4) and sscores (K,) f32, mask (K * ceil(K/64),)
-// 64-bit words. Returns cudaGetLastError().
+// boxes (K, 4) f32 (16-byte aligned), scores (K,) f32 with 1 <= K <=
+// 16384; keep_idx (n_out,) int64, keep_mask (n_out,) u8, 1 <= n_out <=
+// K; work: nms_large_workspace(K) bytes, 16-byte aligned, laid out as
+// the sorted boxes (K float4), the mask (K * ceil(K/64) 64-bit words),
+// order (K int32) and the sorted scores (K f32). Returns
+// cudaGetLastError().
 extern "C" int kb_nms_large(const float* boxes, const float* scores, int K,
                             float iou_thr, int n_out, long long* keep_idx,
-                            uint8_t* keep_mask, int* order, float* sboxes,
-                            float* sscores, unsigned long long* mask,
-                            void* stream) {
+                            uint8_t* keep_mask, void* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K < 1 || K > kMaxK || n_out < 1 || n_out > K)
     return (int)cudaErrorInvalidValue;
-  int n2 = 2;
-  while (n2 < K) n2 <<= 1;
   const int words = (K + kTile - 1) / kTile;
-  const size_t shm_sort = sizeof(unsigned long long) * n2;
-  const size_t shm_walk = shm_sort + n2;
-  cudaError_t err = cudaFuncSetAttribute(
-      sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm_sort);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(walk_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shm_walk);
+  float4* sboxes = static_cast<float4*>(work);
+  unsigned long long* mask = reinterpret_cast<unsigned long long*>(
+      sboxes + K);
+  int* order = reinterpret_cast<int*>(mask + (long long)K * words);
+  float* sscores = reinterpret_cast<float*>(order + K);
+  rank_kernel<<<(K + 31) / 32, kRankThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(boxes), scores, K, order, sboxes,
+      sscores);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  float4* sb = reinterpret_cast<float4*>(sboxes);
-  sort_kernel<<<1, kThreads, shm_sort, s>>>(boxes, scores, K, n2, order, sb,
-                                            sscores);
+  mask_kernel<<<dim3(words, words), kTile, 0, s>>>(sboxes, K, words,
+                                                    iou_thr, mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mask_kernel<<<dim3(words, words), kTile, 0, s>>>(sb, K, words, iou_thr,
-                                                    mask);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  walk_kernel<<<1, kThreads, shm_walk, s>>>(mask, order, sscores, K, n2,
-                                            words, n_out, keep_idx,
-                                            keep_mask);
+  walk_kernel<<<1, kWalkThreads, 0, s>>>(mask, order, sscores, K, words,
+                                         n_out, keep_idx, keep_mask);
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,9 @@ card and the CPU give the same bits from the same head outputs.
 
 Two kernels run here:
 - K14a ``roi_align_pyramid``: ``roi_align_pyramid_plain`` (the JAX
-  version's gather over the flattened pyramid) for CPU tensors,
-  ``csrc/roialign.cu`` for CUDA ones; the level map is computed by
-  ``roi_levels`` for both.
+  version's gather over the flattened pyramid) on the level map of
+  ``roi_levels`` for CPU tensors, ``csrc/roialign.cu`` for CUDA ones,
+  which computes the same map with the same roundings.
 - K14b ``nms_large``: ``rtmdet.nms_fixed_plain`` for CPU tensors,
   ``csrc/nms_large.cu`` (any K up to 16384) for CUDA ones; the keep
   sets are exact.
@@ -304,20 +304,25 @@ def nms_large(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
         raise ValueError(f'boxes {tuple(boxes.shape)} and scores '
                          f'{tuple(scores.shape)}: need (K, 4), (K,), '
                          f'1 <= K <= {NMS_MAX_K}')
+    if boxes.data_ptr() % 16:                 # the kernel reads float4 rows
+        boxes = boxes.clone()
     n_out = min(max_out, K)
-    words = -(-K // 64)
     keep_idx = torch.empty((n_out,), dtype=torch.int64, device=dev)
     keep_mask = torch.empty((n_out,), dtype=torch.bool, device=dev)
-    order = torch.empty((K,), dtype=torch.int32, device=dev)
-    sboxes = torch.empty((K, 4), dtype=torch.float32, device=dev)
-    sscores = torch.empty((K,), dtype=torch.float32, device=dev)
-    mask = torch.empty((K * words,), dtype=torch.int64, device=dev)
+    work = torch.empty((nms_large_workspace(K) // 8,), dtype=torch.int64,
+                       device=dev)
     _cuda.launch('nms_large',
                  boxes.data_ptr(), scores.data_ptr(), K, iou_thr, n_out,
-                 keep_idx.data_ptr(), keep_mask.data_ptr(), order.data_ptr(),
-                 sboxes.data_ptr(), sscores.data_ptr(), mask.data_ptr(),
+                 keep_idx.data_ptr(), keep_mask.data_ptr(), work.data_ptr(),
                  _cuda.stream_ptr(boxes))
     return keep_idx, keep_mask
+
+
+def nms_large_workspace(K: int) -> int:
+    """Bytes of csrc/nms_large.cu's scratch for K candidates: the sorted
+    boxes (16 B each), the suppression mask (ceil(K/64) 8-byte words a
+    row), the order and the sorted scores (4 B each)."""
+    return K * (16 + 8 * -(-K // 64) + 8)
 
 
 def batched_nms_fixed(boxes, scores, cats, iou_thr, max_out):
@@ -427,13 +432,21 @@ def roi_align_pyramid_plain(pyr: Pyramid, boxes: torch.Tensor,
 
 def roi_align_pyramid(pyr: Pyramid, boxes: torch.Tensor, out: int,
                       sampling: int = 2) -> torch.Tensor:
-    """K14a wrapper: the plain version on the CPU, csrc/roialign.cu on
-    CUDA; both read the level map of ``roi_levels``. pyr from
-    ``flatten_pyramid`` (4 levels), boxes (N, 4) xyxy f32 → (N, C, out,
-    out) f32."""
-    lvl = roi_levels(boxes)
+    """K14a wrapper: the plain version on the level map of
+    ``roi_levels`` on the CPU; csrc/roialign.cu on CUDA, which computes
+    that map itself. pyr from ``flatten_pyramid`` (4 levels), boxes (N,
+    4) xyxy f32 → (N, C, out, out) f32."""
     if boxes.device.type == 'cpu':
-        return roi_align_pyramid_plain(pyr, boxes, lvl, out, sampling)
+        return roi_align_pyramid_plain(pyr, boxes, roi_levels(boxes), out,
+                                       sampling)
+    return _roi_align_launch(pyr, boxes, out, sampling)
+
+
+def _roi_align_launch(pyr: Pyramid, boxes: torch.Tensor, out: int,
+                      sampling: int = 2, levels: torch.Tensor = None
+                      ) -> torch.Tensor:
+    """csrc/roialign.cu on CUDA tensors; ``levels``, an (N,) int32
+    tensor, receives the level map the kernel used."""
     dev = boxes.device
     flat, boxes = pyr.flat.contiguous(), boxes.contiguous()
     _cuda.check(flat, 'pyramid', torch.float32, 2, dev)
@@ -443,10 +456,15 @@ def roi_align_pyramid(pyr: Pyramid, boxes: torch.Tensor, out: int,
         raise ValueError('roi_align_pyramid: need 4 levels whose rows fill '
                          'the flat table and (N, 4) boxes')
     N, C = boxes.shape[0], flat.shape[1]
+    if levels is not None:
+        _cuda.check(levels, 'levels', torch.int32, 1, dev)
+        if levels.shape[0] != N:
+            raise ValueError(f'levels {tuple(levels.shape)}: need ({N},)')
     res = torch.empty((N, C, out, out), dtype=torch.float32, device=dev)
     hw = [v for hw in pyr.sizes for v in hw]
     _cuda.launch('roialign',
-                 flat.data_ptr(), boxes.data_ptr(), lvl.data_ptr(), N, C,
+                 flat.data_ptr(), boxes.data_ptr(),
+                 None if levels is None else levels.data_ptr(), N, C,
                  *hw, out, sampling, res.data_ptr(), _cuda.stream_ptr(boxes))
     return res
 

@@ -65,7 +65,7 @@ SIGNATURES = {
     'samattn': ('kb_sam_attention', 'pppiiiiiifpp'),
     'discfill_exact': ('kb_discfill_exact', 'pppiiiipp'),
     'roialign': ('kb_roi_align', 'pppiiiiiiiiiiiipp'),
-    'nms_large': ('kb_nms_large', 'ppifippppppp'),
+    'nms_large': ('kb_nms_large', 'ppifipppp'),
     'kmeans': ('kb_kmeans', 'piiiiippp'),
     'crf': ('kb_crf', 'pppppiiiiiiipffiiipppp'),
     'swinattn': ('kb_swin_attention', 'ppppiiiiipp'),

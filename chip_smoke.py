@@ -25,15 +25,15 @@
    rendered frames, a frame of holes only and a render with a band of
    holes along the border; K14a at (1000, 7x7) and (100, 14x14)
    over the 768x1344 canvas's pyramid; K14b at K = 4,756 and 2,048 with
-   -inf scores and category offsets; K12a on the image's 576x1024 guide
-   and a crop, K12b's norm pass, one step and a whole densecrf_binary at
-   576x1024; K15b at SwinV2-B 448's four stage shapes with and without
+   -inf scores and category offsets (``synthetic_k14``); K12a on the
+   image's 576x1024 guide and a crop, K12b's norm pass, one step and a
+   whole densecrf_binary at 576x1024; K15b at SwinV2-B 448's four stage shapes with and without
    the shift mask, beside SDPA; K13a and K13b at the style path's
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
    card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
    the laplacian and its cuDNN convolution, K11, K12a, K12b's step and
-   norm pass, K15a, K15b and SDPA also by
+   norm pass, K14a, K14b, K15a, K15b and SDPA also by
    their device time alone (``graph_ms``: ten calls captured in a CUDA
    graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
@@ -79,7 +79,13 @@
    (``edged_maskrcnn``): K11, K14a and K14b launched and K3 did not,
    the instances, the disparity, the frames and 3 of them against the
    CPU; holds K11 bit for bit against its plain version on 8 of the
-   clip's own frames and times it there;
+   clip's own frames and times it there; records the K14 calls of one
+   detector forward on the image (``maskrcnn_inputs``: the RPN's and
+   the detection's NMS, the box and mask heads' RoIAligns) and holds
+   K14a and K14b against their plain versions there, with their device
+   times, device time by kernel and bounds (K14a's by the pyramid rows
+   its samples touch, ``roi_cost``; K14b's walk's tiles,
+   ``nms_walk_tiles``);
 11. runs Mask R-CNN in f32 on the card and on the CPU
    (``compare_maskrcnn``: the CPU machinery on the card's outputs exact,
    the whole detector's detections the same set within the stated
@@ -723,7 +729,7 @@ def check_kernels(dev, gen: torch.Generator) -> dict:
     res.update(check_detector_kernels(dev, gen, depth_maps, existing))
     res.update(check_frame_kernels(dev, filled))
     res.update(check_samattn(dev, gen))
-    res.update(check_maskrcnn_kernels(dev, gen))
+    res.update(check_k14(synthetic_k14(gen, dev), 'synthetic'))
     return res
 
 
@@ -740,48 +746,24 @@ def rpn_like_boxes(gen: torch.Generator, n: int) -> torch.Tensor:
     return torch.cat([c - side / 2, c + side / 2], 1)
 
 
-def check_maskrcnn_kernels(dev, gen) -> dict:
-    """K14a RoIAlign at the box head's (1000, 7x7) and the mask head's
-    (100, 14x14) over the 768x1344 pyramid; K14b NMS at the RPN's
-    K = 4,756 (IoU 0.7, 1000 out, level offsets) and the detection's
-    K = 2,048 (IoU 0.5, 100 out, class offsets), -inf scores present."""
-    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
-    res = {}
+def synthetic_k14(gen, dev) -> dict:
+    """K14's synthetic calls at the Mask R-CNN path's shapes, as
+    ``maskrcnn_inputs`` records them: K14a at the box head's (1000,
+    7x7) and the mask head's (100, 14x14) over three random 768x1344
+    pyramids; K14b at the RPN's K = 4,756 (IoU 0.7, 1000 out, level
+    offsets) and the detection's K = 2,048 (IoU 0.5, 100 out, class
+    offsets), clustered boxes with tied scores, -inf present."""
+    from cartoonsegmentation_torch.models import maskrcnn
     C = 256
-    rows = sum(h * w for h, w in CANVAS_LEVELS)
     pyrs = [maskrcnn.flatten_pyramid([
         torch.randn((1, C, h, w), generator=gen).to(dev)
         for h, w in CANVAS_LEVELS]) for _ in range(3)]
-    for n, out in ((1000, 7), (100, 14)):
-        cases = [(p, rpn_like_boxes(gen, n).to(dev)) for p in pyrs]
-        got = maskrcnn.roi_align_pyramid(*cases[0], out)
-        want = maskrcnn.roi_align_pyramid_plain(
-            *cases[0], maskrcnn.roi_levels(cases[0][1]), out)
-        err = float((got - want).abs().max())
-        span = float(want.max() - want.min())
-        if err > 1e-5 * span:
-            fail(f'roialign ({n}, {out}): max err {err:.3g} above 1e-5 of '
-                 f'{span:.3g}')
-        ms = time_ms(lambda c: maskrcnn.roi_align_pyramid(*c, out), cases)
-        plain_ms = time_ms(lambda c: maskrcnn.roi_align_pyramid_plain(
-            *c, maskrcnn.roi_levels(c[1]), out), cases)
-        # the pyramid read once, the (n, C, out, out) output written once;
-        # per output value 4 samples of 4 taps (a multiply-add each) and
-        # their 4 weights
-        nbytes = rows * C * 4 + n * 16 + n * C * out * out * 4
-        b, by = bound(nbytes, n * C * out * out * 4 * 12)
-        res[f'roialign_{out}'] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=b,
-                                      bound_by=by)
-        print(f'[kernel] roialign ({n}, {C}, {out}, {out}) over {rows} '
-              f'pyramid rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-              f'bound {b:.4f} ms ({by}), max err {err:.3g} of {span:.3g}',
-              flush=True)
-
+    seen = {f'roi{out}': [(p, rpn_like_boxes(gen, n).to(dev), out)
+                          for p in pyrs] for n, out in ((1000, 7), (100, 14))}
     sizes = (1000, 1000, 1000, 1000, 756)
     for K, thr, n_out, tag in ((4756, 0.7, 1000, 'rpn'),
                                (2048, 0.5, 100, 'det')):
-        cases = []
+        seen[tag] = []
         for _ in range(RUNS):
             boxes, scores = nms_case(gen, K)
             boxes = boxes * 2.0
@@ -791,31 +773,216 @@ def check_maskrcnn_kernels(dev, gen) -> dict:
                 if tag == 'rpn' else torch.randint(1, 91, (K,),
                                                    generator=gen,
                                                    dtype=torch.int32)
-            cases.append(tuple(t.to(dev) for t in (boxes, scores, cats)))
+            seen[tag].append((boxes.to(dev), scores.to(dev), cats.to(dev),
+                              thr, n_out))
+    return seen
 
-        def plain(c):
-            extent = c[0].max() + 1.0
-            return rtmdet.nms_fixed_plain(
-                c[0] + (c[2].float() * extent)[:, None], c[1], thr, n_out)
-        kept = []
-        for c in cases[:3]:
-            ki, km = maskrcnn.batched_nms_fixed(*c, thr, n_out)
-            pi, pm = plain(c)
-            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
-                fail(f'nms_large K={K}: keep set differs from the plain '
-                     f'version')
-            kept.append(int(km.sum()))
-        ms = time_ms(lambda c: maskrcnn.batched_nms_fixed(*c, thr, n_out),
-                     cases)
-        plain_ms = time_ms(plain, cases[:3])
-        # the IoUs of the upper triangle, ~12 operations each
-        b, by = bound(K * 20 + n_out * 9, K * (K - 1) / 2 * 12)
-        res[f'nms_large_{tag}'] = dict(max_abs_err=0.0, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=b,
-                                       bound_by=by)
-        print(f'[kernel] nms_large K={K} IoU {thr} {n_out} out (kept: '
-              f'{kept}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-              f'{b:.6f} ms ({by}), keep sets exact', flush=True)
+
+def maskrcnn_inputs(net, img: np.ndarray) -> dict:
+    """The K14 calls of one Mask R-CNN detector forward (``net`` on the
+    card, ``MaskRCNNDetector.infer`` of the BGR ``img``), recorded as
+    they are made: 'rpn' and 'det', the RPN's and the detection's
+    ``batched_nms_fixed`` arguments (boxes, scores, categories, IoU
+    threshold, outputs); 'roi7' and 'roi14', the box and mask heads'
+    ``roi_align_pyramid`` arguments (pyramid, boxes, out). Each a list
+    of one call."""
+    from cartoonsegmentation_torch.models import maskrcnn
+    from cartoonsegmentation_torch.pipeline.maskrcnn_det import \
+        MaskRCNNDetector
+    seen = {'rpn': [], 'det': [], 'roi7': [], 'roi14': []}
+    nms, roi = maskrcnn.batched_nms_fixed, maskrcnn.roi_align_pyramid
+
+    def rec_nms(boxes, scores, cats, thr, n_out):
+        seen['rpn' if n_out > 100 else 'det'].append(
+            (boxes.clone(), scores.clone(), cats.clone(), thr, n_out))
+        return nms(boxes, scores, cats, thr, n_out)
+
+    def rec_roi(pyr, boxes, out, sampling=2):
+        seen[f'roi{out}'].append((pyr, boxes.clone(), out))
+        return roi(pyr, boxes, out, sampling)
+    maskrcnn.batched_nms_fixed, maskrcnn.roi_align_pyramid = rec_nms, rec_roi
+    try:
+        MaskRCNNDetector(capacity=100, model=net, device='cuda').infer(img)
+    finally:
+        maskrcnn.batched_nms_fixed, maskrcnn.roi_align_pyramid = nms, roi
+    return seen
+
+
+def load_maskrcnn_inputs(path: str, dev) -> dict:
+    """The K14 calls that ``render_kernel_times.py --save-maskrcnn-inputs``
+    saved, on ``dev``, in ``maskrcnn_inputs``' layout (a list of calls
+    under each key, one a forward)."""
+    from cartoonsegmentation_torch.models import maskrcnn
+    seen = {'rpn': [], 'det': [], 'roi7': [], 'roi14': []}
+    for rec in torch.load(path):
+        pyr = maskrcnn.Pyramid(rec['pyr'][0].to(dev),
+                               tuple(map(tuple, rec['pyr'][1])))
+        for tag in ('rpn', 'det'):
+            b, s, c, thr, n_out = rec[tag]
+            seen[tag].append((b.to(dev), s.to(dev), c.to(dev), thr, n_out))
+        for out in (7, 14):
+            seen[f'roi{out}'].append((pyr, rec[f'roi{out}'].to(dev), out))
+    return seen
+
+
+def roi_cost(pyr, boxes: torch.Tensor, out: int, sampling: int = 2):
+    """K14a's (bytes, operations, bytes counting the whole pyramid): the
+    distinct pyramid rows that the in-bounds samples' four taps read
+    (C floats each), the boxes and the (N, C, out, out) output; per
+    output value 4 samples of 4 taps (a multiply-add each) and their 4
+    weights."""
+    from cartoonsegmentation_torch.models import maskrcnn
+    dev = boxes.device
+    C = pyr.flat.shape[1]
+    N = boxes.shape[0]
+    lv = maskrcnn.roi_levels(boxes).long()
+    hw = torch.tensor(pyr.sizes, device=dev)
+    Hn, Wn = hw[lv, 0], hw[lv, 1]
+    base = (torch.cumsum(hw[:, 0] * hw[:, 1], 0) - hw[:, 0] * hw[:, 1])[lv]
+    scale = 1.0 / torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)[lv]
+    idx = (torch.arange(out * sampling, device=dev) + 0.5) / sampling
+
+    def taps(lo, hi, n):
+        v = (lo * scale)[:, None] + idx * (torch.clamp(
+            hi * scale - lo * scale, min=1.0) / out)[:, None]
+        oob = (v < -1.0) | (v > n[:, None])
+        i0 = torch.minimum(v.clamp(min=0.0).long(), (n - 1)[:, None])
+        return oob, i0, torch.minimum(i0 + 1, (n - 1)[:, None])
+    oy, y0, y1 = taps(boxes[:, 1], boxes[:, 3], Hn)
+    ox, x0, x1 = taps(boxes[:, 0], boxes[:, 2], Wn)
+    rows = [base[:, None, None] + y[:, :, None] * Wn[:, None, None]
+            + x[:, None, :] for y in (y0, y1) for x in (x0, x1)]
+    keep = ~(oy[:, :, None] | ox[:, None, :])
+    n_rows = int(torch.unique(torch.stack(rows, -1)[keep]).numel()) \
+        if N else 0
+    tail = N * 16 + N * C * out * out * 4
+    return (n_rows * C * 4 + tail, N * C * out * out * 4 * 12,
+            pyr.flat.shape[0] * C * 4 + tail)
+
+
+def nms_cost(K: int, n_out: int):
+    """K14b's (bytes, operations): boxes, scores and categories read,
+    the outputs written; the IoUs of the upper triangle, ~12 operations
+    each."""
+    return K * 20 + n_out * 9, K * (K - 1) / 2 * 12
+
+
+def k14_calls(seen: dict) -> list:
+    """K14's four calls on recorded inputs (``synthetic_k14``,
+    ``maskrcnn_inputs``): [(tag, kernel, plain, inputs, costs)], costs
+    the (bytes, operations) of each input's call."""
+    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
+
+    def nms(x):
+        return maskrcnn.batched_nms_fixed(*x)
+
+    def nms_plain(x):
+        boxes, scores, cats, thr, n_out = x
+        extent = boxes.max() + 1.0
+        return rtmdet.nms_fixed_plain(
+            boxes + (cats.float() * extent)[:, None], scores, thr, n_out)
+
+    def roi(x):
+        return maskrcnn.roi_align_pyramid(*x)
+
+    def roi_plain(x):
+        return maskrcnn.roi_align_pyramid_plain(
+            x[0], x[1], maskrcnn.roi_levels(x[1]), x[2])
+    calls = []
+    for tag in ('rpn', 'det'):
+        if seen.get(tag):
+            calls.append((f'nms_large {tag}', nms, nms_plain, seen[tag],
+                          [nms_cost(x[0].shape[0], x[4]) for x in seen[tag]]))
+    for out in (7, 14):
+        xs = seen.get(f'roi{out}')
+        if xs:
+            calls.append((f'roialign {out}', roi, roi_plain, xs,
+                          [roi_cost(*x) for x in xs]))
+    return calls
+
+
+def nms_walk_tiles(x) -> tuple:
+    """(tiles K14b's walk resolves, tiles) on one call's inputs: the walk
+    stops at the tile of the n_out-th kept row scored above -1 in score
+    order, where there are n_out of them; else it resolves every tile."""
+    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
+    boxes, scores, cats, thr, n_out = x
+    tiles = -(-boxes.shape[0] // 64)
+    idx, keep = maskrcnn.batched_nms_fixed(*x)
+    if keep.numel() < n_out or not bool(keep.all()):
+        return tiles, tiles
+    order = rtmdet._stable_argsort_desc(scores)
+    return int((order == idx[-1]).nonzero()[0, 0]) // 64 + 1, tiles
+
+
+def by_kernel(fn, x, n: int = 10) -> dict:
+    """Device ms a call of fn(x) by kernel (and copy or fill), from a
+    torch.profiler pass over n calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(x)
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n / 1e3
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0}
+
+
+def check_k14(seen: dict, where: str) -> dict:
+    """K14b's keep sets exact and K14a within 1e-5 of the range of its
+    plain version's output, on every input of ``k14_calls(seen)``; each
+    call's ``ms``, ``device_ms`` (``graph_ms`` of its first input),
+    device time by kernel, bound (K14a: the pyramid rows its samples
+    touch; ``bound_ms_pyramid`` counts the whole pyramid) and kept
+    counts."""
+    res = {}
+    for tag, fn, plain, xs, costs in k14_calls(seen):
+        err, kept = 0.0, []
+        for x in xs[:3]:
+            got, want = fn(x), plain(x)
+            if tag.startswith('nms'):
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    fail(f'{tag} ({where}): keep set differs from the plain '
+                         f'version')
+                kept.append(int(got[1].sum()))
+                continue
+            e = float((got - want).abs().max())
+            span = float(want.max() - want.min())
+            if e > 1e-5 * span:
+                fail(f'{tag} ({where}): max err {e:.3g} above 1e-5 of '
+                     f'{span:.3g}')
+            err = max(err, e)
+        ms = time_ms(fn, xs * max(1, RUNS // len(xs)))
+        plain_ms = time_ms(plain, xs[:3])
+        dev_ms = statistics.median(graph_ms(fn, xs[0]) for _ in range(3))
+        parts = by_kernel(fn, xs[0])
+        b, by = bound(*costs[0][:2])
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                 bound_by=by, device_ms=dev_ms, by_kernel=parts)
+        line = ''
+        if tag.startswith('nms'):
+            r['kept'] = kept
+            r['walk_tiles'] = [nms_walk_tiles(x) for x in xs[:3]]
+            line = (f'kept {kept}, the walk resolves (tiles, of) '
+                    f'{r["walk_tiles"]}, keep sets exact')
+        else:
+            r['bound_ms_pyramid'] = bound(costs[0][2], costs[0][1])[0]
+            line = (f'max err {err:.3g}, bound with the whole pyramid '
+                    f'{r["bound_ms_pyramid"]:.4f} ms')
+        x = xs[0]
+        shape = f'K={x[0].shape[0]} {x[4]} out' if tag.startswith('nms') \
+            else f'{x[1].shape[0]} boxes'
+        print(f'[kernel] {tag} ({where}, {shape}): kernel {ms:.4f} ms '
+              f'(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+              f'{b:.6f} ms ({by}); {line}; by kernel: '
+              + ', '.join(f'{v:.4f} {k[:40]}' for k, v in sorted(
+                  parts.items(), key=lambda kv: -kv[1])), flush=True)
+        res[tag.replace(' ', '_')] = r
     return res
 
 
@@ -2715,6 +2882,10 @@ def main() -> None:
         mp.cfg.discfill_max_steps)
     compare_frames(mp, 'maskrcnn')
     del mp
+    # K14 on the inputs of the clip's own detector forward
+    real_k14 = check_k14(maskrcnn_inputs(mr_net, img),
+                         "the Mask R-CNN clip's forward")
+    res.update({f'{k}_real': v for k, v in real_k14.items()})
 
     # 11. Mask R-CNN in f32 card against CPU; the segmentation CLI --------
     compare_maskrcnn(img, mr_net)
@@ -2816,12 +2987,16 @@ def main() -> None:
          {f'{k}_real': v for k, v in res['discfill_exact_real'].items()}),
         # the box head's (1000, 7x7); the mask head's (100, 14x14) beside
         ('roialign', res['roialign_7'], 'models/maskrcnn.py:248',
-         {f'{k}_14': res['roialign_14'][k] for k in (
-             'max_abs_err', 'ms', 'plain_ms', 'bound_ms')}),
-        # the RPN's K = 4,756; the detection's K = 2,048 beside
+         {f'{k}_{tag}': res[f'roialign_{tag}'][k]
+          for tag in ('14', '7_real', '14_real') for k in (
+              'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+              'bound_ms_pyramid', 'device_ms')}),
+        # the RPN's K = 4,756; the detection's K = 2,048 beside; both on
+        # the clip's own inputs
         ('nms_large', res['nms_large_rpn'], 'models/maskrcnn.py:235',
-         {f'{k}_det': res['nms_large_det'][k] for k in (
-             'ms', 'plain_ms', 'bound_ms')}),
+         {f'{k}_{tag}': res[f'nms_large_{tag}'][k]
+          for tag in ('det', 'rpn_real', 'det_real') for k in (
+              'ms', 'plain_ms', 'bound_ms', 'device_ms', 'kept')}),
         # the full 576x1024 guide; a 300x440 crop and the CRF clip's
         # crops beside it
         ('kmeans', res['kmeans_full'], 'ops/crf.py:55',

@@ -2,18 +2,21 @@
 """Device times of the render kernels K1 (splat), K2 (the autozoom
 coverage), K3 (the disocclusion fill), K4 (bokeh), K5a (the frame
 epilogue), K5b (the depth colorize) and K11 (the exact fill), of the
-laplacian (K7) and of the dense CRF's k-means K12a and step K12b, of
-one checkout of the PyTorch/CUDA port, on one GPU.
+laplacian (K7), of the dense CRF's k-means K12a and step K12b and of
+Mask R-CNN's RoIAlign K14a and NMS K14b, of one checkout of the
+PyTorch/CUDA port, on one GPU.
 
     python3 render_kernel_times.py [--save-fill-inputs PATH]
                                    [--save-coverage-inputs PATH]
                                    [--save-crf-inputs PATH]
                                    [--save-exact-fill-inputs PATH]
+                                   [--save-maskrcnn-inputs PATH]
                                    [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
                                    [--coverage-inputs PATH]
                                    [--crf-inputs PATH]
                                    [--exact-fill-inputs PATH]
+                                   [--maskrcnn-inputs PATH]
                                    [--only WORD[,WORD...]] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
     python3 render_kernel_times.py --clips [--root DIR] [--seed N]
@@ -38,7 +41,13 @@ inputs of its densecrf_binary calls (each segment's crop: the
 foreground probability and the guide); with
 ``--save-exact-fill-inputs`` it runs the Mask R-CNN clip (chip_smoke's
 edged Mask R-CNN) and saves K11's inputs in 8 frames of its frame
-loop; then it exits.
+loop; with ``--save-maskrcnn-inputs`` it runs the Mask R-CNN clip's
+detector forward (chip_smoke's edged Mask R-CNN, ``MaskRCNNDetector.
+infer``) on the images of 3 seeds and saves the arguments of its K14
+calls (``chip_smoke.maskrcnn_inputs``: the RPN's and the detection's
+NMS candidates with their categories, the flattened pyramid, ~88 MB an
+image, the 1,000 proposals and the 100 detections that the RoIAligns
+read); then it exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
 this file's directory), builds its ``splat``, ``coverage``,
@@ -64,7 +73,11 @@ the filled frames, read in place; the laplacian of a 576x1024x1 mask;
 K12a on chip_smoke's image's guide at 576x1024 and 300x440 and, with
 ``--crf-inputs``, on each saved crop's guide; K12b's norm pass, one
 step and the whole densecrf_binary at 576x1024 on chip_smoke's image
-and sloppy mask and, with ``--crf-inputs``, on each saved crop) prints,
+and sloppy mask and, with ``--crf-inputs``, on each saved crop; K14a
+at (1000, 7x7) and (100, 14x14) and K14b at the RPN's K = 4,756 and
+the detection's K = 2,048 on chip_smoke's synthetic inputs
+(``synthetic_k14``) and, with ``--maskrcnn-inputs``, on the saved
+calls) prints,
 for each call (with ``--only``, for the calls whose tag holds one of
 the words):
 - its device time (the call captured in a CUDA graph and replayed:
@@ -79,10 +92,14 @@ the words):
 - its largest difference from the plain version (densecrf_binary: the
   share of mask pixels unlike the plain version's on the CPU; K12a:
   the share of labels);
-- for K5a, K11, K12a and K12b, chip_smoke's bound of each input's call
-  (K5a: ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
+- for K5a, K11, K12a, K12b and K14, chip_smoke's bound of each input's
+  call (K5a: ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
   K12a: ``kmeans_cost``; K12b: ``crf_cost``, for densecrf_binary its
-  norm pass and 5 steps), their median and sum.
+  norm pass and 5 steps; K14a: ``roi_cost``, the pyramid rows its
+  samples touch; K14b: ``nms_cost``), their median and sum;
+- for K14, the host's µs a call (``chip_smoke.host_us``, 200 calls
+  back to back) and, for K14b, the kept count of each input and the
+  tiles its walk resolves (``chip_smoke.nms_walk_tiles``).
 The wrappers' signatures are the same in every checkout since the
 port's first slice, so two checkouts compare in one call on one card:
 save the inputs once, then run the script with each root in turn (A,
@@ -120,6 +137,11 @@ def main() -> None:
                     '--save-exact-fill-inputs, timed as a call of their own')
     ap.add_argument('--save-exact-fill-inputs', metavar='PATH',
                     help='save K11 inputs of the Mask R-CNN clip')
+    ap.add_argument('--maskrcnn-inputs', help='K14 inputs saved by '
+                    '--save-maskrcnn-inputs, timed as calls of their own')
+    ap.add_argument('--save-maskrcnn-inputs', metavar='PATH',
+                    help='save the K14 inputs of the Mask R-CNN clip\'s '
+                    'detector forward on 3 images')
     ap.add_argument('--only', help='comma-separated words: time only the '
                     'calls whose tag holds one of them')
     ap.add_argument('--clips', action='store_true',
@@ -144,8 +166,11 @@ def main() -> None:
         save_crf_inputs(cs, args.save_crf_inputs, args.seed)
     if args.save_exact_fill_inputs:
         save_exact_fill_inputs(cs, args.save_exact_fill_inputs, args.seed)
+    if args.save_maskrcnn_inputs:
+        save_maskrcnn_inputs(cs, args.save_maskrcnn_inputs, args.seed)
     if args.save_fill_inputs or args.save_coverage_inputs or \
-            args.save_crf_inputs or args.save_exact_fill_inputs:
+            args.save_crf_inputs or args.save_exact_fill_inputs or \
+            args.save_maskrcnn_inputs:
         return
     sys.path.insert(0, root)                      # the package measured
     if args.loop:
@@ -161,13 +186,12 @@ def main() -> None:
     from cartoonsegmentation_torch.pipeline.depth import (
         colorize_gray_r, colorize_gray_r_plain)
     from cartoonsegmentation_torch.utils import image
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     if not os.path.abspath(pointcloud.__file__).startswith(root):
         cs.fail(f'imported {pointcloud.__file__}, not from {root}')
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
-                 'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf'])
+                 'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf',
+                 'roialign', 'nms_large'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -258,6 +282,7 @@ def main() -> None:
     calls += epilogue_calls(cs, image, bokeh, colorize_gray_r, filled)
     calls += kmeans_calls(cs, crf, args.crf_inputs)
     calls += crf_calls(cs, crf, gen, args.crf_inputs)
+    calls += k14_calls(cs, gen, args.maskrcnn_inputs)
     if args.only:
         words = args.only.split(',')
         calls = [c for c in calls if any(wd in c[0] for wd in words)]
@@ -278,21 +303,21 @@ def main() -> None:
                 if opt.get('graph', True) else float('nan') for x in xs]
         dev_ms = statistics.median(each)
         ms = cs.time_ms(fn, xs * max(1, 10 // len(xs)))
-        x = xs[0]
-        fn(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn(x)
-            torch.cuda.synchronize()
-        by = {e.key: e.self_device_time_total / 10 / 1e3
-              for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU
-              and e.self_device_time_total > 0}
+        by = cs.by_kernel(fn, xs[0])
         out[tag] = dict(device_ms=dev_ms, ms=ms, max_abs_err=err,
                         by_kernel=by, device_ms_each=each)
         print(f'[{tag}] device {dev_ms:.4f} ms, ms {ms:.4f}, max err vs '
               f'plain {err:.3g}', flush=True)
+        if opt.get('host'):
+            x = xs[0]
+            out[tag]['host_us'] = cs.host_us({tag: lambda: fn(x)}, n=200,
+                                             rounds=3)[tag]
+            print(f'   host {out[tag]["host_us"]:.2f} us a call', flush=True)
+        if tag.startswith('nms_large'):
+            out[tag]['kept'] = [int(fn(x)[1].sum()) for x in xs]
+            out[tag]['walk_tiles'] = [cs.nms_walk_tiles(x) for x in xs]
+            print(f'   kept {out[tag]["kept"]}; the walk resolves (tiles, '
+                  f'of) {out[tag]["walk_tiles"]}', flush=True)
         if 'bounds' in opt:
             bounds = [cs.bound(*c) for c in opt['bounds']]
             b_each = [b for b, _ in bounds]
@@ -477,6 +502,52 @@ def crf_calls(cs, crf, gen, crf_inputs) -> list:
                   (f'densecrf_binary {tag}', dense, dense_plain, whole[sl],
                    {'graph': captures, 'bounds': cost(sl, 5, True)})]
     return calls
+
+
+def k14_calls(cs, gen, inputs_path) -> list:
+    """K14's calls (``chip_smoke.k14_calls``) on chip_smoke's synthetic
+    inputs and, with ``inputs_path``, on the saved calls of the Mask
+    R-CNN clip's forwards; bound, host µs and (K14b) kept counts."""
+    import torch
+    dev = torch.device('cuda')
+    sets = [('synthetic', cs.synthetic_k14(gen, dev))]
+    if inputs_path:
+        seen = cs.load_maskrcnn_inputs(inputs_path, dev)
+        sets.append((f'the Mask R-CNN clip\'s {len(seen["rpn"])} forwards',
+                     seen))
+    return [(f'{tag} {where}', fn, plain, xs,
+             {'bounds': [c[:2] for c in costs], 'host': True})
+            for where, seen in sets
+            for tag, fn, plain, xs, costs in cs.k14_calls(seen)]
+
+
+def save_maskrcnn_inputs(cs, path: str, seed: int, images: int = 3) -> None:
+    """Save the K14 calls of the Mask R-CNN clip's detector forward
+    (``chip_smoke.maskrcnn_inputs`` with ``edged_maskrcnn``) on the
+    images of seeds seed .. seed + images - 1 to ``path``: a list of
+    one dict an image, the pyramid once."""
+    import torch
+    from cartoonsegmentation_torch.ops import _cuda
+    print(f'card: {cs.card_line()}', flush=True)
+    _cuda.build(['roialign', 'nms_large'])
+    saved = []
+    for s in range(seed, seed + images):
+        img = cs.make_image(s)
+        seen = cs.maskrcnn_inputs(cs.edged_maskrcnn(s, img), img)
+        pyr = seen['roi7'][0][0]
+        rec = {'pyr': (pyr.flat.cpu(), pyr.sizes)}
+        for tag in ('rpn', 'det'):
+            b, sc, c, thr, n_out = seen[tag][0]
+            rec[tag] = (b.cpu(), sc.cpu(), c.cpu(), thr, n_out)
+            print(f'[save] seed {s} {tag}: K = {b.shape[0]}, '
+                  f'{int(torch.isinf(sc).sum())} -inf scores, '
+                  f'{len(torch.unique(c))} categories', flush=True)
+        for out in (7, 14):
+            rec[f'roi{out}'] = seen[f'roi{out}'][0][1].cpu()
+        saved.append(rec)
+    torch.save(saved, path)
+    print(f'saved the K14 calls of {len(saved)} forwards to {path}',
+          flush=True)
 
 
 def shipped_default_clip(cs, seed: int, **cfg):

@@ -8,9 +8,11 @@ package, so it also runs on a machine with a card and no JAX:
 
 Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output,
 the per-instance medians (K6), the median-5 and laplacian (K7), the
-NMS keep sets (K8), the colorize (K5b), the cloud compaction (K10)
-and the CRF's norm pass (K12b). Within the stated tolerance: splat
-sums, bokeh, the dynamic mask heads (K9), the frame epilogue (K5a),
+NMS keep sets (K8, and K14b's, a graph-captured call too), the
+RoIAlign's level map (K14a), the colorize (K5b), the cloud compaction
+(K10) and the CRF's norm pass (K12b). Within the stated tolerance:
+splat sums, bokeh, the dynamic mask heads (K9), the RoIAlign (K14a: 1e-5
+of the range), the frame epilogue (K5a),
 SAM's rel-pos attention (K15a), the k-means labels (K12a: their share),
 the CRF steps (K12b), SwinV2's window attention (K15b), the push-pull
 fill (K13a) and the jitter refine (K13b: the share of equal hole
@@ -339,25 +341,43 @@ def test_fill_exact_kernel_vs_plain(rng, cuda, max_steps):
         tdiscfill.fill_disocclusion_plain(img, depth, max_steps))
 
 
-def _device_ops(fn):
-    """The device operations (kernels, copies, memsets) of one call of
-    fn, after a warm-up call, by name under torch.profiler (profiled
-    once more if the first profile recorded no device activity at
-    all)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ops = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-        if ops:
-            break
-    return ops
+# CUgraphNodeType values (cuda.h) of the device operations
+_NODE_KINDS = {0: 'kernel', 1: 'memcpy', 2: 'memset', 3: 'host',
+               10: 'mem_alloc', 11: 'mem_free'}
+
+
+def _device_ops(fn, lib):
+    """The device operations (kernels, copies, memsets; libcuda's
+    empty nodes left out) of one call of fn, after a warm-up call, as
+    the nodes of a CUDA graph that captures it; and the launches of the
+    kernel library `lib` counted in that call. A graph holds every
+    operation a call enqueues, where torch.profiler's device trace on
+    the card at times records none."""
+    import ctypes
+    cu = ctypes.CDLL('libcuda.so.1')
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = _cuda.LAUNCHES[lib]
+    with torch.cuda.graph(graph):
+        fn()
+    launches = _cuda.LAUNCHES[lib] - before
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    ops = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        if kind.value != 5:
+            ops.append(_NODE_KINDS.get(kind.value, f'type {kind.value}'))
+    return ops, launches
 
 
 def _in_graph(fn):
@@ -433,8 +453,8 @@ def test_fill_exact_kernel_one_launch_graph_no_sync(rng, cuda):
 
     def call():
         return tdiscfill.fill_disocclusion(img, depth, 128)
-    ops = _device_ops(call)
-    assert len(ops) == 1 and 'discfill_exact' in ops[0], ops
+    ops, launches = _device_ops(call, 'discfill_exact')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
     first = _no_sync(call)
     assert torch.equal(first, call())
     graph, out = _in_graph(call)
@@ -555,21 +575,77 @@ def _nms_large_case(rng, K, n_cats):
     return boxes, scores, cats
 
 
+def _nms_large_kind(rng, K, n_cats, kind):
+    """_nms_large_case with its scores or boxes made into one of K14b's
+    edge cases: scores tied in 4 values, exactly -1.0 (kept rows keyed
+    as the rows not kept), +-0.0, or disjoint boxes (nothing suppressed:
+    the walk stops at max_out)."""
+    boxes, scores, cats = _nms_large_case(rng, K, n_cats)
+    if kind == 'ties':
+        scores = torch.from_numpy((rng.randint(0, 4, K) / 4.0)
+                                  .astype(np.float32))
+    elif kind == 'minus_one':
+        scores[torch.from_numpy(rng.rand(K) < 0.3)] = -1.0
+        scores[torch.from_numpy(rng.rand(K) < 0.1)] = -2.0
+    elif kind == 'zeros':
+        scores = torch.from_numpy(np.where(rng.rand(K) < 0.5, 0.0, -0.0)
+                                  .astype(np.float32))
+    elif kind == 'disjoint':
+        g = torch.arange(K, dtype=torch.float32)
+        boxes = torch.stack([g * 20, g * 0, g * 20 + 10, g * 0 + 10], 1)
+    return boxes, scores, cats
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('K,thr,max_out,n_cats', [
-    (4756, 0.7, 1000, 5), (2048, 0.5, 100, 90), (600, 0.6, 600, 1),
-    (97, 0.6, 40, 3)])
-def test_nms_large_kernel_vs_plain(rng, cuda, K, thr, max_out, n_cats):
+@pytest.mark.parametrize('K,thr,max_out,n_cats,kind', [
+    pytest.param(4756, 0.7, 1000, 5, 'clusters', id='4756-0.7-1000-5'),
+    pytest.param(2048, 0.5, 100, 90, 'clusters', id='2048-0.5-100-90'),
+    pytest.param(600, 0.6, 600, 1, 'clusters', id='600-0.6-600-1'),
+    pytest.param(97, 0.6, 40, 3, 'clusters', id='97-0.6-40-3'),
+    (2048, 0.5, 2048, 3, 'ties'), (1000, 0.5, 300, 3, 'minus_one'),
+    (1000, 0.5, 1000, 3, 'minus_one'), (300, 0.5, 300, 2, 'zeros'),
+    (4756, 0.7, 1000, 1, 'disjoint'), (1, 0.5, 1, 1, 'clusters'),
+    (65, 0.5, 65, 1, 'clusters'), (16384, 0.7, 1000, 5, 'clusters'),
+    (16384, 0.5, 16384, 90, 'minus_one')])
+def test_nms_large_kernel_vs_plain(rng, cuda, K, thr, max_out, n_cats,
+                                   kind):
     """Every output slot, index and mask, equal to the plain version's,
     through the category offsets of batched_nms_fixed."""
-    boxes, scores, cats = (t.to(cuda) for t in _nms_large_case(rng, K,
-                                                                n_cats))
+    boxes, scores, cats = (t.to(cuda) for t in _nms_large_kind(
+        rng, K, n_cats, kind))
     ki, km = tmaskrcnn.batched_nms_fixed(boxes, scores, cats, thr, max_out)
     extent = boxes.max() + 1.0
     shifted = boxes + (cats.float() * extent)[:, None]
     pi, pm = trtmdet.nms_fixed_plain(shifted, scores, thr, max_out)
     assert torch.equal(ki, pi) and torch.equal(km, pm)
-    assert 0 < int(km.sum()) < K
+    assert 0 < int(km.sum()) <= K
+    if kind in ('clusters', 'ties') and K > 1:
+        assert int(km.sum()) < K
+
+
+@pytest.mark.gpu
+def test_nms_large_graph_capture(rng, cuda):
+    """A call captured in a CUDA graph: the replay on new inputs copied
+    into the captured ones gives the plain version's keep set."""
+    cases = [tuple(t.to(cuda) for t in _nms_large_case(rng, 2048, 90))
+             for _ in range(2)]
+    boxes, scores, cats = (t.clone() for t in cases[0])
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tmaskrcnn.batched_nms_fixed(boxes, scores, cats, 0.5, 100)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ki, km = tmaskrcnn.batched_nms_fixed(boxes, scores, cats, 0.5, 100)
+    for case in cases[::-1]:
+        for dst, src in zip((boxes, scores, cats), case):
+            dst.copy_(src)
+        graph.replay()
+        b, sc, c = case
+        pi, pm = trtmdet.nms_fixed_plain(
+            b + (c.float() * (b.max() + 1.0))[:, None], sc, 0.5, 100)
+        assert torch.equal(ki, pi) and torch.equal(km, pm)
 
 
 def _pyramid(rng, C, H=64, W=96):
@@ -582,18 +658,92 @@ def _pyramid(rng, C, H=64, W=96):
     return feats, boxes
 
 
+def _boundary_boxes():
+    """Square boxes at the level map's edges: sqrt(area) at 112, 224
+    and 448 px, and where floor(4 + log2(sqrt(area) / 224 + 1e-6))
+    steps (1e-6 * 224 px below them), each 0 to 3 ulps either side; and
+    a box whose samples all fall outside the image."""
+    sides = []
+    for k in (0.5, 1.0, 2.0):
+        for edge in (224.0 * k, (k - 1e-6) * 224.0):
+            e = np.float32(edge)
+            sides += [e + np.float32(j) * np.spacing(e) for j in range(-3, 4)]
+    sides = np.array(sides, np.float32)
+    zero = np.zeros_like(sides)
+    boxes = np.stack([zero, zero, sides, sides], 1)
+    far = np.array([[-900.0, -800.0, -700.0, -650.0]], np.float32)
+    return torch.from_numpy(np.concatenate([boxes, far]))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('C,out', [(256, 7), (40, 14), (300, 7)])
-def test_roi_align_kernel_vs_plain(rng, cuda, C, out):
-    """Every level, out-of-bounds and edge samples; the same level map;
-    f32 sums of the 2x2 samples in another order."""
-    feats, boxes = _pyramid(rng, C)
+@pytest.mark.parametrize('C,out,boxes,sampling', [
+    pytest.param(256, 7, 'mixed', 2, id='256-7'),
+    pytest.param(40, 14, 'mixed', 2, id='40-14'),
+    pytest.param(300, 7, 'mixed', 2, id='300-7'),
+    (256, 14, 'boundary', 2), (36, 7, 'boundary', 2), (256, 7, 'path', 2),
+    (256, 14, 'path', 2), (40, 7, 'mixed', 3), (256, 14, 'mixed', 1)])
+def test_roi_align_kernel_vs_plain(rng, cuda, C, out, boxes, sampling):
+    """Every level, out-of-bounds and edge samples, boxes at the level
+    map's edges and the path's shapes (1000 boxes at 7x7, 100 at 14x14
+    over the 768x1344 canvas's pyramid), sampling 2 (the path's) and
+    others (the kernel's runtime path); the kernel's level map equal to
+    roi_levels; f32 sums of the samples in another order."""
+    if boxes == 'path':
+        n = 1000 if out == 7 else 100
+        feats, _ = _pyramid(rng, C, 768, 1344)
+        c = rng.uniform(0, 1, (n, 2)) * [1333.0, 750.0]
+        side = 8.0 * np.exp(rng.uniform(0, 4.5, (n, 2)))
+        bx = torch.from_numpy(np.concatenate([c - side / 2, c + side / 2], 1)
+                              .astype(np.float32))
+    else:
+        feats, bx = _pyramid(rng, C, 512, 768) if boxes == 'boundary' \
+            else _pyramid(rng, C)
+        if boxes == 'boundary':
+            bx = _boundary_boxes()
+    pyr = tmaskrcnn.flatten_pyramid([f.to(cuda) for f in feats])
+    bx = bx.to(cuda)
+    got = tmaskrcnn.roi_align_pyramid(pyr, bx, out, sampling)
+    lvl = tmaskrcnn.roi_levels(bx)
+    want = tmaskrcnn.roi_align_pyramid_plain(pyr, bx, lvl, out, sampling)
+    assert got.shape == (bx.shape[0], C, out, out)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.max() - want.min())
+    levels = torch.full_like(lvl, -1)
+    tmaskrcnn._roi_align_launch(pyr, bx, out, sampling, levels=levels)
+    assert torch.equal(levels, lvl)
+    if boxes == 'boundary':
+        assert len(set(lvl.tolist())) == 4       # the edges are crossed
+        assert not bool(got[-1].any())           # every sample left out
+
+
+@pytest.mark.gpu
+def test_roi_align_nan_away_from_samples(rng, cuda):
+    """NaN in every pyramid row no in-bounds sample reads (the whole of
+    the levels no box maps to, and the pixels under a box whose samples
+    all lie outside the image): the output stays finite and equal to
+    the plain version's, which selects such samples out."""
+    feats, boxes = _pyramid(rng, 64)
+    boxes = torch.cat([boxes[:1], torch.tensor([[100.0, 70.0, 160.0,
+                                                  120.0]])])
     pyr = tmaskrcnn.flatten_pyramid([f.to(cuda) for f in feats])
     boxes = boxes.to(cuda)
-    got = tmaskrcnn.roi_align_pyramid(pyr, boxes, out)
-    want = tmaskrcnn.roi_align_pyramid_plain(
-        pyr, boxes, tmaskrcnn.roi_levels(boxes), out)
-    assert got.shape == (7, C, out, out)
+    lvl = tmaskrcnn.roi_levels(boxes)
+    assert lvl.tolist() == [0, 0]
+    sizes = pyr.sizes
+    flat = pyr.flat.clone()
+    flat[sizes[0][0] * sizes[0][1]:] = float('nan')
+    # the second box lies right of and below the 96x64 image: its
+    # samples' clamped taps would read the last row and column
+    h, w = sizes[0]
+    grid = flat[:h * w].view(h, w, -1)
+    grid[-1] = float('nan')
+    grid[:, -1] = float('nan')
+    pyr = tmaskrcnn.Pyramid(flat, sizes)
+    got = tmaskrcnn.roi_align_pyramid(pyr, boxes, 7)
+    want = tmaskrcnn.roi_align_pyramid_plain(pyr, boxes, lvl, 7)
+    assert bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(want).all())
+    assert not bool(got[1].any())
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.max() - want.min())
 
@@ -923,8 +1073,8 @@ def test_kmeans_kernel_one_launch_graph_no_sync(rng, cuda, N):
 
     def call():
         return tcrf.kmeans_labels(g, 10)
-    ops = _device_ops(call)
-    assert len(ops) == 1 and 'kmeans' in ops[0], ops
+    ops, launches = _device_ops(call, 'kmeans')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
     first = _no_sync(call)
     assert torch.equal(first, call())
     graph, out = _in_graph(call)
