@@ -5,20 +5,16 @@
 // score-ordered list) at Mask R-CNN's sizes: the RPN's K = 4,756
 // per-level tops (IoU 0.7, 1000 out) and the detection's K = 2,048
 // candidates (IoU 0.5, 100 out). The category offsets are added in
-// torch before the call. Semantics of the scan, exactly (as csrc/nms.cu,
-// K8, which stops at K = 512):
-//   order = stable argsort(-scores), floats in their total order
-//   box i of that order is kept when no kept box before it has
-//   IoU > iou_thr with it; boxes j <= i are never suppressed by i
-//   top  = stable argsort(-where(kept, score, -1))[:max_out]
-//   keep_idx = order[top], keep_mask = kept[top] & (kept score > -1)
-// IoU = inter / max(area_a + area_b - inter, 1e-9), in that order.
+// torch before the call. The semantics, the score key (jnp.argsort's
+// canonicalised float order), the IoU test, a tile's keep as a fixed
+// point and the output are csrc/nms_common.cuh's, shared with K8
+// (csrc/nms.cu, which stops at K = 512).
 //
 // Bound on the card: latency. The IoUs (11.3 M pairs at K = 4,756,
 // ~0.002 ms of f32 work) spread over many blocks; the greedy walk is a
 // chain of dependent steps. Three kernels on the stream, no dynamic
 // shared memory (so no per-call attribute):
-//   1. rank_kernel: the sort as a rank. key(i) = total_order(-score) <<
+//   1. rank_kernel: the sort as a rank. key(i) = kb_sort_key(-score) <<
 //      32 | i is unique, and i's place in `order` is the number of keys
 //      below its own. A block counts it for 32 candidates (a lane each)
 //      against all K score keys, staged in shared memory 8,192 at a
@@ -40,52 +36,31 @@
 //      row not yet decided is removed once a kept row suppresses it,
 //      kept once every candidate that could suppress it is decided and
 //      none is kept (the greedy order as a fixed point; the rounds
-//      number the tile's longest chain of rows waiting on one another).
-//      It holds a lane's two rows' diagonal and next-column words in
-//      registers, loaded a tile ahead, and forms the next tile's
-//      `removed` word itself (a warp reduce of the kept rows' words in
-//      that column). In the same step the other 15 warps OR tile r - 1's
-//      kept rows into the words from r + 1 on (a thread a word and a
-//      share of the rows, its loads issued first, one atomic a half
-//      word). The walk stops once the output is known (below); then the
-//      block writes the output rows without a second sort.
-//
-// Why the walk may stop early, and the output without a second sort.
-// Let e = total_order(-(-1.0f)), the key of a row that is not kept. The
-// output is top = stable argsort(key2)[:n_out], key2(p) =
-// total_order(-(kept(p) ? score(p) : -1.0f)). A kept row's key2 is its
-// key from the first sort, and the first sort put the rows in that key
-// order with ties by index, so the kept rows already stand in key2
-// order. Every row not kept has key2 = e. So top is three groups, each
-// in row order:
-//   G1 the kept rows with key2 < e,
-//   G2 the rows with key2 = e: not kept, or kept with score exactly -1,
-//   G3 the kept rows with key2 > e (-inf; NaN where its key falls so),
-// truncated to n_out. G1 grows only as the walk advances and comes
-// first, so once the walk has found n_out rows of G1 the output is
-// those rows and no later row can enter it: the walk stops there.
-// Otherwise the walk runs to the end and one block scan over the K rows
-// places G2 and G3 after G1.
-#include "kb_common.cuh"
+//      number the tile's longest chain of rows waiting on one another:
+//      kb_nms_tile_keep). It holds a lane's two rows' diagonal and
+//      next-column words in registers, loaded a tile ahead, and forms
+//      the next tile's `removed` word itself (a warp reduce of the kept
+//      rows' words in that column). In the same step the other 15
+//      warps OR tile r - 1's kept rows into the words from r + 1 on (a
+//      thread a word and a share of the rows, its loads issued first,
+//      one atomic a half word). The walk stops once it has found n_out
+//      kept rows scored above -1; then the block writes the output rows
+//      without a second sort (kb_nms_write; why both are exact:
+//      nms_common.cuh).
+#include "nms_common.cuh"
 
 namespace {
 
 constexpr int kMaxK = 16384;
-constexpr int kTile = 64;
+constexpr int kTile = kNmsTile;
 constexpr int kMaxWords = kMaxK / kTile;
 constexpr int kRankThreads = 1024;
 constexpr int kRankTile = 8192;
 constexpr int kWalkThreads = 512;
-constexpr unsigned kFull = 0xffffffffu;
-
-// float → unsigned int, increasing in the float total order
-__device__ __forceinline__ unsigned int total_order(float f) {
-  const unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
+constexpr unsigned kFull = kNmsFull;
 
 // 1. order = stable argsort(-scores) as ranks; the sorted boxes, scores.
-// key(j) < key(i) when total_order(-score) is lower, or equal with j < i
+// key(j) < key(i) when kb_sort_key(-score) is lower, or equal with j < i
 __global__ void __launch_bounds__(kRankThreads)
     rank_kernel(const float4* __restrict__ boxes,
                 const float* __restrict__ scores, int K,
@@ -97,7 +72,7 @@ __global__ void __launch_bounds__(kRankThreads)
   __shared__ int part[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + lane;
-  const unsigned int mine = i < K ? total_order(-scores[i]) : ~0u;
+  const unsigned int mine = i < K ? kb_sort_key(-scores[i]) : ~0u;
   int below = 0;
   for (int t0 = 0; t0 < K; t0 += kRankTile) {
     const int n = min(kRankTile, K - t0);
@@ -105,7 +80,7 @@ __global__ void __launch_bounds__(kRankThreads)
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
       const int j = q * kRankThreads + threadIdx.x;
-      v[q] = j < n ? total_order(-scores[t0 + j]) : 0u;
+      v[q] = j < n ? kb_sort_key(-scores[t0 + j]) : 0u;
     }
     __syncthreads();
 #pragma unroll
@@ -148,34 +123,18 @@ __global__ void __launch_bounds__(kTile)
   if (jc < K) {
     const float4 o = sboxes[jc];
     cb[t] = o;
-    ca[t] = fmaxf(o.z - o.x, 0.0f) * fmaxf(o.w - o.y, 0.0f);
+    ca[t] = kb_box_area(o);
   }
   __syncthreads();
   const int i = r * kTile + t;
   if (i >= K) return;
   const float4 a = sboxes[i];
-  const float area_a = fmaxf(a.z - a.x, 0.0f) * fmaxf(a.w - a.y, 0.0f);
+  const float area_a = kb_box_area(a);
   const int b1 = min(kTile, K - c * kTile);
-  // RN(inter / den) > thr without the division: inter > m * den in
-  // float64, m the midpoint of thr and the next float up (both exact:
-  // m has 25 significant bits, den 24); at m itself round-to-nearest-
-  // even decides. Non-finite values take the division.
-  const float up = nextafterf(iou_thr, INFINITY);
-  const double mid = 0.5 * ((double)iou_thr + (double)up);
-  const bool tie_up = (__float_as_uint(up) & 1u) == 0;
+  const KbIouThr thr = kb_iou_thr(iou_thr);
   unsigned long long bits = 0;
-  for (int b = 0; b < b1; ++b) {
-    const float4 o = cb[b];
-    const float iw = fmaxf(fminf(a.z, o.z) - fmaxf(a.x, o.x), 0.0f);
-    const float ih = fmaxf(fminf(a.w, o.w) - fmaxf(a.y, o.y), 0.0f);
-    const float inter = iw * ih;
-    const float den = fmaxf(area_a + ca[b] - inter, 1e-9f);
-    const double p = mid * (double)den;
-    const bool hit = isfinite(inter) && isfinite(den)
-                         ? (double)inter > p || ((double)inter == p && tie_up)
-                         : inter / den > iou_thr;
-    if (hit) bits |= 1ull << b;
-  }
+  for (int b = 0; b < b1; ++b)
+    if (kb_iou_above(a, area_a, cb[b], ca[b], thr)) bits |= 1ull << b;
   if (c == r) bits &= ~(1ull << t);  // a row does not suppress itself
   mask[(long long)i * words + c] = bits;
 }
@@ -236,7 +195,6 @@ __global__ void __launch_bounds__(kWalkThreads)
     stop = 0;
   }
   __syncthreads();
-  const unsigned int e = total_order(1.0f);
   const unsigned long long below_a = (1ull << lane) - 1;
   const unsigned long long below_b = (1ull << (32 + lane)) - 1;
 
@@ -254,39 +212,13 @@ __global__ void __launch_bounds__(kWalkThreads)
       const int n = min(kTile, K - r * kTile);
       const unsigned long long cand = ~(removed[r] | carry) &
                                       (n == kTile ? ~0ull : (1ull << n) - 1);
-      // the greedy order as a fixed point, all 64 rows at once: an
-      // undecided row is removed once a kept row suppresses it, kept
-      // once every candidate that could suppress it is decided and none
-      // is kept. The lowest undecided row is decided in every round, so
-      // the rounds number the longest chain of rows that wait on one
-      // another, not the kept rows; each round is four ballots.
-      const unsigned long long pa = cur.da & below_a & cand;
-      const unsigned long long pb = cur.db & below_b & cand;
-      unsigned long long kept = 0ull, undecided = cand;
-      while (undecided) {
-        const bool oa = (undecided >> lane) & 1ull;
-        const bool ob = (undecided >> (32 + lane)) & 1ull;
-        const bool ka = oa && !(pa & (kept | undecided));
-        const bool kb = ob && !(pb & (kept | undecided));
-        const bool ra = oa && (pa & kept), rb = ob && (pb & kept);
-        const unsigned long long nk =
-            (unsigned long long)__ballot_sync(kFull, ka) |
-            ((unsigned long long)__ballot_sync(kFull, kb) << 32);
-        const unsigned long long nr =
-            (unsigned long long)__ballot_sync(kFull, ra) |
-            ((unsigned long long)__ballot_sync(kFull, rb) << 32);
-        kept |= nk;
-        undecided &= ~(nk | nr);
-      }
+      // the greedy order as a fixed point, all 64 rows at once
+      const unsigned long long kept = kb_nms_tile_keep(
+          cand, cur.da & below_a & cand, cur.db & below_b & cand, lane);
       const bool kpa = (kept >> lane) & 1ull;
       const bool kpb = (kept >> (32 + lane)) & 1ull;
       carry = warp_or((kpa ? cur.na : 0ull) | (kpb ? cur.nb : 0ull));
-      const unsigned long long lt =
-          (unsigned long long)__ballot_sync(
-              kFull, total_order(-cur.sa) < e) |
-          ((unsigned long long)__ballot_sync(
-               kFull, total_order(-cur.sb) < e)
-           << 32);
+      const unsigned long long lt = kb_nms_g1_rows(cur.sa, cur.sb);
       // the kept rows' list for the pushers
       unsigned char* list = kept_rows[r & 1];
       if (kpa) list[__popcll(kept & below_a)] = (unsigned char)lane;
@@ -340,67 +272,8 @@ __global__ void __launch_bounds__(kWalkThreads)
       break;
     }
   }
-  // G1: the kept rows keyed below -1's key, in row order
-  for (int p = t; p < walked * kTile; p += kWalkThreads) {
-    const unsigned long long g = g1m[p >> 6];
-    const int j = p & 63;
-    if (!((g >> j) & 1ull)) continue;
-    const int q = g1w[p >> 6] + __popcll(g & ((1ull << j) - 1));
-    if (q < n_out) {
-      keep_idx[q] = (long long)order[p];
-      keep_mask[q] = sscores[p] > -1.0f;
-    }
-  }
-  const int g1n = g1w[walked];
-  if (g1n >= n_out) return;
-
-  // the walk ran to the end: G2 and G3 after G1, each in row order. A
-  // thread takes `per` consecutive rows; one block scan of its counts
-  // (G2 in the low 16 bits, G3 in the high 16: K <= 16384)
-  const int per = (K + kWalkThreads - 1) / kWalkThreads;
-  const int p0 = min(K, t * per), p1 = min(K, p0 + per);
-  unsigned int cnt = 0;
-  for (int p = p0; p < p1; ++p) {
-    const bool kp = (keptw[p >> 6] >> (p & 63)) & 1ull;
-    const unsigned int k1 = total_order(-sscores[p]);
-    cnt += (!kp || k1 == e) ? 1u : (k1 > e ? 65536u : 0u);
-  }
-  unsigned int inc = cnt;
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned int o = __shfl_up_sync(kFull, inc, d);
-    if (lane >= d) inc += o;
-  }
-  if (lane == 31) warp_sum[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned int s = lane < kWalkThreads / 32 ? warp_sum[lane] : 0u;
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned int o = __shfl_up_sync(kFull, s, d);
-      if (lane >= d) s += o;
-    }
-    if (lane < kWalkThreads / 32) warp_sum[lane] = s;  // inclusive
-  }
-  __syncthreads();
-  const unsigned int before = inc - cnt + (warp ? warp_sum[warp - 1] : 0u);
-  const int n2 = (int)(warp_sum[kWalkThreads / 32 - 1] & 0xffffu);
-  int q2 = g1n + (int)(before & 0xffffu);
-  int q3 = g1n + n2 + (int)(before >> 16);
-  for (int p = p0; p < p1; ++p) {
-    const bool kp = (keptw[p >> 6] >> (p & 63)) & 1ull;
-    const float s = sscores[p];
-    const unsigned int k1 = total_order(-s);
-    int q;
-    if (!kp || k1 == e)
-      q = q2++;
-    else if (k1 > e)
-      q = q3++;
-    else
-      continue;  // G1, written above
-    if (q < n_out) {
-      keep_idx[q] = (long long)order[p];
-      keep_mask[q] = kp && s > -1.0f;
-    }
-  }
+  kb_nms_write<kWalkThreads>(keptw, g1m, g1w, walked, order, sscores, K,
+                             n_out, keep_idx, keep_mask, warp_sum);
 }
 
 }  // namespace

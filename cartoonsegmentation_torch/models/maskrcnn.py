@@ -36,7 +36,7 @@ from torch import nn
 
 from ..ops import _cuda
 from ..ops.pointcloud import true_div
-from .rtmdet import _stable_argsort_desc, nms_fixed_plain
+from .rtmdet import _top_k_order, nms_fixed_plain
 
 # torchvision GeneralizedRCNNTransform stats (0-1 RGB input)
 MRCNN_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -480,7 +480,7 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest, the lower index first among equals (as
     lax.top_k; torch.topk promises no order for ties)."""
-    return _stable_argsort_desc(x)[:k]
+    return _top_k_order(x)[:k]
 
 
 class MaskRCNN(nn.Module):

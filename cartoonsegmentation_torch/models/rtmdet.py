@@ -13,7 +13,8 @@ Two kernels run in ``postprocess``:
   the keep sets are exact.
 - K9 ``dynamic_masks``: ``dynamic_masks_plain`` (the 10→8→8→1 dynamic
   1x1 convs summed in input order, sigmoid, bilinear x8 upsample,
-  threshold) for CPU tensors, ``csrc/maskhead.cu`` for CUDA ones.
+  threshold) for CPU tensors, ``csrc/maskhead.cu`` (one launch) for
+  CUDA ones.
 """
 from __future__ import annotations
 
@@ -165,16 +166,33 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a[:, None] + area_b[None, :] - inter).clamp(min=1e-9)
 
 
-def _total_order_key(x: torch.Tensor) -> torch.Tensor:
-    """f32 → int64, increasing in the float total order (-0 < +0), the
-    order lax.sort compares floats in."""
+def _top_k_key(x: torch.Tensor) -> torch.Tensor:
+    """The top-k key: f32 → int64, increasing in the raw float total
+    order (-0 < +0, a NaN by its sign bit at either end), the order
+    lax.top_k compares floats in."""
     u = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
     return torch.where(u >= 0x80000000, 0xffffffff - u, u | 0x80000000)
 
 
+def _argsort_key(x: torch.Tensor) -> torch.Tensor:
+    """The argsort key: as ``_top_k_key`` after jnp.argsort's
+    canonicalisation (-0 → +0, every NaN → +NaN, so NaNs come last)."""
+    x = x.float()
+    u = x.contiguous().view(torch.int32)
+    u = torch.where(x == 0, torch.zeros_like(u), u)
+    u = torch.where(torch.isnan(x), torch.full_like(u, 0x7fc00000), u)
+    return _top_k_key(u.view(torch.float32))
+
+
+def _top_k_order(x: torch.Tensor) -> torch.Tensor:
+    """Indices of x from the largest down, the lower index first among
+    equals: lax.top_k's order (torch.topk promises none for ties)."""
+    return torch.sort(_top_k_key(-x), stable=True).indices
+
+
 def _stable_argsort_desc(x: torch.Tensor) -> torch.Tensor:
     """Stable argsort of -x, as jnp.argsort(-x)."""
-    return torch.sort(_total_order_key(-x), stable=True).indices
+    return torch.sort(_argsort_key(-x), stable=True).indices
 
 
 def nms_fixed_plain(boxes: torch.Tensor, scores: torch.Tensor,
@@ -284,9 +302,10 @@ def dynamic_masks(mask_feat: torch.Tensor, kernels: torch.Tensor,
                   valid: torch.Tensor, out_h: int, out_w: int,
                   mask_thr: float):
     """K9 wrapper: the plain version on the CPU, csrc/maskhead.cu on
-    CUDA. mask_feat (h, w, 8), kernels (N, 169), priors_xy (N, 2),
-    strides (N,) f32, valid (N,) bool → (masks (N, out_h, out_w) bool,
-    probs (N, h·w) f32)."""
+    CUDA (one launch: a block a band of 128 output rows of an
+    instance). mask_feat (h, w, 8), kernels (N, 169), priors_xy (N,
+    2), strides (N,) f32, valid (N,) bool → (masks (N, out_h, out_w)
+    bool, probs (N, h·w) f32)."""
     if mask_feat.device.type == 'cpu':
         return dynamic_masks_plain(mask_feat, kernels, priors_xy, strides,
                                    valid, out_h, out_w, mask_thr)
@@ -311,8 +330,9 @@ def dynamic_masks(mask_feat: torch.Tensor, kernels: torch.Tensor,
     _cuda.launch('maskhead',
                  mask_feat.data_ptr(), kernels.data_ptr(),
                  priors_xy.data_ptr(), strides.data_ptr(), valid.data_ptr(),
-                 N, h, w, out_h, out_w, mask_thr, probs.data_ptr(),
-                 masks.data_ptr(), _cuda.stream_ptr(mask_feat))
+                 N, h, w, out_h, out_w, mask_thr,
+                 probs.data_ptr(), masks.data_ptr(),
+                 _cuda.stream_ptr(mask_feat))
     return masks, probs
 
 
@@ -339,10 +359,8 @@ def postprocess(cls_out, reg_out, krn_out, mask_feat,
     dists, kernels = torch.cat(dists), torch.cat(kernels)
     priors, strides = torch.cat(priors), torch.cat(strides)
 
-    # lax.top_k: the lower index first among equal scores (a stable
-    # descending sort; torch.topk promises no order for ties)
     k = min(pre_topk, scores.shape[0])
-    top_idx = _stable_argsort_desc(scores)[:k]
+    top_idx = _top_k_order(scores)[:k]
     top_scores = scores[top_idx]
     boxes = distance2bbox(priors[top_idx], dists[top_idx])
 

@@ -13,7 +13,9 @@
    holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
    with 4,096 copies of one point, as the main path's cloud has; K6 over
-   100 instance slots; K8 over the top 512 boxes; K9 at 100 x 640x640;
+   100 instance slots; K8 over the top 512 boxes, and K8 and K14b on
+   scores with +-0.0 and NaNs; K9 at 100 x 640x640; K8 and K9 each one
+   kernel a call, counted as the nodes of a captured CUDA graph;
    K5a at the path's crop and at a crop kept at its size, on the
    filled view and on contiguous frames, through ``frame_epilogue``
    and the frame loop's ``EpiloguePlan``, with the host's cost of a
@@ -32,8 +34,8 @@
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
    card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
-   the laplacian and its cuDNN convolution, K11, K12a, K12b's step and
-   norm pass, K14a, K14b, K15a, K15b and SDPA also by
+   the laplacian and its cuDNN convolution, K8, K9, K11, K12a, K12b's
+   step and norm pass, K14a, K14b, K15a, K15b and SDPA also by
    their device time alone (``graph_ms``: ten calls captured in a CUDA
    graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
@@ -59,7 +61,11 @@
    weights on the same image: the head maps within the stated
    tolerance, the CPU postprocess of the card's head maps and the whole
    detector on the CPU against the card's (NMS keep set exact, mask
-   pixels >= 99.9%);
+   pixels >= 99.9%); records the K8 and K9 calls of one forward of the
+   shipped default's detector on the image (``detector_inputs``) and
+   holds both against their plain versions there, with their device
+   times, bounds and the calls' facts (the candidates kept, the sorted
+   row of the last output, the valid instances);
 7. runs the main path again warm, and profiles 16 frames of the render
    loop (host enqueue time, device busy share, device time by kernel);
 8. runs the SAM path, ``configs/3dkenburns_sam.yaml`` with
@@ -1312,25 +1318,13 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
           f'{lap["library_device_ms"]:.4f} ms '
           f'({lap["device_ms"] / lap["library_device_ms"]:.2f}x)', flush=True)
 
-    # --- K8: the top 512 candidates, ties and overlaps -----------------
+    # --- K8: the top 512 candidates, ties and overlaps; the signed
+    # zeros and NaNs (K14b too) ---------------------------------------
     cases = [tuple(t.to(dev) for t in nms_case(gen)) for _ in range(RUNS)]
-    kept = []
-    for bx, sc in cases[:3]:
-        for max_out in (100, 512):
-            ki, km = rtmdet.nms_fixed(bx, sc, 0.6, max_out)
-            pi, pm = rtmdet.nms_fixed_plain(bx, sc, 0.6, max_out)
-            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
-                fail('NMS keep set differs from the plain version')
-        kept.append(int(km.sum()))
-    ms = time_ms(lambda c: rtmdet.nms_fixed(*c, 0.6, 100), cases)
-    plain_ms = time_ms(lambda c: rtmdet.nms_fixed_plain(*c, 0.6, 100), cases)
-    # the IoUs of the upper triangle, ~12 operations each
-    b, by = bound(512 * 20 + 100 * 9, 512 * 511 / 2 * 12)
-    res['nms'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                      bound_ms=b, bound_by=by)
-    print(f'[kernel] nms K=512 (kept of 512: {kept}): kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}), keep sets '
-          f'exact', flush=True)
+    check_nms_signed(gen, dev)
+    res['nms'] = check_nms_calls(cases, 'synthetic')
+    res['nms']['one_launch'] = one_launch(
+        lambda: rtmdet.nms_fixed(*cases[0], 0.6, 100), 'nms')
 
     # --- K9: 100 instances, 80x80 prototypes → 640x640 masks -----------
     N, h = 100, 80
@@ -1342,26 +1336,234 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
         st = torch.tensor([8.0, 16.0, 32.0])[
             torch.randint(0, 3, (N,), generator=gen)]
         val = torch.rand((N,), generator=gen) < 0.8
-        return tuple(t.to(dev) for t in (feat, kern, pri, st, val))
+        return tuple(t.to(dev) for t in (feat, kern, pri, st, val)) + (
+            640, 640, 0.3)
     heads = [heads_case() for _ in range(RUNS)]
-    mk, pk = rtmdet.dynamic_masks(*heads[0], 640, 640, 0.3)
-    mp, pp = rtmdet.dynamic_masks_plain(*heads[0], 640, 640, 0.3)
-    err = float((pk - pp).abs().max())
-    same = float((mk == mp).float().mean())
-    if err > 1e-6 or same < 0.9999:
-        fail(f'mask heads: probs differ by {err}, masks agree on {same}')
-    ms = time_ms(lambda x: rtmdet.dynamic_masks(*x, 640, 640, 0.3), heads)
-    plain_ms = time_ms(lambda x: rtmdet.dynamic_masks_plain(*x, 640, 640,
-                                                            0.3), heads)
-    nbytes = h * h * 8 * 4 + N * (169 + 2 + 1) * 4 + N + N * 640 * 640
-    flops = N * h * h * 2 * (10 * 8 + 8 * 8 + 8 + 20) + N * 640 * 640 * 12
-    b, by = bound(nbytes, flops)
-    res['maskhead'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by, masks_equal=same)
-    print(f'[kernel] maskhead N={N} {h}x{h} → 640x640: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), probs max err '
-          f'{err:.3g}, masks equal {same:.6f}', flush=True)
+    res['maskhead'] = check_maskhead_calls(heads, 'synthetic')
+    res['maskhead']['one_launch'] = one_launch(
+        lambda: rtmdet.dynamic_masks(*heads[0]), 'maskhead')
     return res
+
+
+def signed_scores(gen: torch.Generator, K: int) -> torch.Tensor:
+    """Scores in a few values with +0.0, -0.0, NaNs of either sign and
+    two payloads, -inf and -1.0 among them: the values whose order
+    jnp.argsort canonicalises (-0 as +0, every NaN as +NaN)."""
+    bits = torch.tensor([0x00000000, -0x80000000, 0x7fc00000, -0x00400000,
+                         0x7f800001, -0x00800000, -0x40800000, 0x3f000000,
+                         0x3e800000], dtype=torch.int32)
+    return bits[torch.randint(0, len(bits), (K,), generator=gen)].view(
+        torch.float32).clone()
+
+
+def check_nms_signed(gen: torch.Generator, dev) -> None:
+    """K8 at K = 512, 97 and 1 and K14b at K = 512 and 2,048 on the
+    signed zeros and NaNs: every output slot equal to the plain
+    version's."""
+    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
+    for K, max_out in ((512, 100), (512, 512), (97, 40), (1, 1)):
+        boxes = nms_case(gen, max(K, 8))[0][:K].to(dev)
+        scores = signed_scores(gen, K).to(dev)
+        for fn in (rtmdet.nms_fixed, maskrcnn.nms_large):
+            got, want = fn(boxes, scores, 0.6, max_out), \
+                rtmdet.nms_fixed_plain(boxes, scores, 0.6, max_out)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f'{fn.__name__} on +-0 and NaN scores (K={K}, '
+                     f'{max_out} out) differs from the plain version')
+    boxes = (nms_case(gen, 2048)[0] * 2.0).to(dev)
+    scores = signed_scores(gen, 2048).to(dev)
+    got = maskrcnn.nms_large(boxes, scores, 0.5, 100)
+    want = rtmdet.nms_fixed_plain(boxes, scores, 0.5, 100)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail('nms_large on +-0 and NaN scores (K=2048) differs from the '
+             'plain version')
+    print('[kernel] nms, nms_large on +-0.0 and NaN scores: keep sets '
+          'exact', flush=True)
+
+
+def graph_ops(fn) -> list:
+    """The device operations (kernels, copies, memsets; libcuda's empty
+    nodes left out) of one call of fn, after a warm-up call, as the
+    nodes of a CUDA graph that captures it (as tests/test_torch_kernels.py
+    :_device_ops counts them)."""
+    import ctypes
+    kinds = {0: 'kernel', 1: 'memcpy', 2: 'memset', 3: 'host',
+             10: 'mem_alloc', 11: 'mem_free'}
+    cu = ctypes.CDLL('libcuda.so.1')
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail('cuGraphGetNodes failed')
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    ops = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 5:
+            ops.append(kinds.get(kind.value, f'type {kind.value}'))
+    return ops
+
+
+def one_launch(fn, lib: str) -> bool:
+    """Fails unless one call of fn is one kernel on the card and one
+    launch of the library ``lib`` (a captured graph's nodes)."""
+    from cartoonsegmentation_torch.ops import _cuda
+    before = _cuda.LAUNCHES[lib]
+    ops = graph_ops(fn)
+    launches = _cuda.LAUNCHES[lib] - before
+    if ops != ['kernel'] or launches != 2:        # warm-up and capture
+        fail(f'{lib}: a call is {ops} on the card with {launches // 2} '
+             f'launches of its library, expected one kernel')
+    print(f'[kernel] {lib}: one call is one kernel (a captured graph\'s '
+          f'nodes)', flush=True)
+    return True
+
+
+def nms_facts(x) -> dict:
+    """One K8 call's facts: the candidates the greedy scan keeps of the
+    K (max_out = K), and the sorted row of the last output row when
+    max_out rows above -1 are kept (where the walk stops)."""
+    from cartoonsegmentation_torch.models import rtmdet
+    boxes, scores, thr, n_out = x
+    K = boxes.shape[0]
+    kept = int(rtmdet.nms_fixed_plain(boxes, scores, thr, K)[1].sum())
+    idx, keep = rtmdet.nms_fixed(boxes, scores, thr, n_out)
+    row = None
+    if keep.numel() == n_out and bool(keep.all()):
+        order = rtmdet._stable_argsort_desc(scores)
+        row = int((order == idx[-1]).nonzero()[0, 0])
+    return {'kept_of_K': kept, 'last_out_row': row}
+
+
+def check_nms_calls(xs: list, where: str) -> dict:
+    """K8 on the calls xs ((boxes, scores) of the synthetic cases, or
+    (boxes, scores, thr, max_out) recorded): keep sets exact at max_out
+    100 and K; ms, device_ms (``graph_ms`` of the first), plain ms,
+    bound (``nms_cost``) and the calls' facts."""
+    from cartoonsegmentation_torch.models import rtmdet
+    xs = [x if len(x) == 4 else (x[0], x[1], 0.6, 100) for x in xs]
+    for boxes, scores, thr, n_out in xs[:3]:
+        for max_out in (n_out, boxes.shape[0]):
+            ki, km = rtmdet.nms_fixed(boxes, scores, thr, max_out)
+            pi, pm = rtmdet.nms_fixed_plain(boxes, scores, thr, max_out)
+            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
+                fail(f'NMS ({where}) keep set differs from the plain version')
+    facts = [nms_facts(x) for x in xs[:3]]
+
+    def run(x):
+        return rtmdet.nms_fixed(*x)
+    ms = time_ms(run, xs * max(1, RUNS // len(xs)))
+    plain_ms = time_ms(lambda x: rtmdet.nms_fixed_plain(*x), xs[:3])
+    dev_ms = statistics.median(graph_ms(run, xs[0]) for _ in range(3))
+    b, by = bound(*nms_cost(xs[0][0].shape[0], xs[0][3]))
+    print(f'[kernel] nms ({where}, K={xs[0][0].shape[0]}, {xs[0][3]} out): '
+          f'kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
+          f'{plain_ms:.4f} ms, bound {b:.6f} ms ({by}); kept of K and the '
+          f'last output row {facts}; keep sets exact', flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, device_ms=dev_ms, facts=facts)
+
+
+def maskhead_cost(x) -> tuple:
+    """K9's (bytes, operations) of one call: the prototypes, the
+    parameters, priors, strides and flags read, the masks written; the
+    dynamic heads (~2 x 172 operations a source pixel an instance) and
+    12 a mask byte."""
+    feat, kern, _, _, _, Ho, Wo, _ = x
+    h, w = feat.shape[:2]
+    N = kern.shape[0]
+    return (h * w * 8 * 4 + N * (169 + 2 + 1) * 4 + N + N * Ho * Wo,
+            N * h * w * 2 * (10 * 8 + 8 * 8 + 8 + 20) + N * Ho * Wo * 12)
+
+
+def check_maskhead_calls(xs: list, where: str) -> dict:
+    """K9 on the calls xs: probs within 1e-6 of the plain version's and
+    >= 99.99% of mask pixels equal (the plain resize may contract its
+    products into FMAs); ms, device_ms, plain ms, bound
+    (``maskhead_cost``) and the valid instances."""
+    from cartoonsegmentation_torch.models import rtmdet
+    err, same = 0.0, 1.0
+    for x in xs[:3]:
+        mk, pk = rtmdet.dynamic_masks(*x)
+        mp, pp = rtmdet.dynamic_masks_plain(*x)
+        err = max(err, float((pk - pp).abs().max()))
+        same = min(same, float((mk == mp).float().mean()))
+    if err > 1e-6 or same < 0.9999:
+        fail(f'mask heads ({where}): probs differ by {err}, masks agree on '
+             f'{same}')
+    valid = [int(x[4].sum()) for x in xs[:3]]
+    ms = time_ms(lambda x: rtmdet.dynamic_masks(*x),
+                 xs * max(1, RUNS // len(xs)))
+    plain_ms = time_ms(lambda x: rtmdet.dynamic_masks_plain(*x), xs[:3])
+    dev_ms = statistics.median(graph_ms(lambda x: rtmdet.dynamic_masks(*x),
+                                        xs[0]) for _ in range(3))
+    b, by = bound(*maskhead_cost(xs[0]))
+    N, (h, w), Ho, Wo = xs[0][1].shape[0], xs[0][0].shape[:2], xs[0][5], \
+        xs[0][6]
+    print(f'[kernel] maskhead ({where}, N={N} {h}x{w} → {Ho}x{Wo}, valid '
+          f'{valid}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms, '
+          f'{b / dev_ms:.1%} of the bound), plain {plain_ms:.4f} ms, bound '
+          f'{b:.4f} ms ({by}), probs max err {err:.3g}, masks equal '
+          f'{same:.6f}', flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, device_ms=dev_ms, masks_equal=same,
+                valid=valid)
+
+
+def detector_inputs(det_net, img: np.ndarray, seed: int = 0) -> dict:
+    """K8's and K9's calls in one detector forward of the shipped
+    default (its AnimeInsSeg as ``KenBurnsPipeline(KenBurnsConfig())``
+    makes it, ``det_net`` on the card) on the BGR ``img``, recorded as
+    they are made: 'nms' (boxes, scores, IoU threshold, outputs) and
+    'maskhead' (``dynamic_masks``' arguments), a list of one call
+    each."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    pipe = KenBurnsPipeline(KenBurnsConfig(), seed=seed, device='cuda')
+    pipe.ensure_detector()
+    seg = pipe._detector
+    seg.model = copy.deepcopy(det_net)
+    seen = {'nms': [], 'maskhead': []}
+    nms, heads = rtmdet.nms_fixed, rtmdet.dynamic_masks
+
+    def rec_nms(boxes, scores, thr, n_out):
+        seen['nms'].append((boxes.clone(), scores.clone(), thr, n_out))
+        return nms(boxes, scores, thr, n_out)
+
+    def rec_heads(*a):
+        seen['maskhead'].append(tuple(t.clone() if torch.is_tensor(t) else t
+                                      for t in a))
+        return heads(*a)
+    rtmdet.nms_fixed, rtmdet.dynamic_masks = rec_nms, rec_heads
+    try:
+        x, _, _ = seg._preprocess(img)
+        seg._run_device(x)
+    finally:
+        rtmdet.nms_fixed, rtmdet.dynamic_masks = nms, heads
+    return seen
+
+
+def load_detector_inputs(path: str, dev) -> dict:
+    """The K8 and K9 calls that ``render_kernel_times.py
+    --save-detector-inputs`` saved, on ``dev``, in ``detector_inputs``'
+    layout (a call a forward under each key)."""
+    seen = {'nms': [], 'maskhead': []}
+    for rec in torch.load(path):
+        for tag in seen:
+            seen[tag].append(tuple(t.to(dev) if torch.is_tensor(t) else t
+                                   for t in rec[tag]))
+    return seen
 
 
 def profile_frame_loop(pipe, state, obj_from, obj_to, n: int = 16) -> None:
@@ -2830,8 +3032,15 @@ def main() -> None:
     state = pipe.last_state
     obj_from, obj_to = pipe.last_boxes
 
-    # 6. the detector in f32, card against CPU ----------------------------
+    # 6. the detector in f32, card against CPU; K8 and K9 on the calls
+    # of the clip's own detector forward --------------------------------
     compare_detector(img, det_net)
+    seen = detector_inputs(det_net, img, args.seed)
+    res['nms_real'] = check_nms_calls(seen['nms'],
+                                      "the shipped default's forward")
+    res['maskhead_real'] = check_maskhead_calls(
+        seen['maskhead'], "the shipped default's forward")
+    del seen
 
     # 7. the main path again, warm, and where the frame loop's time goes
     pipe.timer.reset()
@@ -2968,8 +3177,11 @@ def main() -> None:
         ('insmedian', res['insmedian'], 'pipeline/depth.py:67', {}),
         ('median5', res['median5'], 'ops/filters.py:42', {}),
         ('laplacian', res['laplacian'], 'ops/filters.py:26', {}),
-        ('nms', res['nms'], 'models/rtmdet.py:194', {}),
-        ('maskhead', res['maskhead'], 'models/rtmdet.py:222', {}),
+        # the synthetic cases; the shipped default's own calls beside
+        ('nms', res['nms'], 'models/rtmdet.py:194',
+         {f'{k}_real': v for k, v in res['nms_real'].items()}),
+        ('maskhead', res['maskhead'], 'models/rtmdet.py:222',
+         {f'{k}_real': v for k, v in res['maskhead_real'].items()}),
         # crop_center_resize :146, the uint8 step pipeline/kenburns.py
         # :975, bgr_to_i420 :194
         ('epilogue', res['epilogue'], 'utils/image.py:146', {}),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Design alternatives of K2 (csrc/coverage.cu) and K5b
-(csrc/colorize.cu) against the shipped kernels, on one GPU.
+(csrc/colorize.cu) against the shipped kernels, and K8 (csrc/nms.cu)
+and K9 (csrc/maskhead.cu) against a parent checkout's, on one GPU.
 
-    python3 kernel_variants.py --fill-inputs F --coverage-inputs C
+    python3 kernel_variants.py [--fill-inputs F --coverage-inputs C]
                                [--parent DIR] [--turns N] [--seed N]
+                               [--detector-inputs D --detector-parent DIR]
 
 F and C are the inputs that ``render_kernel_times.py
 --save-fill-inputs F --save-coverage-inputs C`` saves from the shipped
@@ -31,6 +33,17 @@ around one call on an idle card, host dispatch included:
 ``chip_smoke.time_ms`` over 5 rounds of the frames) in turns with this
 checkout's ``colorize_gray_r`` in one process, ``--turns`` times each,
 with the median of the paired differences and its quartiles.
+
+With ``--detector-inputs D --detector-parent DIR`` (the K8 and K9
+calls that ``render_kernel_times.py --save-detector-inputs D`` saves
+from the shipped default's detector forwards, and a checkout of the
+parent) it builds that checkout's csrc/nms.cu and csrc/maskhead.cu,
+calls them as its wrappers did, holds this checkout's K8 keep sets and
+K9 masks and probabilities bit for bit against theirs on every saved
+call (K9 on 3 synthetic calls too: chip_smoke's 100 instances, 80 %
+valid), and times both against the parent's in turns: device time
+(``in_turns``) and ``ms`` (``chip_smoke.time_ms``, ``--turns`` times
+each).
 
 Prints the card and its power limit first and one JSON line last.
 Needs a CUDA card; exits non-zero without one.
@@ -144,9 +157,14 @@ def in_turns(cs, fns: dict, xs: list, rounds: int = 3) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--fill-inputs', required=True)
-    ap.add_argument('--coverage-inputs', required=True)
+    ap.add_argument('--fill-inputs')
+    ap.add_argument('--coverage-inputs')
     ap.add_argument('--parent', help='a checkout with the two-launch K5b')
+    ap.add_argument('--detector-inputs', help='K8 and K9 calls saved by '
+                    'render_kernel_times.py --save-detector-inputs')
+    ap.add_argument('--detector-parent', help='a checkout whose K8 and K9 '
+                    'the shipped ones are held against (with '
+                    '--detector-inputs)')
     ap.add_argument('--turns', type=int, default=50)
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
@@ -159,8 +177,6 @@ def main() -> None:
     from cartoonsegmentation_torch.ops import _cuda, discfill3, pointcloud
     from cartoonsegmentation_torch.pipeline import depth
     print(f'card: {cs.card_line()}', flush=True)
-    _cuda.build(['coverage', 'colorize', 'discfill'])
-    dev = torch.device('cuda')
     out = {}
 
     def summary(tag, res):
@@ -168,6 +184,20 @@ def main() -> None:
             print(f'[{tag}] {n}: device median {statistics.median(v):.5f} '
                   f'ms ({" ".join(f"{t:.5f}" for t in v)})', flush=True)
         out[tag] = res
+    if args.detector_inputs and args.detector_parent:
+        detector_parent(cs, _cuda, args, summary, out)
+    if args.fill_inputs and args.coverage_inputs:
+        render_variants(cs, _cuda, discfill3, pointcloud, depth, args,
+                        summary, out)
+    print(json.dumps({'card': cs.card_line(), 'results': out}), flush=True)
+
+
+def render_variants(cs, _cuda, discfill3, pointcloud, depth, args, summary,
+                    out) -> None:
+    """K2's and K5b's alternatives (and K5b's two-launch parent)."""
+    import torch
+    _cuda.build(['coverage', 'colorize', 'discfill'])
+    dev = torch.device('cuda')
 
     # --- K2 -----------------------------------------------------------
     name = build_variant(_cuda, 'coverage warp combine')
@@ -270,8 +300,79 @@ def main() -> None:
               f'{statistics.median(d):.5f} ms, quartiles {q[0]:.5f} '
               f'{q[2]:.5f}', flush=True)
         out['K5b ms'] = ms
-    print(json.dumps({'card': cs.card_line(), 'results': out}), flush=True)
 
+
+def detector_parent(cs, _cuda, args, summary, out) -> None:
+    """K8 and K9 against the parent's kernels: bit for bit, by device
+    time in turns and by ``ms`` in turns."""
+    import torch
+    from cartoonsegmentation_torch.models import rtmdet
+    _cuda.build(['nms', 'maskhead'])
+    dev = torch.device('cuda')
+    seen = cs.load_detector_inputs(args.detector_inputs, dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    N, h = 100, 80
+    synth = []
+    for _ in range(3):
+        val = torch.rand((N,), generator=gen) < 0.8
+        synth.append((torch.randn((h, h, 8), generator=gen).to(dev),
+                      torch.randn((N, 169), generator=gen).to(dev),
+                      (torch.randint(0, h, (N, 2), generator=gen).float()
+                       * 8).to(dev),
+                      torch.tensor([8.0, 16.0, 32.0])[torch.randint(
+                          0, 3, (N,), generator=gen)].to(dev), val.to(dev),
+                      640, 640, 0.3))
+    src = os.path.join(args.detector_parent, 'cartoonsegmentation_torch',
+                       'csrc')
+    for kernel in ('maskhead', 'nms'):
+        build_source(_cuda, f'{kernel} parent', open(os.path.join(
+            src, f'{kernel}.cu')).read(), *_cuda.SIGNATURES[kernel])
+
+    def heads_parent(x):
+        feat, kern, pri, st, val, Ho, Wo, thr = x
+        n, (hh, ww) = kern.shape[0], feat.shape[:2]
+        probs = torch.empty((n, hh * ww), dtype=torch.float32, device=dev)
+        masks = torch.empty((n, Ho, Wo), dtype=torch.bool, device=dev)
+        _cuda.launch('maskhead parent', feat.data_ptr(), kern.data_ptr(),
+                     pri.data_ptr(), st.data_ptr(), val.data_ptr(), n, hh,
+                     ww, Ho, Wo, thr, probs.data_ptr(), masks.data_ptr(),
+                     _cuda.stream_ptr(feat))
+        return masks, probs
+
+    def nms_parent(x):
+        boxes, scores, thr, n_out = x
+        idx = torch.empty((n_out,), dtype=torch.int64, device=dev)
+        keep = torch.empty((n_out,), dtype=torch.bool, device=dev)
+        _cuda.launch('nms parent', boxes.data_ptr(), scores.data_ptr(),
+                     boxes.shape[0], thr, n_out, idx.data_ptr(),
+                     keep.data_ptr(), _cuda.stream_ptr(boxes))
+        return idx, keep
+
+    fns = {'K8': lambda x: rtmdet.nms_fixed(*x), 'K8 parent': nms_parent,
+           'K9': lambda x: rtmdet.dynamic_masks(*x),
+           'K9 parent': heads_parent}
+    cases = (("K8 the shipped default's forwards", 'K8', seen['nms']),
+             ("K9 the shipped default's forwards", 'K9', seen['maskhead']),
+             ('K9 synthetic', 'K9', synth))
+    for tag, k, xs in cases:
+        for x in xs:
+            got, want = fns[k](x), fns[f'{k} parent'](x)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                cs.fail(f'{tag}: {k} differs from the parent kernel')
+        print(f'[{tag}] bit-equal to the parent kernel', flush=True)
+        summary(tag, in_turns(cs, {k: fns[k], 'parent': fns[f'{k} parent']},
+                              xs))
+    ms = {n: [] for n in fns}
+    for i in range(args.turns):
+        for n in (list(fns) if i % 2 else list(fns)[::-1]):
+            xs = seen['nms'] if n.startswith('K8') else seen['maskhead']
+            ms[n].append(cs.time_ms(fns[n], xs * 3))
+    for n, v in ms.items():
+        q = statistics.quantiles(v, n=4)
+        print(f'[K8/K9 ms, {args.turns} turns] {n}: median '
+              f'{statistics.median(v):.5f} ms, quartiles {q[0]:.5f} '
+              f'{q[2]:.5f}', flush=True)
+    out['K8/K9 ms'] = ms
 
 if __name__ == '__main__':
     main()

@@ -11,30 +11,35 @@ PyTorch/CUDA port, on one GPU.
                                    [--save-crf-inputs PATH]
                                    [--save-exact-fill-inputs PATH]
                                    [--save-maskrcnn-inputs PATH]
+                                   [--save-detector-inputs PATH]
                                    [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
                                    [--coverage-inputs PATH]
                                    [--crf-inputs PATH]
                                    [--exact-fill-inputs PATH]
                                    [--maskrcnn-inputs PATH]
+                                   [--detector-inputs PATH]
                                    [--only WORD[,WORD...]] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
-    python3 render_kernel_times.py --clips [--root DIR] [--seed N]
+    python3 render_kernel_times.py --clips [--root DIR] [--only WORD,...]
+                                   [--seed N]
 
 With ``--loop`` it runs the shipped default clip with DIR's package
 and times its frame loop on the host instead (16 frames a run, 7 runs:
 the enqueue and the wall time a frame), and exits. With ``--clips`` it
-runs the shipped default clip, the Mask R-CNN clip
-(``detector='maskrcnn', discfill_mode='exact'``) and the CRF clip with
-DIR's package, each once cold and then 3 times warm, and prints each
-warm run's wall seconds (``pipe.run`` to the mp4, synchronised) and
+runs the shipped default clip, the SAM clip (``chip_smoke.sam_config``),
+the Mask R-CNN clip (``detector='maskrcnn', discfill_mode='exact'``)
+and the CRF clip with DIR's package (with ``--only``, the clips whose
+name holds one of the words), each once cold and then 3 times warm,
+and prints each warm run's wall seconds (``pipe.run`` to the mp4, synchronised) and
 its ``depth_refine`` and ``stream_render`` seconds, and exits.
 
 With ``--save-fill-inputs`` or ``--save-coverage-inputs`` it runs the
 shipped default clip (``KenBurnsConfig()``, chip_smoke's edged
-detector) with this file's checkout, saves K3's inputs in 8 frames of
-its frame loop and K2's input (the autozoom's stride-2 miniature of
-its cloud and its 256 shifts) to the given paths (``torch.save``);
+detector) with DIR's package (default: this file's checkout), saves
+K3's inputs in 8 frames of its frame loop and K2's input (the
+autozoom's stride-2 miniature of its cloud and its 256 shifts) to the
+given paths (``torch.save``);
 with ``--save-crf-inputs`` it runs the CRF clip
 (``KenBurnsConfig(refine_crf=True)``, the same detector) and saves the
 inputs of its densecrf_binary calls (each segment's crop: the
@@ -47,7 +52,12 @@ infer``) on the images of 3 seeds and saves the arguments of its K14
 calls (``chip_smoke.maskrcnn_inputs``: the RPN's and the detection's
 NMS candidates with their categories, the flattened pyramid, ~88 MB an
 image, the 1,000 proposals and the 100 detections that the RoIAligns
-read); then it exits.
+read); with ``--save-detector-inputs`` it runs the shipped default
+clip's detector forward (``chip_smoke.detector_inputs``: AnimeInsSeg
+with chip_smoke's edged detector) on the images of 3 seeds and saves
+the arguments of its K8 and K9 calls (the top 512 candidates' boxes
+and scores; the mask heads' prototypes, parameters, priors, strides
+and valid flags, ~3 MB a forward); then it exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
 this file's directory), builds its ``splat``, ``coverage``,
@@ -77,7 +87,10 @@ and sloppy mask and, with ``--crf-inputs``, on each saved crop; K14a
 at (1000, 7x7) and (100, 14x14) and K14b at the RPN's K = 4,756 and
 the detection's K = 2,048 on chip_smoke's synthetic inputs
 (``synthetic_k14``) and, with ``--maskrcnn-inputs``, on the saved
-calls) prints,
+calls; K8 over 512 candidates (IoU 0.6, 100 out) and K9 at 100
+instances 80x80 → 640x640 on chip_smoke's synthetic cases and, with
+``--detector-inputs``, on the saved calls of the shipped default's
+forwards; there also K14b's three launches on K8's calls) prints,
 for each call (with ``--only``, for the calls whose tag holds one of
 the words):
 - its device time (the call captured in a CUDA graph and replayed:
@@ -92,14 +105,19 @@ the words):
 - its largest difference from the plain version (densecrf_binary: the
   share of mask pixels unlike the plain version's on the CPU; K12a:
   the share of labels);
-- for K5a, K11, K12a, K12b and K14, chip_smoke's bound of each input's
+- for K5a, K8, K9, K11, K12a, K12b and K14, chip_smoke's bound of each
+  input's
   call (K5a: ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
   K12a: ``kmeans_cost``; K12b: ``crf_cost``, for densecrf_binary its
   norm pass and 5 steps; K14a: ``roi_cost``, the pyramid rows its
-  samples touch; K14b: ``nms_cost``), their median and sum;
-- for K14, the host's µs a call (``chip_smoke.host_us``, 200 calls
-  back to back) and, for K14b, the kept count of each input and the
-  tiles its walk resolves (``chip_smoke.nms_walk_tiles``).
+  samples touch; K8, K14b: ``nms_cost``; K9: ``maskhead_cost``), their
+  median and sum;
+- for K8, K9 and K14, the host's µs a call (``chip_smoke.host_us``,
+  200 calls back to back); for K14b, the kept count of each input and
+  the tiles its walk resolves (``chip_smoke.nms_walk_tiles``); for K8,
+  each input's facts (``chip_smoke.nms_facts``: the candidates kept of
+  the K, the sorted row of the last output row); for K9, the valid
+  instances of each input.
 The wrappers' signatures are the same in every checkout since the
 port's first slice, so two checkouts compare in one call on one card:
 save the inputs once, then run the script with each root in turn (A,
@@ -142,11 +160,16 @@ def main() -> None:
     ap.add_argument('--save-maskrcnn-inputs', metavar='PATH',
                     help='save the K14 inputs of the Mask R-CNN clip\'s '
                     'detector forward on 3 images')
+    ap.add_argument('--detector-inputs', help='K8 and K9 inputs saved by '
+                    '--save-detector-inputs, timed as calls of their own')
+    ap.add_argument('--save-detector-inputs', metavar='PATH',
+                    help='save the K8 and K9 inputs of the shipped default '
+                    'clip\'s detector forward on 3 images')
     ap.add_argument('--only', help='comma-separated words: time only the '
                     'calls whose tag holds one of them')
     ap.add_argument('--clips', action='store_true',
-                    help='warm seconds of the shipped default and the CRF '
-                    'clip')
+                    help='warm seconds of the shipped default, SAM, Mask '
+                    'R-CNN and CRF clips')
     ap.add_argument('--loop', action='store_true',
                     help="time the shipped default clip's frame loop on "
                     'the host instead of the kernels')
@@ -159,6 +182,7 @@ def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import chip_smoke as cs                       # timing and inputs
+    sys.path.insert(0, root)                      # the package measured
     if args.save_fill_inputs or args.save_coverage_inputs:
         save_inputs(cs, args.save_fill_inputs, args.save_coverage_inputs,
                     args.seed)
@@ -168,16 +192,17 @@ def main() -> None:
         save_exact_fill_inputs(cs, args.save_exact_fill_inputs, args.seed)
     if args.save_maskrcnn_inputs:
         save_maskrcnn_inputs(cs, args.save_maskrcnn_inputs, args.seed)
+    if args.save_detector_inputs:
+        save_detector_inputs(cs, args.save_detector_inputs, args.seed)
     if args.save_fill_inputs or args.save_coverage_inputs or \
             args.save_crf_inputs or args.save_exact_fill_inputs or \
-            args.save_maskrcnn_inputs:
+            args.save_maskrcnn_inputs or args.save_detector_inputs:
         return
-    sys.path.insert(0, root)                      # the package measured
     if args.loop:
         loop_times(cs, root, args.seed)
         return
     if args.clips:
-        clip_times(cs, root, args.seed)
+        clip_times(cs, root, args.seed, args.only)
         return
     from cartoonsegmentation_torch.ops import (_cuda, bokeh, crf, discfill,
                                                discfill3, filters,
@@ -191,7 +216,7 @@ def main() -> None:
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
                  'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf',
-                 'roialign', 'nms_large'])
+                 'roialign', 'nms_large', 'nms', 'maskhead'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -283,6 +308,7 @@ def main() -> None:
     calls += kmeans_calls(cs, crf, args.crf_inputs)
     calls += crf_calls(cs, crf, gen, args.crf_inputs)
     calls += k14_calls(cs, gen, args.maskrcnn_inputs)
+    calls += detector_calls(cs, gen, args.detector_inputs)
     if args.only:
         words = args.only.split(',')
         calls = [c for c in calls if any(wd in c[0] for wd in words)]
@@ -313,6 +339,12 @@ def main() -> None:
             out[tag]['host_us'] = cs.host_us({tag: lambda: fn(x)}, n=200,
                                              rounds=3)[tag]
             print(f'   host {out[tag]["host_us"]:.2f} us a call', flush=True)
+        if tag.startswith('nms '):
+            out[tag]['facts'] = [cs.nms_facts(x) for x in xs]
+            print(f'   facts {out[tag]["facts"]}', flush=True)
+        if tag.startswith('maskhead'):
+            out[tag]['valid'] = [int(x[4].sum()) for x in xs]
+            print(f'   valid instances {out[tag]["valid"]}', flush=True)
         if tag.startswith('nms_large'):
             out[tag]['kept'] = [int(fn(x)[1].sum()) for x in xs]
             out[tag]['walk_tiles'] = [cs.nms_walk_tiles(x) for x in xs]
@@ -521,6 +553,86 @@ def k14_calls(cs, gen, inputs_path) -> list:
             for tag, fn, plain, xs, costs in cs.k14_calls(seen)]
 
 
+def detector_calls(cs, gen, inputs_path) -> list:
+    """K8's and K9's calls on chip_smoke's synthetic cases and, with
+    ``inputs_path``, on the saved calls of the shipped default's detector
+    forwards; there also K14b (``maskrcnn.nms_large``, three launches)
+    on K8's calls; bound and host µs."""
+    import torch
+    from cartoonsegmentation_torch.models import maskrcnn, rtmdet
+    dev = torch.device('cuda')
+    nms = [tuple(t.to(dev) for t in cs.nms_case(gen)) + (0.6, 100)
+           for _ in range(3)]
+    N, h = 100, 80
+    heads = []
+    for _ in range(3):
+        val = torch.rand((N,), generator=gen) < 0.8
+        heads.append((torch.randn((h, h, 8), generator=gen).to(dev),
+                      torch.randn((N, 169), generator=gen).to(dev),
+                      (torch.randint(0, h, (N, 2), generator=gen).float()
+                       * 8).to(dev),
+                      torch.tensor([8.0, 16.0, 32.0])[torch.randint(
+                          0, 3, (N,), generator=gen)].to(dev), val.to(dev),
+                      640, 640, 0.3))
+    sets = [('synthetic', nms, heads)]
+    if inputs_path:
+        seen = cs.load_detector_inputs(inputs_path, dev)
+        sets.append((f'the shipped default\'s {len(seen["nms"])} forwards',
+                     seen['nms'], seen['maskhead']))
+
+    def run_nms(x):
+        return rtmdet.nms_fixed(*x)
+
+    def plain_nms(x):
+        return rtmdet.nms_fixed_plain(*x)
+
+    def run_large(x):
+        return maskrcnn.nms_large(*x)
+
+    def run_heads(x):
+        return rtmdet.dynamic_masks(*x)
+
+    def plain_heads(x):
+        return rtmdet.dynamic_masks_plain(*x)
+    calls = []
+    for where, n, m in sets:
+        nb = [cs.nms_cost(x[0].shape[0], x[3]) for x in n]
+        calls += [(f'nms {where}', run_nms, plain_nms, n,
+                   {'bounds': nb, 'host': True}),
+                  (f'K14b on K8\'s calls, {where}', run_large,
+                   plain_nms, n, {'bounds': nb, 'host': True}),
+                  (f'maskhead {where}', run_heads, plain_heads, m,
+                   {'bounds': [cs.maskhead_cost(x) for x in m],
+                    'host': True})]
+    return calls
+
+
+def save_detector_inputs(cs, path: str, seed: int, images: int = 3) -> None:
+    """Save the K8 and K9 calls of the shipped default clip's detector
+    forward (``chip_smoke.detector_inputs`` with ``edged_nets``) on the
+    images of seeds seed .. seed + images - 1 to ``path``: a list of one
+    dict an image."""
+    import torch
+    from cartoonsegmentation_torch.ops import _cuda
+    print(f'card: {cs.card_line()}', flush=True)
+    _cuda.build(['nms', 'maskhead'])
+    saved = []
+    for s in range(seed, seed + images):
+        img = cs.make_image(s)
+        seen = cs.detector_inputs(cs.edged_nets(s)[0], img, s)
+        rec = {tag: tuple(t.cpu() if torch.is_tensor(t) else t
+                          for t in seen[tag][0]) for tag in seen}
+        b, sc = rec['nms'][:2]
+        print(f'[save] seed {s}: nms K = {b.shape[0]}, scores '
+              f'{float(sc.min()):.4g}..{float(sc.max()):.4g}; maskhead N = '
+              f'{rec["maskhead"][1].shape[0]}, '
+              f'{int(rec["maskhead"][4].sum())} valid', flush=True)
+        saved.append(rec)
+    torch.save(saved, path)
+    print(f'saved the K8 and K9 calls of {len(saved)} forwards to {path}',
+          flush=True)
+
+
 def save_maskrcnn_inputs(cs, path: str, seed: int, images: int = 3) -> None:
     """Save the K14 calls of the Mask R-CNN clip's detector forward
     (``chip_smoke.maskrcnn_inputs`` with ``edged_maskrcnn``) on the
@@ -553,7 +665,9 @@ def save_maskrcnn_inputs(cs, path: str, seed: int, images: int = 3) -> None:
 def shipped_default_clip(cs, seed: int, **cfg):
     """The pipeline ``KenBurnsConfig(**cfg)`` of the package on
     sys.path with chip_smoke's edged detector (``edged_nets``, or
-    ``edged_maskrcnn`` for ``detector='maskrcnn'``), after one clip."""
+    ``edged_maskrcnn`` for ``detector='maskrcnn'``; with ``sam=True``
+    the SAM clip, ``chip_smoke.sam_config`` with the edged box detector
+    and ``edged_sam``), after one clip."""
     import copy
     import tempfile
 
@@ -561,11 +675,20 @@ def shipped_default_clip(cs, seed: int, **cfg):
     from cartoonsegmentation_torch.ops import _cuda
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
     _cuda.build()
-    pipe = KenBurnsPipeline(KenBurnsConfig(**cfg), seed=seed, device='cuda')
     img = cs.make_image(seed)
+    if cfg.pop('sam', False):
+        pipe = KenBurnsPipeline(cs.sam_config(os.path.dirname(
+            os.path.abspath(__file__))), seed=seed, device='cuda')
+    else:
+        pipe = KenBurnsPipeline(KenBurnsConfig(**cfg), seed=seed,
+                                device='cuda')
     pipe.ensure_detector()
     if pipe.cfg.detector == 'maskrcnn':
         pipe._detector.model = cs.edged_maskrcnn(seed, img)
+    elif pipe.cfg.detector == 'sam':
+        pipe._detector.box_detector.model = copy.deepcopy(
+            cs.edged_nets(seed)[0])
+        pipe._detector.sam.model = cs.edged_sam(seed, img)
     else:
         det_net, isnet = cs.edged_nets(seed)
         pipe._detector.model = copy.deepcopy(det_net)
@@ -620,10 +743,12 @@ def save_exact_fill_inputs(cs, path: str, seed: int) -> None:
     print(f'saved K11 inputs of {len(inputs)} frames to {path}', flush=True)
 
 
-def clip_times(cs, root: str, seed: int, runs: int = 3) -> None:
-    """The shipped default clip and the CRF clip of the package at
-    ``root``: ``runs`` warm runs each after a cold one, wall seconds to
-    the mp4 and two stages' seconds."""
+def clip_times(cs, root: str, seed: int, only: str | None = None,
+               runs: int = 3) -> None:
+    """The shipped default, SAM, Mask R-CNN and CRF clips of the package
+    at ``root`` (with ``only``, those whose name holds one of its
+    comma-separated words): ``runs`` warm runs each after a cold one,
+    wall seconds to the mp4 and two stages' seconds."""
     import tempfile
 
     import torch
@@ -633,9 +758,12 @@ def clip_times(cs, root: str, seed: int, runs: int = 3) -> None:
     img = cs.make_image(seed)
     out = {}
     for tag, cfg in (('shipped default', {}),
+                     ('SAM clip', {'sam': True}),
                      ('Mask R-CNN clip', {'detector': 'maskrcnn',
                                           'discfill_mode': 'exact'}),
                      ('CRF clip', {'refine_crf': True})):
+        if only and not any(w in tag for w in only.split(',')):
+            continue
         pipe = shipped_default_clip(cs, seed, **cfg)
         walls, refine, render = [], [], []
         for _ in range(runs):

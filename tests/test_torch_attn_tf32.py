@@ -28,6 +28,7 @@ import torch
 
 from cartoonsegmentation_torch.models import sam as tsam
 from cartoonsegmentation_torch.models import swinv2 as tswin
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 F32, F64 = np.float32, np.float64
 KEYS = 64  # keys a tile in both kernels (K15a: 32 at hd 80)

@@ -10,6 +10,7 @@ import torch
 from cartoonsegmentation_tpu import config as jconfig
 from cartoonsegmentation_torch import config as tconfig
 from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / 'cartoonsegmentation_torch'

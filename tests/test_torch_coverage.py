@@ -25,6 +25,7 @@ from cartoonsegmentation_torch.ops import camera as tcamera
 from cartoonsegmentation_torch.ops import pointcloud as tpc
 from cartoonsegmentation_torch.pipeline import depth as tdepth
 from test_torch_kernels import _edge_cloud
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 f32 = np.float32
 # the streaming multiprocessors of the H100 SXM, which the plans are

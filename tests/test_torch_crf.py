@@ -41,6 +41,7 @@ from cartoonsegmentation_torch.pipeline.crf_refine import \
     refine_depth_crf as trefine
 from cartoonsegmentation_torch.pipeline.kenburns import \
     KenBurnsPipeline as TPipeline
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 # (H, W, rectangle rows and columns, disc centre and radius): sizes at

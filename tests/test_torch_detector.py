@@ -20,7 +20,7 @@ from cartoonsegmentation_tpu.pipeline.segment import AnimeInsSeg as JSeg
 from cartoonsegmentation_torch.models import rtmdet as trtmdet
 from cartoonsegmentation_torch.models.convert import rtmdet_from_flax
 from cartoonsegmentation_torch.pipeline.segment import AnimeInsSeg as TSeg
-from test_torch_kernels import _nms_case
+from test_torch_kernels import _nms_case, _nms_kind
 
 DEEPEN, WIDEN, SIZE = 0.33, 0.25, 128
 
@@ -131,6 +131,55 @@ def test_nms_plain_vs_jax(rng, K, max_out):
     np.testing.assert_array_equal(got_i.numpy(), _np(want_i))
     np.testing.assert_array_equal(got_m.numpy(), _np(want_m))
     assert 0 < int(got_m.sum()) < min(K, max_out) or max_out < K
+
+
+# (K, max_out) of the signed-score cases: scores with +0, -0, NaNs of
+# either sign, -inf, -1 and ties (test_torch_kernels._signed_scores)
+SIGNED = [(97, 100), (160, 60), (512, 100)]
+
+
+@pytest.fixture(scope='module')
+def signed_jax():
+    """Each signed case's inputs with JAX's nms_fixed keep set and
+    lax.top_k order over all K, computed once."""
+    rng = np.random.RandomState(11)
+    nms = jax.jit(jrtmdet.nms_fixed, static_argnums=(2, 3))
+    cases = []
+    for K, max_out in SIGNED:
+        boxes, scores = _nms_kind(rng, K, 'signed')
+        b, s = jnp.asarray(boxes.numpy()), jnp.asarray(scores.numpy())
+        ji, jm = nms(b, s, 0.6, max_out)
+        cases.append((boxes, scores, max_out, _np(ji), _np(jm),
+                      _np(jax.lax.top_k(s, K)[1])))
+    return cases
+
+
+@pytest.mark.parametrize('i', range(len(SIGNED)),
+                         ids=[f'{K}-{m}' for K, m in SIGNED])
+def test_nms_plain_vs_jax_signed_scores(signed_jax, i):
+    """K8's plain version orders +-0.0 and NaN scores as jnp.argsort
+    does (canonicalised): the keep set and its order exactly."""
+    boxes, scores, max_out, want_i, want_m, _ = signed_jax[i]
+    got_i, got_m = trtmdet.nms_fixed(boxes, scores, 0.6, max_out)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+    assert 0 < int(got_m.sum())
+
+
+@pytest.mark.parametrize('i', range(len(SIGNED)),
+                         ids=[f'{K}-{m}' for K, m in SIGNED])
+def test_top_k_vs_lax_signed_scores(signed_jax, i):
+    """postprocess's pre-NMS top-k and Mask R-CNN's _top_k keep
+    lax.top_k's order, which does not canonicalise (+0 before -0, a NaN
+    by its sign), on the scores where it differs from jnp.argsort's."""
+    from cartoonsegmentation_torch.models import maskrcnn as tmaskrcnn
+    _, scores, _, _, _, want = signed_jax[i]
+    K = len(want)
+    np.testing.assert_array_equal(trtmdet._top_k_order(scores)[:K].numpy(),
+                                  want)
+    np.testing.assert_array_equal(tmaskrcnn._top_k(scores, K).numpy(), want)
+    assert not np.array_equal(trtmdet._stable_argsort_desc(scores).numpy(),
+                              want)
 
 
 def test_dynamic_mask_heads_vs_jax(rng):

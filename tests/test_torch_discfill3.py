@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from cartoonsegmentation_torch.ops import discfill3 as tdiscfill3
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 CASES = ('blobs', 'ties', 'borders', 'ring', 'row', 'all', 'single', 'c1',
          'c3', 'c5')

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from cartoonsegmentation_torch.ops import discfill as tdiscfill
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 CASES = ('blobs', 'ties', 'ring', 'all', 'single', 'c1', 'c3')
 H, W = 19, 31

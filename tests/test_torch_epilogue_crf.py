@@ -19,6 +19,7 @@ import torch
 from cartoonsegmentation_torch.ops import _cuda
 from cartoonsegmentation_torch.ops import crf as tcrf
 from cartoonsegmentation_torch.utils import image as timage
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 f32 = np.float32
 

@@ -15,6 +15,7 @@ import torch
 
 from cartoonsegmentation_tpu.ops import inpaint_fill as jfill
 from cartoonsegmentation_torch.ops import inpaint_fill as tfill
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def jax_offsets(h, w, seed=0, iters=2):

@@ -11,7 +11,8 @@ the per-instance medians (K6), the median-5 and laplacian (K7), the
 NMS keep sets (K8, and K14b's, a graph-captured call too), the
 RoIAlign's level map (K14a), the colorize (K5b), the cloud compaction
 (K10) and the CRF's norm pass (K12b). Within the stated tolerance:
-splat sums, bokeh, the dynamic mask heads (K9), the RoIAlign (K14a: 1e-5
+splat sums, bokeh, the dynamic mask heads (K9: probs within 1e-6,
+masks >= 99.99% equal), the RoIAlign (K14a: 1e-5
 of the range), the frame epilogue (K5a),
 SAM's rel-pos attention (K15a), the k-means labels (K12a: their share),
 the CRF steps (K12b), SwinV2's window attention (K15b), the push-pull
@@ -37,6 +38,7 @@ from cartoonsegmentation_torch.ops import pointcloud as tpc
 from cartoonsegmentation_torch.pipeline import depth as tdepth
 from cartoonsegmentation_torch.pipeline import state as tstate
 from cartoonsegmentation_torch.utils import image as timage
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.fixture
@@ -553,17 +555,70 @@ def _nms_case(rng, K):
     return torch.from_numpy(boxes), scores.float()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('K', [512, 97])
-def test_nms_kernel_vs_plain(rng, cuda, K):
+def _signed_scores(rng, K):
+    """Scores in a few values with +0.0, -0.0, NaNs of either sign and
+    two payloads, -inf and -1.0 among them: the values whose order
+    jnp.argsort canonicalises (-0 as +0, every NaN as +NaN) and
+    lax.top_k does not."""
+    bits = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000,
+                     0x7f800001, 0xff800000, 0xbf800000, 0x3f000000,
+                     0x3e800000], np.uint32)
+    return torch.from_numpy(bits[rng.randint(0, len(bits), K)]
+                            .view(np.float32).copy())
+
+
+def _nms_kind(rng, K, kind):
+    """_nms_case, its scores made _signed_scores ('signed'), or its
+    boxes one cluster (all but one suppressed: 'one')."""
     boxes, scores = _nms_case(rng, K)
-    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    if kind == 'signed':
+        scores = _signed_scores(rng, K)
+    elif kind == 'one':
+        boxes = torch.from_numpy(np.array([10, 10, 50, 50], np.float32)
+                                 + rng.uniform(0, 0.5, (K, 4))
+                                 .astype(np.float32))
+    return boxes, scores
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [512, 97, 1])
+@pytest.mark.parametrize('kind', ['clusters', 'signed', 'one'])
+def test_nms_kernel_vs_plain(rng, cuda, K, kind):
+    """Every output slot, index and mask, equal to the plain version's
+    at max_out K and 100: clustered boxes with tied scores, the signed
+    zeros and NaNs, and one cluster (a box kept)."""
+    boxes, scores = (t.to(cuda) for t in _nms_kind(rng, K, kind))
     for max_out in (K, 100):
         ki, km = trtmdet.nms_fixed(boxes, scores, 0.6, max_out)
         pi, pm = trtmdet.nms_fixed_plain(boxes, scores, 0.6, max_out)
         assert torch.equal(ki, pi) and torch.equal(km, pm)
     kept = int(trtmdet.nms_fixed(boxes, scores, 0.6, K)[1].sum())
-    assert 0 < kept < K
+    if kind == 'clusters' and K > 1:
+        assert 0 < kept < K
+    if kind == 'one':
+        assert kept == 1
+
+
+@pytest.mark.gpu
+def test_nms_kernel_one_launch_graph_no_sync(rng, cuda):
+    """One kernel a call and no host sync; the call captures in a CUDA
+    graph that replays on new inputs copied into the captured ones."""
+    cases = [tuple(t.to(cuda) for t in _nms_kind(rng, 512, kind))
+             for kind in ('clusters', 'signed')]
+    boxes, scores = (t.clone() for t in cases[0])
+
+    def call():
+        return trtmdet.nms_fixed(boxes, scores, 0.6, 100)
+    ops, launches = _device_ops(call, 'nms')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
+    _no_sync(call)
+    graph, (ki, km) = _in_graph(call)
+    for b, sc in cases[::-1]:
+        boxes.copy_(b)
+        scores.copy_(sc)
+        graph.replay()
+        pi, pm = trtmdet.nms_fixed_plain(b, sc, 0.6, 100)
+        assert torch.equal(ki, pi) and torch.equal(km, pm)
 
 
 def _nms_large_case(rng, K, n_cats):
@@ -578,8 +633,9 @@ def _nms_large_case(rng, K, n_cats):
 def _nms_large_kind(rng, K, n_cats, kind):
     """_nms_large_case with its scores or boxes made into one of K14b's
     edge cases: scores tied in 4 values, exactly -1.0 (kept rows keyed
-    as the rows not kept), +-0.0, or disjoint boxes (nothing suppressed:
-    the walk stops at max_out)."""
+    as the rows not kept), +-0.0, the signed zeros and NaNs of
+    _signed_scores, or disjoint boxes (nothing suppressed: the walk
+    stops at max_out)."""
     boxes, scores, cats = _nms_large_case(rng, K, n_cats)
     if kind == 'ties':
         scores = torch.from_numpy((rng.randint(0, 4, K) / 4.0)
@@ -590,6 +646,8 @@ def _nms_large_kind(rng, K, n_cats, kind):
     elif kind == 'zeros':
         scores = torch.from_numpy(np.where(rng.rand(K) < 0.5, 0.0, -0.0)
                                   .astype(np.float32))
+    elif kind == 'signed':
+        scores = _signed_scores(rng, K)
     elif kind == 'disjoint':
         g = torch.arange(K, dtype=torch.float32)
         boxes = torch.stack([g * 20, g * 0, g * 20 + 10, g * 0 + 10], 1)
@@ -604,6 +662,7 @@ def _nms_large_kind(rng, K, n_cats, kind):
     pytest.param(97, 0.6, 40, 3, 'clusters', id='97-0.6-40-3'),
     (2048, 0.5, 2048, 3, 'ties'), (1000, 0.5, 300, 3, 'minus_one'),
     (1000, 0.5, 1000, 3, 'minus_one'), (300, 0.5, 300, 2, 'zeros'),
+    (2048, 0.5, 100, 90, 'signed'), (300, 0.5, 300, 2, 'signed'),
     (4756, 0.7, 1000, 1, 'disjoint'), (1, 0.5, 1, 1, 'clusters'),
     (65, 0.5, 65, 1, 'clusters'), (16384, 0.7, 1000, 5, 'clusters'),
     (16384, 0.5, 16384, 90, 'minus_one')])
@@ -748,24 +807,67 @@ def test_roi_align_nan_away_from_samples(rng, cuda):
         want.max() - want.min())
 
 
+def _mask_heads_case(rng, N, h, w, valid_share, dev):
+    feat = torch.from_numpy(rng.randn(h, w, 8).astype(np.float32)).to(dev)
+    kern = torch.from_numpy(rng.randn(N, 169).astype(np.float32)).to(dev)
+    priors = torch.from_numpy(
+        rng.randint(0, w, (N, 2)).astype(np.float32) * 8).to(dev)
+    strides = torch.from_numpy(
+        rng.choice([8.0, 16.0, 32.0], N).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(N) < valid_share).to(dev)
+    return feat, kern, priors, strides, valid
+
+
+def _mask_heads_close(got, want):
+    """The same sums in the same order; the resample may differ from
+    torch's by the FMA contraction of its kernel."""
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+    assert float((got[0] == want[0]).float().mean()) >= 0.9999
+
+
 @pytest.mark.gpu
 def test_mask_heads_kernel_vs_plain(rng, cuda):
     N, h, w = 9, 20, 24
-    feat = torch.from_numpy(rng.randn(h, w, 8).astype(np.float32)).to(cuda)
-    kern = torch.from_numpy(rng.randn(N, 169).astype(np.float32)).to(cuda)
-    priors = torch.from_numpy(
-        rng.randint(0, 24, (N, 2)).astype(np.float32) * 8).to(cuda)
-    strides = torch.from_numpy(
-        rng.choice([8.0, 16.0, 32.0], N).astype(np.float32)).to(cuda)
-    valid = torch.from_numpy(rng.rand(N) < 0.7).to(cuda)
-    mk, pk = trtmdet.dynamic_masks(feat, kern, priors, strides, valid,
-                                   8 * h, 8 * w, 0.3)
-    mp, pp = trtmdet.dynamic_masks_plain(feat, kern, priors, strides, valid,
-                                         8 * h, 8 * w, 0.3)
-    # the same sums in the same order; the resample may differ from
-    # torch's by the FMA contraction of its kernel
-    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-6)
-    assert float((mk == mp).float().mean()) >= 0.9999
+    x = _mask_heads_case(rng, N, h, w, 0.7, cuda)
+    _mask_heads_close(trtmdet.dynamic_masks(*x, 8 * h, 8 * w, 0.3),
+                      trtmdet.dynamic_masks_plain(*x, 8 * h, 8 * w, 0.3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('N,h,w,H,W,valid', [
+    (100, 80, 80, 640, 640, 0.0), (100, 80, 80, 640, 640, 1.0),
+    (7, 13, 21, 104, 167, 0.6), (15, 9, 12, 71, 90, 1.0),
+    (30, 16, 16, 40, 50, 1.0), (200, 1, 1, 8, 8, 1.0)],
+    ids=['invalid', 'valid', 'w-odd', 'h-odd', 'down', 'one-pixel'])
+def test_mask_heads_kernel_cases(rng, cuda, N, h, w, H, W, valid):
+    """All instances invalid (zeros, probs still written), all valid,
+    a width that is not a multiple of 16 (byte stores) with a last band
+    of fewer rows, a downsampling resize (source rows owned that no band
+    reads) and a 1x1 source."""
+    x = _mask_heads_case(rng, N, h, w, valid, cuda)
+    got = trtmdet.dynamic_masks(*x, H, W, 0.3)
+    _mask_heads_close(got, trtmdet.dynamic_masks_plain(*x, H, W, 0.3))
+    if valid == 0.0:
+        assert not bool(got[0].any())
+
+
+@pytest.mark.gpu
+def test_mask_heads_kernel_one_launch_graph_no_sync(rng, cuda):
+    """One kernel a call and no host sync; the call captures in a CUDA
+    graph that replays on new inputs copied into the captured ones."""
+    x = [t.clone() for t in _mask_heads_case(rng, 100, 80, 80, 0.8, cuda)]
+
+    def call():
+        return trtmdet.dynamic_masks(*x, 640, 640, 0.3)
+    ops, launches = _device_ops(call, 'maskhead')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
+    _no_sync(call)
+    graph, got = _in_graph(call)
+    new = _mask_heads_case(np.random.RandomState(7), 100, 80, 80, 0.5, cuda)
+    for dst, src in zip(x, new):
+        dst.copy_(src)
+    graph.replay()
+    _mask_heads_close(got, trtmdet.dynamic_masks_plain(*new, 640, 640, 0.3))
 
 
 def _epilogue_frame(rng, H, W, layout, dev):

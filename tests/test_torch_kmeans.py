@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from cartoonsegmentation_torch.ops import crf as tcrf
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 SHARE = 0.999       # chip_smoke.py: KMEANS_SHARE
 LANES = 32

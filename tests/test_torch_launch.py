@@ -37,6 +37,7 @@ from cartoonsegmentation_torch.utils import image as timage
 from test_torch_kernels import (_cloud, _cloud_args, _crf_case, _fill_case,
                                 _holes, _instance_masks, _nms_case,
                                 _nms_large_case, _pyramid)
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 _DECL = re.compile(r'extern\s+"C"\s+int\s+(kb_\w+)\s*\(([^)]*)\)')
 

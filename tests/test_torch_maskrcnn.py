@@ -26,6 +26,7 @@ from cartoonsegmentation_tpu.pipeline import maskrcnn_det as jdet
 from cartoonsegmentation_torch.models import maskrcnn as TM
 from cartoonsegmentation_torch.models.convert import maskrcnn_from_flax
 from cartoonsegmentation_torch.pipeline import maskrcnn_det as tdet
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 SMALL = dict(pre_nms_top=100, post_nms_top=50, box_candidates=256,
              max_det=10)

@@ -16,6 +16,7 @@ from cartoonsegmentation_torch.models import leres as tleres
 from cartoonsegmentation_torch.models.convert import (inpaint_from_flax,
                                                       leres_from_flax)
 from cartoonsegmentation_torch.models.kenburns import Inpaint as TInpaint
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 LAYERS = (1, 1, 1, 1)
 

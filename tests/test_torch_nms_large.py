@@ -1,38 +1,41 @@
-"""K14b's schedule (cartoonsegmentation_torch/csrc/nms_large.cu)
-emulated in numpy, against the JAX package's ``batched_nms_fixed`` and
-the port's plain version, on the CPU.
+"""K14b's schedule (cartoonsegmentation_torch/csrc/nms_large.cu) and
+K8's (csrc/nms.cu) emulated in numpy, against the JAX package's
+``batched_nms_fixed`` and ``nms_fixed`` and the port's plain version,
+on the CPU.
 
-The kernel runs only on a card; here its three steps run as it runs
-them, so that the order of its work is what the tests hold:
+The kernels run only on a card; here their steps run as they run
+them, so that the order of their work is what the tests hold:
 - the sort as a rank: each candidate's place is the number of keys
-  (total_order(-score), ties by index) below its own, counted a staged
-  tile of keys at a time;
-- the IoU mask in f32, one 64-bit word per (row, column tile) of the
-  upper triangle, the diagonal tile whole (a row's word there holds the
-  rows before it too: the IoU is symmetric bit for bit), IoU > thr
-  decided as the kernel decides it, without the division;
-- the walk a 64-row tile at a time: the tile's rows decided all at once
-  in rounds (a row is removed once a kept row suppresses it, kept once
-  every candidate that could suppress it is decided and none is kept),
-  from each row's suppressors within the tile (its diagonal word's bits
+  (jnp.argsort's: the float canonicalised, -0 as +0 and every NaN as
+  +NaN, then its total order; ties by index) below its own, counted a
+  staged tile of keys at a time;
+- K14b: the IoU mask in f32, one 64-bit word per (row, column tile) of
+  the upper triangle, the diagonal tile whole (a row's word there holds
+  the rows before it too: the IoU is symmetric bit for bit), IoU > thr
+  decided as the kernel decides it, without the division; the walk a
+  64-row tile at a time: the tile's rows decided all at once in rounds
+  (a row is removed once a kept row suppresses it, kept once every
+  candidate that could suppress it is decided and none is kept), from
+  each row's suppressors within the tile (its diagonal word's bits
   below it); the next tile's word formed from the kept rows' words in
   that column (the carry), and the other warps' ORs into the tiles
   further out applied one tile behind (tile t's kept rows reach
-  removed[t + 2 ..] only before tile t + 2 is resolved); the walk
-  stopped once n_out kept rows of score key below that of -1 are found,
-  and the three-group output (those rows; the rows keyed as -1; the kept
-  rows keyed above it) placed by a block scan of packed counts when the
-  walk runs to the end.
+  removed[t + 2 ..] only before tile t + 2 is resolved);
+- K8: the walk a 64-row tile at a time, each row of the tile tested
+  against the kept list of the earlier tiles and, while still a
+  candidate, against the tile's rows before it, then the same rounds;
+- both: the walk stopped once n_out kept rows of score key below that
+  of -1 are found, and the three-group output (those rows; the rows
+  keyed as -1; the kept rows keyed above it, NaN scores among them)
+  placed by a block scan of packed counts when the walk runs to the
+  end.
 Every early stop is checked against the same walk run to the end.
 Exact throughout: every case against the port's plain version
-(``rtmdet.nms_fixed_plain`` after the category offsets), two of them
-(ties, -inf and exactly -1.0 at K = 2,048 and at K = 65, across a tile's
-edge, n_out = K) also against JAX's ``batched_nms_fixed``, computed once
-a module (each JAX call compiles its scan anew, ~1-3 s). The +-0.0 case
-is not held against JAX: jnp.argsort makes -0.0 equal to +0.0 (lax.sort
-canonicalises zeros and NaNs), where the port's score order, its plain
-version and its kernels (K8, K14b) put -0.0 after +0.0 (ROADMAP.md, port
-faults).
+(``rtmdet.nms_fixed_plain``, after the category offsets for K14b),
+some (ties, -inf, exactly -1.0, the signed zeros and NaNs, across a
+tile's edge) also against JAX's ``batched_nms_fixed`` or
+``nms_fixed``, computed once a module (each JAX call compiles its scan
+anew, ~1-3 s).
 """
 import numpy as np
 import pytest
@@ -41,7 +44,9 @@ import torch
 import jax.numpy as jnp
 
 from cartoonsegmentation_tpu.models import maskrcnn as JM
+from cartoonsegmentation_torch.models import maskrcnn as TM
 from cartoonsegmentation_torch.models import rtmdet as TR
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 TILE = 64
 WALK_THREADS = 512
@@ -49,8 +54,13 @@ RANK_TILE = 8192
 
 
 def total_order(x: np.ndarray) -> np.ndarray:
-    """f32 → uint32, increasing in the float total order."""
-    u = np.asarray(x, np.float32).view(np.uint32)
+    """f32 → uint32: jnp.argsort's key (nms_common.cuh:kb_sort_key),
+    the float canonicalised (-0 → +0, every NaN → +NaN), then
+    increasing in its total order."""
+    x = np.asarray(x, np.float32)
+    u = x.view(np.uint32).copy()
+    u[x == 0] = 0
+    u[np.isnan(x)] = 0x7fc00000
     return np.where(u & np.uint32(0x80000000), ~u,
                     u | np.uint32(0x80000000)).astype(np.uint32)
 
@@ -122,6 +132,27 @@ def mask_words(sb: np.ndarray, thr: float) -> np.ndarray:
     return out
 
 
+def tile_keep(cand: int, sup: list) -> int:
+    """nms_common.cuh:kb_nms_tile_keep: a tile's kept rows as a fixed
+    point, in rounds; sup[j] the candidates before row j that suppress
+    it."""
+    kept, undecided, rounds = 0, cand, 0
+    while undecided:
+        nk = nr = 0
+        for j in range(TILE):
+            if (undecided >> j) & 1:
+                if sup[j] & kept:
+                    nr |= 1 << j
+                elif not sup[j] & (kept | undecided):
+                    nk |= 1 << j
+        assert (nk | nr) & (undecided & -undecided)   # the lowest
+        kept |= nk
+        undecided &= ~(nk | nr)
+        rounds += 1
+    assert rounds <= bin(cand).count('1')
+    return kept
+
+
 def walk(mask: np.ndarray, lt: np.ndarray, n_out: int, stop: bool = True):
     """walk_kernel's loop, a step a tile: (kept words, tiles resolved,
     G1 rows in order). lt: the rows whose score key is below that of
@@ -145,20 +176,7 @@ def walk(mask: np.ndarray, lt: np.ndarray, n_out: int, stop: bool = True):
         cand = ~(removed[r] | carry) & ((1 << n) - 1)
         sup = [int(mask[TILE * r + j, r]) & ((1 << j) - 1) & cand
                if j < n else 0 for j in range(TILE)]
-        kept, undecided, rounds = 0, cand, 0
-        while undecided:
-            nk = nr = 0
-            for j in range(TILE):
-                if (undecided >> j) & 1:
-                    if sup[j] & kept:
-                        nr |= 1 << j
-                    elif not sup[j] & (kept | undecided):
-                        nk |= 1 << j
-            assert (nk | nr) & (undecided & -undecided)   # the lowest
-            kept |= nk
-            undecided &= ~(nk | nr)
-            rounds += 1
-        assert rounds <= bin(cand).count('1')
+        kept = tile_keep(cand, sup)
         carry = 0
         if r + 1 < words:
             for j in range(n):
@@ -233,10 +251,21 @@ def offset_boxes(boxes, cats):
     return boxes + (cats.astype(np.float32) * extent)[:, None]
 
 
+def signed_scores(rng, K: int) -> np.ndarray:
+    """Scores in a few values with +0.0, -0.0, NaNs of either sign and
+    two payloads, -inf and -1.0 among them (as tests/test_torch_kernels.py
+    makes them for the card)."""
+    bits = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000,
+                     0x7f800001, 0xff800000, 0xbf800000, 0x3f000000,
+                     0x3e800000], np.uint32)
+    return bits[rng.randint(0, len(bits), K)].view(np.float32).copy()
+
+
 def make_case(kind: str, K: int, seed: int):
     """(boxes, scores, cats): clustered boxes with duplicates, and
-    scores tied (bf16-valued), -inf, exactly -1.0, +-0.0, one cluster
-    (all but one suppressed) or disjoint boxes (nothing suppressed)."""
+    scores tied (bf16-valued), -inf, exactly -1.0, +-0.0, the signed
+    zeros and NaNs, one cluster (all but one suppressed) or disjoint
+    boxes (nothing suppressed)."""
     rng = np.random.RandomState(seed)
     centres = rng.uniform(0, 200, (K // 8 + 1, 2))
     c = centres[rng.randint(0, len(centres), K)] + rng.randn(K, 2) * 3
@@ -261,6 +290,8 @@ def make_case(kind: str, K: int, seed: int):
         scores = np.where(rng.rand(K) < 0.5, np.float32(0.0),
                           np.float32(-0.0)).astype(np.float32)
         scores[rng.rand(K) < 0.2] = 0.5
+    elif kind == 'signed':
+        scores = signed_scores(rng, K)
     elif kind == 'cluster':
         boxes = (np.array([10, 10, 50, 50], np.float32)
                  + rng.uniform(0, 0.5, (K, 4)).astype(np.float32))
@@ -277,7 +308,8 @@ CASES = [('mixed', 2048, 0.5, 2048, True), ('mixed', 65, 0.5, 65, True),
          ('inf', 2048, 0.5, 2048, False),
          ('minus_one', 2048, 0.5, 100, False), ('ties', 200, 0.5, 60, False),
          ('inf', 200, 0.5, 200, False), ('minus_one', 200, 0.5, 200, False),
-         ('zeros', 200, 0.5, 150, False), ('cluster', 200, 0.5, 200, False),
+         ('zeros', 200, 0.5, 150, False), ('signed', 200, 0.5, 150, True),
+         ('cluster', 200, 0.5, 200, False),
          ('disjoint', 200, 0.5, 60, False), ('clusters', 1, 0.5, 1, False),
          ('clusters', 63, 0.5, 63, False), ('clusters', 64, 0.5, 64, False),
          ('clusters', 65, 0.5, 65, False)]
@@ -300,8 +332,9 @@ def jax_keeps():
                          ids=[f'{c[0]}-{c[1]}-{c[3]}' for c in CASES])
 def test_schedule_vs_reference(jax_keeps, i):
     """Every slot of the emulated kernel equal to the plain version's
-    and (where marked) to JAX's batched_nms_fixed; the disjoint boxes
-    stop the walk early, the cluster keeps one box."""
+    and (where marked) to JAX's batched_nms_fixed, as the port's own
+    batched_nms_fixed is; the disjoint boxes stop the walk early, the
+    cluster keeps one box."""
     kind, K, thr, n_out, vs_jax = CASES[i]
     boxes, scores, cats = make_case(kind, K, i)
     shifted = offset_boxes(boxes, cats)
@@ -313,6 +346,12 @@ def test_schedule_vs_reference(jax_keeps, i):
     if vs_jax:
         np.testing.assert_array_equal(idx, jax_keeps[i][0])
         np.testing.assert_array_equal(mask, jax_keeps[i][1])
+        # the port's own batched_nms_fixed (its CPU path)
+        bi, bm = TM.batched_nms_fixed(*map(torch.from_numpy,
+                                           (boxes, scores, cats)),
+                                      thr, n_out)
+        np.testing.assert_array_equal(bi.numpy(), jax_keeps[i][0])
+        np.testing.assert_array_equal(bm.numpy(), jax_keeps[i][1])
     if kind == 'disjoint':
         assert walked == -(-n_out // TILE) < tiles
     if kind == 'cluster':
@@ -378,3 +417,119 @@ def test_iou_rule_is_the_division(thr):
     else:                                   # an exact midpoint, both ways
         assert np.float64(inter[-2]) / np.float64(den[-2]) == mid
         assert (quot[-2] > t32) == (thr > 0)
+
+
+# ---------------------------------------------------------------------------
+# K8 (csrc/nms.cu): one block, K <= 512
+# ---------------------------------------------------------------------------
+
+def pair_hits(sb: np.ndarray, thr: float) -> np.ndarray:
+    """(K, K) bool: IoU(i, j) > thr as kb_iou_above decides it, in f32
+    (symmetric bit for bit), a box against itself left out."""
+    zero = np.float32(0)
+    area = np.maximum(sb[:, 2] - sb[:, 0], zero) * \
+        np.maximum(sb[:, 3] - sb[:, 1], zero)
+    iw = np.maximum(np.minimum(sb[:, None, 2], sb[None, :, 2])
+                    - np.maximum(sb[:, None, 0], sb[None, :, 0]), zero)
+    ih = np.maximum(np.minimum(sb[:, None, 3], sb[None, :, 3])
+                    - np.maximum(sb[:, None, 1], sb[None, :, 1]), zero)
+    inter = iw * ih
+    den = np.maximum(area[:, None] + area[None, :] - inter, np.float32(1e-9))
+    hit = iou_hit(inter, den, thr)
+    assert (hit == hit.T).all()
+    np.fill_diagonal(hit, False)
+    return hit
+
+
+def k8_walk(hit: np.ndarray, lt: np.ndarray, n_out: int, stop: bool = True):
+    """nms_kernel's walk, a step a tile: each row of the tile is removed
+    when a row of the kept list (the earlier tiles' kept rows) suppresses
+    it; a row still a candidate gets its suppressors among the tile's
+    rows before it; then the tile's fixed point. (kept words, tiles
+    walked, G1 rows in order)."""
+    K = len(hit)
+    tiles = -(-K // TILE)
+    kept_rows, kept_w, g1 = [], [0] * tiles, []
+    for r in range(tiles):
+        n = min(TILE, K - TILE * r)
+        removed, sup = 0, [0] * TILE
+        for jj in range(n):
+            j = TILE * r + jj
+            if kept_rows and hit[kept_rows, j].any():
+                removed |= 1 << jj
+                continue
+            sup[jj] = sum(1 << ii for ii in range(jj)
+                          if hit[TILE * r + ii, j])
+        cand = ~removed & ((1 << n) - 1)
+        kept = tile_keep(cand, [x & cand for x in sup])
+        rows = [TILE * r + jj for jj in range(n) if (kept >> jj) & 1]
+        kept_rows += rows
+        kept_w[r] = kept
+        g1 += [p for p in rows if lt[p]]
+        if stop and len(g1) >= n_out:
+            return kept_w, r + 1, g1
+    return kept_w, tiles, g1
+
+
+def emulate_k8(boxes, scores, iou_thr, n_out):
+    """K8 on one call: (keep_idx, keep_mask, tiles walked, tiles) with
+    the early stop, checked against the walk run to the end."""
+    order = rank_order(scores)
+    s = scores[order]
+    hit = pair_hits(boxes[order], iou_thr)
+    key1 = total_order(-s)
+    e = total_order(np.float32(1.0))
+    lt = key1 < e
+    kept_w, walked, g1 = k8_walk(hit, lt, n_out)
+    top = place(kept_w, g1, key1, e, n_out)
+    full_w = kept_w
+    if walked < len(kept_w):                     # an early stop
+        full_w, _, full_g1 = k8_walk(hit, lt, n_out, stop=False)
+        assert top == place(full_w, full_g1, key1, e, n_out)
+    kept_top = np.array([(full_w[p >> 6] >> (p & 63)) & 1 for p in top],
+                        bool)
+    return order[top], kept_top & (s[top] > -1.0), walked, len(kept_w)
+
+
+# (kind, K, n_out, held against JAX's nms_fixed too), IoU 0.6
+K8_CASES = [('clusters', 512, 100, True), ('signed', 512, 512, True),
+            ('signed', 97, 40, False), ('ties', 130, 130, False),
+            ('minus_one', 300, 300, False), ('inf', 512, 100, False),
+            ('cluster', 512, 100, False), ('disjoint', 512, 100, False),
+            ('clusters', 1, 1, False), ('clusters', 65, 65, False)]
+
+
+@pytest.fixture(scope='module')
+def jax_k8_keeps():
+    import jax
+    from cartoonsegmentation_tpu.models import rtmdet as JR
+    nms = jax.jit(JR.nms_fixed, static_argnums=(2, 3))
+    out = {}
+    for i, (kind, K, n_out, vs_jax) in enumerate(K8_CASES):
+        if vs_jax:
+            boxes, scores, _ = make_case(kind, K, 100 + i)
+            ji, jm = nms(jnp.asarray(boxes), jnp.asarray(scores), 0.6, n_out)
+            out[i] = np.asarray(ji), np.asarray(jm)
+    return out
+
+
+@pytest.mark.parametrize('i', range(len(K8_CASES)),
+                         ids=[f'{c[0]}-{c[1]}-{c[2]}' for c in K8_CASES])
+def test_k8_schedule_vs_reference(jax_k8_keeps, i):
+    """Every slot of the emulated K8 equal to the plain version's and
+    (where marked) to JAX's nms_fixed; the disjoint boxes stop the walk
+    at the tile of the n_out-th box, the cluster keeps one box."""
+    kind, K, n_out, vs_jax = K8_CASES[i]
+    boxes, scores, _ = make_case(kind, K, 100 + i)
+    idx, mask, walked, tiles = emulate_k8(boxes, scores, 0.6, n_out)
+    pi, pm = TR.nms_fixed_plain(torch.from_numpy(boxes),
+                                torch.from_numpy(scores), 0.6, n_out)
+    np.testing.assert_array_equal(idx, pi.numpy())
+    np.testing.assert_array_equal(mask, pm.numpy())
+    if vs_jax:
+        np.testing.assert_array_equal(idx, jax_k8_keeps[i][0])
+        np.testing.assert_array_equal(mask, jax_k8_keeps[i][1])
+    if kind == 'disjoint':
+        assert walked == -(-n_out // TILE) < tiles
+    if kind == 'cluster':
+        assert mask.sum() == 1

@@ -39,6 +39,7 @@ from cartoonsegmentation_torch.utils import image as timage
 from test_torch_kernels import _instance_masks
 from oracles import (oracle_bokeh_pass, oracle_fill_disocclusion,
                      oracle_render_pointcloud)
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def _t(a):

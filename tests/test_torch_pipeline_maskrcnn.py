@@ -26,6 +26,7 @@ from cartoonsegmentation_torch.pipeline.kenburns import \
 from test_torch_maskrcnn import small_detectors
 from test_torch_pipeline import (CFG, LAYERS, H, W, _agreement, _image,
                                  _leres_variables, _np, _port_state)
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 MRCNN_CFG = dict(CFG, detector='maskrcnn', discfill_mode='exact',
                  max_instances=6, pred_score_thr=0.1)

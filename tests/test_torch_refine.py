@@ -21,6 +21,7 @@ from cartoonsegmentation_torch.models.isnet import ISNetDIS
 from cartoonsegmentation_torch.pipeline.refine import (ISNetRefiner,
                                                        make_refiner)
 from test_torch_detector import _paths, randomize
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope='module')

@@ -16,6 +16,7 @@ from cartoonsegmentation_tpu.ops import bokeh as jbokeh
 from cartoonsegmentation_torch.ops import bokeh as tbokeh
 from cartoonsegmentation_torch.ops import pointcloud as tpc
 from test_torch_ops import _np, _t, assert_bokeh_close
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 # the three pass directions of _bokeh_core, as it passes them
 _JAX_DIRS = ((0.0, 1.0),

@@ -22,6 +22,7 @@ from cartoonsegmentation_torch.models import sam as tsam
 from cartoonsegmentation_torch.models.convert import sam_from_flax
 from cartoonsegmentation_torch.pipeline import sam as tpsam
 from torch_twins import TorchSAM, randomize_
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 TINY = dict(img_size=64, patch=16, enc_dim=32, enc_depth=2,
             enc_heads=4, window=3, global_idx=(1,), dec_dim=32,

@@ -17,6 +17,7 @@ from cartoonsegmentation_torch.data import coco_export as tcoco
 from cartoonsegmentation_torch.data import rle as trle
 from cartoonsegmentation_torch.instances import Instances as TIns
 from cartoonsegmentation_torch.utils import constants as tconst
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 
 def _masks(rng, n=5, h=37, w=53):

@@ -27,6 +27,7 @@ from cartoonsegmentation_torch.pipeline.state import (KenBurnsState,
                                                       PointCloud)
 
 from test_torch_config import FORBIDDEN, PORT, _imports
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 H, W = 66, 93
 CFG = dict(detector='none', dtype='float32', render_payload_dtype='float32',

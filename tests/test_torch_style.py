@@ -38,6 +38,7 @@ from cartoonsegmentation_torch.serving import sd_webui as tsd
 from cartoonsegmentation_torch.utils import io as tio
 
 from test_torch_inpaint_fill import jax_offsets
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 

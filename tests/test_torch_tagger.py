@@ -35,6 +35,7 @@ from cartoonsegmentation_torch.models.convert import swinv2_from_flax
 from cartoonsegmentation_torch.models.tagger import Tagger as TTagger
 from cartoonsegmentation_torch.ops import _cuda
 from cartoonsegmentation_torch.pipeline.segment import AnimeInsSeg as TSeg
+from torch_cpu import torch_threads  # noqa: F401  (autouse)
 
 NCLS, EMBED, DEPTHS, HEADS, WIN = 12, 32, (2, 2, 2, 1), (2, 4, 8, 8), 4
 KW = dict(num_classes=NCLS, embed_dim=EMBED, depths=DEPTHS,
