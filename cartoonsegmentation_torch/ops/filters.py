@@ -5,11 +5,15 @@ Layout (..., H, W, C), channel-last as in the JAX package.
 
 - ``laplacian_filter_plain`` / ``median_filter_plain``: the JAX
   versions' formulation in plain PyTorch (shifted copies; a sort over
-  the 25 taps).
-- ``csrc/laplacian.cu``, ``csrc/median5.cu``: a shared-memory tile
-  with its halo and one thread a pixel. The wrappers
-  ``laplacian_filter`` and ``median_filter`` pick by device; both
-  results are exact against the plain versions.
+  the 25 taps, NaN last as in JAX's order).
+- ``csrc/laplacian.cu``: a shared-memory tile with its halo and one
+  thread a pixel. ``csrc/median5.cu``: the tile as order keys (NaN
+  above +inf), a thread 8 outputs down a column, each window row
+  sorted once and shared rows merged once for two outputs. The
+  wrappers ``laplacian_filter`` and ``median_filter`` pick by device;
+  both results are exact against the plain versions (the median's
+  NaNs where the plain version's are; the sign of a zero output may
+  differ).
 """
 from __future__ import annotations
 

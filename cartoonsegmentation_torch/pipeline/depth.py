@@ -5,12 +5,14 @@ disparity adjustment, per-instance median (K6) and the gray_r colorize
 
 K6 ``masked_median_u8`` runs ``masked_median_u8_plain`` (a 256-bin
 histogram with ``index_put_``) for CPU tensors and
-``csrc/insmedian.cu`` for CUDA tensors; K5b ``colorize_gray_r`` runs
-``colorize_gray_r_plain`` or ``csrc/colorize.cu``. All are exact.
+``csrc/insmedian.cu`` for CUDA tensors (one launch, its scratch a
+buffer a card that each call leaves zero: ``_median_scratch``); K5b
+``colorize_gray_r`` runs ``colorize_gray_r_plain`` or
+``csrc/colorize.cu``. All are exact.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -57,9 +59,12 @@ def masked_median_u8_plain(values: torch.Tensor, masks: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """Per-instance lower median of round(values) over each mask, via a
     256-bin histogram. values (H, W) in [0, 255], masks (N, H, W) bool,
-    valid (N,). Invalid or empty instances give -inf."""
+    valid (N,). Invalid or empty instances give -inf; a NaN value
+    counts in bin 0, as the JAX version's float-to-int conversion on
+    the CPU and the kernel put it."""
     N = masks.shape[0]
-    q = values.round().clamp(0, 255).to(torch.int64).reshape(-1)
+    q = values.round().clamp(0, 255).nan_to_num(0.0).to(torch.int64)
+    q = q.reshape(-1)
     m = masks.reshape(N, -1)
     hist = torch.zeros((N, 256), device=values.device)
     rows = torch.arange(N, device=values.device)[:, None].expand_as(m)
@@ -92,13 +97,29 @@ def masked_median_u8(values: torch.Tensor, masks: torch.Tensor,
         raise ValueError(f'masks {tuple(masks.shape)}, values '
                          f'{tuple(values.shape)} and valid '
                          f'{tuple(valid.shape)} do not match')
-    hist = torch.empty((N, 256), dtype=torch.int32, device=dev)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
     _cuda.launch('insmedian',
                  values.data_ptr(), masks.data_ptr(), valid.data_ptr(), N,
-                 values.numel(), hist.data_ptr(), out.data_ptr(),
-                 _cuda.stream_ptr(values))
+                 values.numel(), _median_scratch(dev, N).data_ptr(),
+                 out.data_ptr(), _cuda.stream_ptr(values))
     return out
+
+
+# K6's scratch a card, by device index
+_scratch: Dict[int, torch.Tensor] = {}
+
+
+def _median_scratch(dev: torch.device, N: int) -> torch.Tensor:
+    """csrc/insmedian.cu's scratch on ``dev`` for N instances: N x 256
+    bins and N tickets (int32), zero on entry. Each call leaves what it
+    used zero, so one buffer serves every call on the card, made (or
+    grown) by the first call that needs it; calls that overlap on two
+    streams would share it, and the port makes them on one."""
+    buf = _scratch.get(dev.index)
+    if buf is None or buf.numel() < N * 257:
+        buf = _scratch[dev.index] = torch.zeros(
+            N * 257, dtype=torch.int32, device=dev)
+    return buf
 
 
 def colorize_gray_r_plain(x: torch.Tensor) -> torch.Tensor:

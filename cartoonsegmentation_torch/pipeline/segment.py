@@ -22,8 +22,7 @@ import torch
 from ..device import resolve_device, resolve_dtype
 from ..instances import Instances
 from ..models.rtmdet import AnimeDetector, postprocess
-from ..utils.image import (resize_bilinear, resize_bilinear_aa,
-                           resize_linear_u8)
+from ..utils.image import resize_bilinear, resize_linear_u8
 from ..utils.profiling import StageTimer
 
 LOGGER = logging.getLogger('cartoonsegmentation_torch')
@@ -132,8 +131,13 @@ class AnimeInsSeg:
         scores = out['scores']
         valid = out['valid'] & (scores > score_thr)
         masks = out['masks'][:, :nh, :nw] & valid[:, None, None]
-        masks = resize_bilinear_aa(masks.float().permute(1, 2, 0), h, w)
-        masks = masks.permute(2, 0, 1) > 0.5
+        # the N masks as the channels of one image, resized as
+        # resize_bilinear_aa resizes: (N, h, w) contiguous, each mask's
+        # pixels in a row as K6 and the depth adjustment read them (the
+        # channel-last helper would leave each pixel's N masks in a row)
+        masks = torch.nn.functional.interpolate(
+            masks.float()[None], size=(h, w), mode='bilinear',
+            align_corners=False, antialias=True)[0] > 0.5
         bboxes = out['bboxes'] / torch.tensor(scale, dtype=torch.float32,
                                               device=scores.device)
         hi = torch.tensor([w, h, w, h], dtype=torch.float32,

@@ -13,9 +13,12 @@
    holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
    with 4,096 copies of one point, as the main path's cloud has; K6 over
-   100 instance slots; K8 over the top 512 boxes, and K8 and K14b on
-   scores with +-0.0 and NaNs; K9 at 100 x 640x640; K8 and K9 each one
-   kernel a call, counted as the nodes of a captured CUDA graph;
+   100 instance slots, also on a map with NaN and +-inf values, its
+   scratch left zero; K7's median-5 also on taps of NaN, +-inf and
+   +-0 (NaN outputs where the plain version has them); K8 over the top
+   512 boxes, and K8 and K14b on scores with +-0.0 and NaNs; K9 at 100
+   x 640x640; K6, the median-5, K8 and K9 each one kernel a call,
+   counted as the nodes of a captured CUDA graph;
    K5a at the path's crop and at a crop kept at its size, on the
    filled view and on contiguous frames, through ``frame_epilogue``
    and the frame loop's ``EpiloguePlan``, with the host's cost of a
@@ -34,8 +37,9 @@
    448x768 and 768x768 on a hole of seeded discs over a quarter of the
    frame) and times both with CUDA events around one call on an idle
    card (median of runs on varied inputs); K1, K2, K3, K4, K5a, K5b,
-   the laplacian and its cuDNN convolution, K8, K9, K11, K12a, K12b's
-   step and norm pass, K14a, K14b, K15a, K15b and SDPA also by
+   K6, the median-5, the laplacian and its cuDNN convolution, K8, K9,
+   K11, K12a, K12b's step and norm pass, K13a, K13b, K14a, K14b, K15a,
+   K15b and SDPA also by
    their device time alone (``graph_ms``: ten calls captured in a CUDA
    graph and replayed), the ratio to SDPA's on each attention line;
 3. runs the detector-free clip (``KenBurnsConfig(detector='none')``,
@@ -117,7 +121,8 @@
 15. runs the style flow, ``StyleEditor.repaint`` at long side 768 with
    that detector and tagger against a stub sd-webui server on
    127.0.0.1: K13a and K13b launched, one img2img and one inpaint an
-   instance, the card's background fill against the CPU's;
+   instance, the card's background fill against the CPU's, and K13a's
+   and K13b's device times on that fill's inputs;
 16. runs the detector-free clip at 683x1024 (H % 4 != 0), which
    streams BGR chunks: the frames, the clip's frame count, no I420;
 17. prints one {"kernels": [...]} line, then the card line and the
@@ -1248,26 +1253,43 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
     from cartoonsegmentation_torch.pipeline import depth
     res = {}
 
-    # --- K6: 100 instance slots, 60 valid (one of them empty) ---------
+    # --- K6: 100 instance slots, 60 valid (one of them empty), on the
+    # colorized depth and on a map with NaN (bin 0) and ±inf values ----
     masks, valid = instance_masks(gen, dev, 100, 60)
     masks[3] = False
-    got = depth.masked_median_u8(depth_maps[0], masks, valid)
-    want = depth.masked_median_u8_plain(depth_maps[0], masks, valid)
-    if not torch.equal(got, want):
-        fail(f'masked median differs at {int((got != want).sum())} of 100 '
-             f'instances')
+    odd = depth_maps[0].clone()
+    pick = torch.rand(odd.shape, generator=gen).to(dev)
+    odd[pick < 0.05] = float('nan')
+    odd[(pick >= 0.05) & (pick < 0.07)] = float('inf')
+    odd[(pick >= 0.07) & (pick < 0.09)] = float('-inf')
+    for tag, v in (('the colorized depth', depth_maps[0]),
+                   ('NaN and +-inf values', odd)):
+        got = depth.masked_median_u8(v, masks, valid)
+        want = depth.masked_median_u8_plain(v, masks, valid)
+        if not torch.equal(got, want):
+            fail(f'masked median on {tag} differs at '
+                 f'{int((got != want).sum())} of 100 instances')
+    torch.cuda.synchronize()
+    if bool(depth._scratch[odd.device.index].any()):
+        fail('masked median: a call left its histogram or tickets nonzero')
     n_valid = int(valid.sum())
     nbytes = H * W * 4 + n_valid * H * W + 100 + 100 * 4
     ms = time_ms(
         lambda v: depth.masked_median_u8(v, masks, valid), depth_maps)
     plain_ms = time_ms(
         lambda v: depth.masked_median_u8_plain(v, masks, valid), depth_maps)
+    dev_ms = graph_ms(lambda v: depth.masked_median_u8(v, masks, valid),
+                      depth_maps[0])
     b, by = bound(nbytes, n_valid * H * W * 3)   # round, clamp, count
     res['insmedian'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b, bound_by=by)
+                            bound_ms=b, bound_by=by, device_ms=dev_ms)
     print(f'[kernel] insmedian 100 slots ({n_valid} valid) at {H}x{W}: '
-          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms '
-          f'({by}), exact', flush=True)
+          f'kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
+          f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), exact (NaN and '
+          f'+-inf values too; scratch left zero)', flush=True)
+    res['insmedian']['one_launch'] = one_launch(
+        lambda: depth.masked_median_u8(depth_maps[0], masks, valid),
+        'insmedian')
 
     # --- K7: the median-5 of `existing`, the laplacian of a disparity --
     disp = [(d / 255.0)[..., None].contiguous() for d in depth_maps]
@@ -1278,12 +1300,33 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
         if not torch.equal(filters.laplacian_filter(x),
                            filters.laplacian_filter_plain(x)):
             fail('laplacian differs from the plain version')
-    # the median of 25 needs 99 compare-exchanges (a selection network:
-    # Paeth's, as in Devillard's opt_med25), a min and a max each; the
-    # kernel's full sort does 300. The laplacian: 1 multiply, 4 subtracts
+    # taps of NaN of both signs over half the plane, ±inf, ±0: NaN where
+    # 13 or more taps are NaN, the sign of a zero free
+    x = torch.tensor([-2.5, -0.0, 0.0, 1.0, float('inf'), float('-inf')])[
+        torch.randint(0, 6, (1, H, W, 1), generator=gen)]
+    nan = torch.rand(x.shape, generator=gen) < 0.5
+    x[nan] = torch.tensor([float('nan')]).view(torch.int32).bitwise_or(
+        (torch.rand(x.shape, generator=gen)[nan] < 0.5).int()
+        * -(1 << 31)).view(torch.float32)
+    x = x.to(dev)
+    got, want = filters.median_filter(x, 5), filters.median_filter_plain(x, 5)
+    same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        got[~torch.isnan(got)], want[~torch.isnan(want)])
+    if not same:
+        fail('median-5 differs from the plain version on NaN, +-inf and +-0 '
+             'taps')
+    print(f'[kernel] median5 on NaN (both signs), +-inf and +-0 taps: '
+          f'{int(torch.isnan(got).sum())} NaN outputs where the plain '
+          f'version has them, the rest equal', flush=True)
+    # the median: csrc/median5.cu's networks make 570 integer min/max a
+    # run of 8 outputs (71.25 a pixel, 35.6 compare-exchanges, where a
+    # median-of-25 selection network needs 99), whose time at the f32
+    # rate is below the bytes': the bytes bind. The laplacian: 1
+    # multiply, 4 subtracts
     for name, fn, plain, xs, ops in (
             ('median5', lambda x: filters.median_filter(x, 5),
-             lambda x: filters.median_filter_plain(x, 5), existing, 99 * 2),
+             lambda x: filters.median_filter_plain(x, 5), existing,
+             570 / 8),
             ('laplacian', filters.laplacian_filter,
              filters.laplacian_filter_plain, disp, 5)):
         b, by = bound(H * W * 8, H * W * ops)
@@ -1293,6 +1336,12 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
         print(f'[kernel] {name} {H}x{W}: kernel {ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}), exact',
               flush=True)
+    res['median5']['device_ms'] = graph_ms(
+        lambda x: filters.median_filter(x, 5), existing[0])
+    print(f'[kernel] median5 device time {res["median5"]["device_ms"]:.4f} '
+          f'ms', flush=True)
+    res['median5']['one_launch'] = one_launch(
+        lambda: filters.median_filter(existing[0], 5), 'median5')
     # the laplacian as one library call: a cuDNN convolution with
     # replicate padding, f32 without TF32
     conv = torch.nn.Conv2d(1, 1, 3, padding=1, padding_mode='replicate',
@@ -2717,6 +2766,7 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
         ms = time_ms(lambda c: fill.push_pull_fill(c, hole), cases)
         plain_ms = time_ms(lambda c: fill.push_pull_fill_plain(c, hole),
                            cases[:3])
+        dev_ms = graph_ms(lambda c: fill.push_pull_fill(c, hole), cases[0])
         levels = fill.fill_levels(h, w)
         # per pyramid pixel: the 2x2 sums of 4 channels (12 adds), the
         # upsample (3 channels x 6) and the blend (3 x 6 and a clip)
@@ -2724,14 +2774,15 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
                       50 * sum(a * c for a, c in levels))
         print(f'[kernel] pushpull {tag} ({share:.1%} hole, {len(levels) - 1} '
               f'levels, {2 * len(levels) - 1} launches a call): kernel '
-              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by});'
-              f' max err {err:.3g}', flush=True)
+              f'{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} '
+              f'ms, bound {b:.4f} ms ({by}); max err {err:.3g}', flush=True)
         if not err <= 1e-6:
             fail(f'pushpull {tag}: {err:.3g} from the plain version (1e-6 '
                  f'allowed)')
         res[f'pushpull_{tag}'] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, bound_ms=b,
-                                      bound_by=by, hole_share=share)
+                                      bound_by=by, hole_share=share,
+                                      device_ms=dev_ms)
 
         base = want
         off = fill.jitter_offsets(h, w).to(dev)
@@ -2744,20 +2795,23 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
         ms = time_ms(lambda c: fill.jitter_refine(c, hole, off), cases)
         plain_ms = time_ms(lambda c: fill.jitter_refine_plain(c, hole, off),
                            cases[:3])
+        dev_ms = graph_ms(lambda c: fill.jitter_refine(c, hole, off),
+                          cases[0])
         n_hole = int(hole.sum())
         # per hole pixel, iteration and radius: 24 differences, squares
         # and adds of the ring SSD
         b, by = bound(jitter_bytes(h, w, n_hole), n_hole * 2 * 4 * 72)
         print(f'[kernel] jitter {tag} ({n_hole} hole pixels, 2 launches a '
-              f'call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-              f'{b:.4f} ms ({by}); hole pixels equal {same:.6f}, max err '
-              f'{err:.3g}; the refine moved {moved:.1%} of them', flush=True)
+              f'call): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
+              f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); hole pixels '
+              f'equal {same:.6f}, max err {err:.3g}; the refine moved '
+              f'{moved:.1%} of them', flush=True)
         if same < JITTER_SHARE or moved == 0.0:
             fail(f'jitter {tag}: {same:.6f} of hole pixels equal to the plain '
                  f'version ({JITTER_SHARE} required), {moved:.1%} moved')
         res[f'jitter_{tag}'] = dict(max_abs_err=err, equal_share=same,
                                     ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                    bound_by=by)
+                                    bound_by=by, device_ms=dev_ms)
     return res
 
 
@@ -2820,7 +2874,7 @@ class MaskBoxed:
         return ins.replace(valid=ins.valid & ins.masks.any((1, 2)))
 
 
-def style_phase(det, img: np.ndarray) -> dict:
+def style_phase(det, img: np.ndarray) -> tuple:
     """``StyleEditor.repaint`` on the card: the edged detector with its
     ISNet refine (``MaskBoxed``), the full-width random tagger of the
     tagger phase, a stub sd-webui server; long_side 768 (a 448x768
@@ -2828,12 +2882,13 @@ def style_phase(det, img: np.ndarray) -> dict:
     K13b launched once each, one img2img and one inpaint an instance at
     768x448 with the style prompt, and the card's background fill
     against the plain versions on the CPU on the same host arrays:
-    outside the hole exact, inside >= 99.9% equal. Returns the launches
-    of the repaint."""
+    outside the hole exact, inside >= 99.9% equal; then K13a's and K13b's
+    device times on that fill's inputs. Returns the launches of the
+    repaint and those times."""
     import cv2
     from cartoonsegmentation_torch.ops import _cuda
-    from cartoonsegmentation_torch.ops.inpaint_fill import (inpaint,
-                                                            jitter_offsets)
+    from cartoonsegmentation_torch.ops.inpaint_fill import (
+        inpaint, jitter_offsets, jitter_refine, push_pull_fill)
     from cartoonsegmentation_torch.pipeline.style import (
         StyleConfig, StyleEditor, long_side_to)
     srv, url, calls = stub_sd_server()
@@ -2914,11 +2969,25 @@ def style_phase(det, img: np.ndarray) -> dict:
         if not outside or inside < STYLE_FILL_SHARE:
             fail(f'style: the card\'s background fill disagrees with the CPU '
                  f'(outside exact: {outside}, inside {inside:.6f})')
+        # the fill's two kernels alone, on the repaint's image and hole
+        img_t = torch.from_numpy(small.astype(np.float32) / 255.0).to(
+            det.device)
+        hole_t = torch.from_numpy(hole).to(det.device)
+        base = push_pull_fill(img_t, hole_t)
+        off = jitter_offsets(h, w).to(det.device)
+        fill_dev = {
+            'pushpull': graph_ms(lambda x: push_pull_fill(*x),
+                                 (img_t, hole_t)),
+            'jitter': graph_ms(lambda x: jitter_refine(*x),
+                               (base, hole_t, off))}
+        print(f'[style] device time on the repaint\'s {h}x{w} fill: '
+              f'pushpull {fill_dev["pushpull"]:.4f} ms, jitter '
+              f'{fill_dev["jitter"]:.4f} ms', flush=True)
     finally:
         srv.shutdown()
         srv.server_close()
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, fill_dev
 
 
 def odd_clip_phase(seed: int) -> dict:
@@ -3149,7 +3218,7 @@ def main() -> None:
 
     # 15. the style flow: StyleEditor.repaint with the same detector and
     # tagger against a stub sd-webui server ------------------------------
-    launches_style = style_phase(cp._detector, img)
+    launches_style, style_dev = style_phase(cp._detector, img)
     del cp
 
     # 16. the detector-free clip at a frame size I420 does not fit --------
@@ -3224,12 +3293,16 @@ def main() -> None:
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_ms_simt',
              'library_ms', 'device_ms', 'library_device_ms')}),
         # the style path's 448x768; repaint_person's 768x768 beside it
+        # the device time on the style phase's own fill beside
         ('pushpull', res['pushpull_448x768'], 'ops/inpaint_fill.py:43',
-         {f'{k}_768x768': res['pushpull_768x768'][k] for k in (
-             'max_abs_err', 'ms', 'plain_ms', 'bound_ms')}),
+         {**{f'{k}_768x768': res['pushpull_768x768'][k] for k in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'device_ms')},
+          'device_ms_style': style_dev['pushpull']}),
         ('jitter', res['jitter_448x768'], 'ops/inpaint_fill.py:70',
-         {f'{k}_768x768': res['jitter_768x768'][k] for k in (
-             'max_abs_err', 'equal_share', 'ms', 'plain_ms', 'bound_ms')}),
+         {**{f'{k}_768x768': res['jitter_768x768'][k] for k in (
+             'max_abs_err', 'equal_share', 'ms', 'plain_ms', 'bound_ms',
+             'device_ms')},
+          'device_ms_style': style_dev['jitter']}),
     ]
     paths = {'detector-free': launches_free, 'main': launches,
              'sam': launches_sam, 'maskrcnn': launches_mr,

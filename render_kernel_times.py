@@ -2,9 +2,10 @@
 """Device times of the render kernels K1 (splat), K2 (the autozoom
 coverage), K3 (the disocclusion fill), K4 (bokeh), K5a (the frame
 epilogue), K5b (the depth colorize) and K11 (the exact fill), of the
-laplacian (K7), of the dense CRF's k-means K12a and step K12b and of
-Mask R-CNN's RoIAlign K14a and NMS K14b, of one checkout of the
-PyTorch/CUDA port, on one GPU.
+per-instance median K6, of K7 (the median-5 and the laplacian), of
+the detector's K8 and K9, of the cloud compaction K10, of the dense
+CRF's k-means K12a and step K12b and of Mask R-CNN's RoIAlign K14a
+and NMS K14b, of one checkout of the PyTorch/CUDA port, on one GPU.
 
     python3 render_kernel_times.py [--save-fill-inputs PATH]
                                    [--save-coverage-inputs PATH]
@@ -12,6 +13,8 @@ PyTorch/CUDA port, on one GPU.
                                    [--save-exact-fill-inputs PATH]
                                    [--save-maskrcnn-inputs PATH]
                                    [--save-detector-inputs PATH]
+                                   [--save-median-inputs PATH]
+                                   [--save-compact-inputs PATH]
                                    [--seed N]
     python3 render_kernel_times.py [--root DIR] [--fill-inputs PATH]
                                    [--coverage-inputs PATH]
@@ -19,6 +22,8 @@ PyTorch/CUDA port, on one GPU.
                                    [--exact-fill-inputs PATH]
                                    [--maskrcnn-inputs PATH]
                                    [--detector-inputs PATH]
+                                   [--median-inputs PATH]
+                                   [--compact-inputs PATH]
                                    [--only WORD[,WORD...]] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
     python3 render_kernel_times.py --clips [--root DIR] [--only WORD,...]
@@ -32,7 +37,8 @@ the Mask R-CNN clip (``detector='maskrcnn', discfill_mode='exact'``)
 and the CRF clip with DIR's package (with ``--only``, the clips whose
 name holds one of the words), each once cold and then 3 times warm,
 and prints each warm run's wall seconds (``pipe.run`` to the mp4, synchronised) and
-its ``depth_refine`` and ``stream_render`` seconds, and exits.
+its ``depth_refine``, ``stream_render``, ``detector_forward`` and
+``depth_adjust`` seconds, and exits.
 
 With ``--save-fill-inputs`` or ``--save-coverage-inputs`` it runs the
 shipped default clip (``KenBurnsConfig()``, chip_smoke's edged
@@ -57,7 +63,13 @@ clip's detector forward (``chip_smoke.detector_inputs``: AnimeInsSeg
 with chip_smoke's edged detector) on the images of 3 seeds and saves
 the arguments of its K8 and K9 calls (the top 512 candidates' boxes
 and scores; the mask heads' prototypes, parameters, priors, strides
-and valid flags, ~3 MB a forward); then it exits.
+and valid flags, ~3 MB a forward); with ``--save-median-inputs`` or
+``--save-compact-inputs`` it runs the shipped default clip and saves
+the arguments of its K6 call (``focal_planes``' colorized depth with
+the instances' masks and valid flags, ~60 MB) and of its two
+median-5 calls (the inpainting passes' ``existing``), or of its three
+K10 calls (``PointCloud.append_masked``: the cloud before the append
+and the entries with their mask, ~130 MB); then it exits.
 
 Otherwise it imports ``cartoonsegmentation_torch`` from DIR (default:
 this file's directory), builds its ``splat``, ``coverage``,
@@ -90,7 +102,13 @@ the detection's K = 2,048 on chip_smoke's synthetic inputs
 calls; K8 over 512 candidates (IoU 0.6, 100 out) and K9 at 100
 instances 80x80 → 640x640 on chip_smoke's synthetic cases and, with
 ``--detector-inputs``, on the saved calls of the shipped default's
-forwards; there also K14b's three launches on K8's calls) prints,
+forwards; there also K14b's three launches on K8's calls; K6 over
+chip_smoke's 100 instance slots (60 valid) and the median-5 of a
+random 0/1 mask and, with ``--median-inputs``, their saved calls of
+the shipped default clip; K10 appending all of 576x1024 to a cloud
+of twice that and, with ``--compact-inputs``, the saved appends of
+the shipped default clip, each call on its saved cloud with the
+count set back first, a 4-byte copy inside the call) prints,
 for each call (with ``--only``, for the calls whose tag holds one of
 the words):
 - its device time (the call captured in a CUDA graph and replayed:
@@ -105,9 +123,11 @@ the words):
 - its largest difference from the plain version (densecrf_binary: the
   share of mask pixels unlike the plain version's on the CPU; K12a:
   the share of labels);
-- for K5a, K8, K9, K11, K12a, K12b and K14, chip_smoke's bound of each
-  input's
-  call (K5a: ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
+- for K5a, K6, the median-5, K8, K9, K10, K11, K12a, K12b and K14,
+  chip_smoke's bound of each input's
+  call (K6: the valid masks and the values; the median-5: the bytes;
+  K10: the mask bytes and each set entry's 64; K5a:
+  ``chip_smoke.epilogue_bytes``; K11: ``exact_fill_bytes``;
   K12a: ``kmeans_cost``; K12b: ``crf_cost``, for densecrf_binary its
   norm pass and 5 steps; K14a: ``roi_cost``, the pyramid rows its
   samples touch; K8, K14b: ``nms_cost``; K9: ``maskhead_cost``), their
@@ -165,6 +185,15 @@ def main() -> None:
     ap.add_argument('--save-detector-inputs', metavar='PATH',
                     help='save the K8 and K9 inputs of the shipped default '
                     'clip\'s detector forward on 3 images')
+    ap.add_argument('--median-inputs', help='K6 and median-5 inputs saved '
+                    'by --save-median-inputs, timed as calls of their own')
+    ap.add_argument('--save-median-inputs', metavar='PATH',
+                    help='save the K6 and median-5 inputs of the shipped '
+                    'default clip')
+    ap.add_argument('--compact-inputs', help='K10 inputs saved by '
+                    '--save-compact-inputs, timed as calls of their own')
+    ap.add_argument('--save-compact-inputs', metavar='PATH',
+                    help='save the K10 inputs of the shipped default clip')
     ap.add_argument('--only', help='comma-separated words: time only the '
                     'calls whose tag holds one of them')
     ap.add_argument('--clips', action='store_true',
@@ -194,9 +223,13 @@ def main() -> None:
         save_maskrcnn_inputs(cs, args.save_maskrcnn_inputs, args.seed)
     if args.save_detector_inputs:
         save_detector_inputs(cs, args.save_detector_inputs, args.seed)
+    if args.save_median_inputs or args.save_compact_inputs:
+        save_path_inputs(cs, args.save_median_inputs,
+                         args.save_compact_inputs, args.seed)
     if args.save_fill_inputs or args.save_coverage_inputs or \
             args.save_crf_inputs or args.save_exact_fill_inputs or \
-            args.save_maskrcnn_inputs or args.save_detector_inputs:
+            args.save_maskrcnn_inputs or args.save_detector_inputs or \
+            args.save_median_inputs or args.save_compact_inputs:
         return
     if args.loop:
         loop_times(cs, root, args.seed)
@@ -216,7 +249,8 @@ def main() -> None:
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
                  'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf',
-                 'roialign', 'nms_large', 'nms', 'maskhead'])
+                 'roialign', 'nms_large', 'nms', 'maskhead', 'insmedian',
+                 'median5', 'compact'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -309,6 +343,8 @@ def main() -> None:
     calls += crf_calls(cs, crf, gen, args.crf_inputs)
     calls += k14_calls(cs, gen, args.maskrcnn_inputs)
     calls += detector_calls(cs, gen, args.detector_inputs)
+    calls += median_calls(cs, gen, args.median_inputs)
+    calls += compact_calls(cs, gen, args.compact_inputs)
     if args.only:
         words = args.only.split(',')
         calls = [c for c in calls if any(wd in c[0] for wd in words)]
@@ -607,6 +643,160 @@ def detector_calls(cs, gen, inputs_path) -> list:
     return calls
 
 
+def median_calls(cs, gen, inputs_path) -> list:
+    """K6's and the median-5's calls: chip_smoke's 100 instance slots (60
+    valid) on a map of [0, 255] values and the median-5 of a random 0/1
+    mask at 576x1024 and, with ``inputs_path``, the shipped default
+    clip's calls; the bound of each (K6: the values and the valid
+    masks; the median-5: the bytes, csrc/median5.cu's 570 operations a
+    run of 8 outputs beside them). The error printed is the share of
+    outputs unlike the plain version's."""
+    import torch
+    from cartoonsegmentation_torch.ops import filters
+    from cartoonsegmentation_torch.pipeline import depth
+    H, W, dev = cs.H, cs.W, torch.device('cuda')
+    masks, valid = cs.instance_masks(gen, dev, 100, 60)
+    cases = [('synthetic',
+              [((torch.rand((H, W), generator=gen) * 255).to(dev), masks,
+                valid)],
+              [(torch.rand((1, H, W, 1), generator=gen) > 0.4).float()
+               .to(dev)])]
+    if inputs_path:
+        saved = torch.load(inputs_path)
+        cases.append(("the shipped default clip's",
+                      [tuple(t.to(dev) for t in x)
+                       for x in saved['insmedian']],
+                      [x.to(dev) for x in saved['median5']]))
+
+    def k6(x):
+        return depth.masked_median_u8(*x)
+
+    def k6_plain(x):
+        return depth.masked_median_u8_plain(*x)
+
+    def med(x):
+        return filters.median_filter(x, 5)
+
+    def med_plain(x):
+        return filters.median_filter_plain(x, 5)
+
+    def k6_cost(x):
+        values, _, ok = x
+        n, hw = int(ok.sum()), values.numel()
+        return hw * 4 + n * hw + ok.numel() * 5, n * hw * 3
+    calls = []
+    for where, ins, maps in cases:
+        calls += [(f'insmedian {where}', k6, k6_plain, ins,
+                   {'bounds': [k6_cost(x) for x in ins], 'share': True}),
+                  (f'median5 {where}', med, med_plain, maps,
+                   {'bounds': [(x.numel() * 8, x.numel() * 570 / 8)
+                               for x in maps], 'share': True})]
+    return calls
+
+
+def compact_calls(cs, gen, inputs_path) -> list:
+    """K10's calls (``state.append_masked_into``): all of 576x1024 set,
+    appended to an empty cloud of twice that, and, with ``inputs_path``,
+    the shipped default clip's three appends on their saved clouds.
+    Each call first sets the cloud's count back to the saved one (a
+    4-byte device copy inside the timed call), so that every call
+    writes the same slots. The bound: the mask bytes and the 64 bytes
+    of each set entry, read and written."""
+    import torch
+    from cartoonsegmentation_torch.pipeline import state
+    H, W, dev = cs.H, cs.W, torch.device('cuda')
+    M = H * W
+    cloud = state.PointCloud.with_capacity(2 * M, dev)
+    src = (torch.rand((M, 3), generator=gen).to(dev),
+           torch.rand((M, 3), generator=gen).to(dev),
+           torch.rand((M,), generator=gen).to(dev),
+           torch.rand((M,), generator=gen).to(dev),
+           torch.ones((M,), dtype=torch.bool, device=dev))
+    cases = [('synthetic', [(cloud, src, cloud.count.clone())])]
+    if inputs_path:
+        xs = []
+        for rec in torch.load(inputs_path):
+            c = state.PointCloud(*(t.to(dev) for t in rec['cloud']))
+            xs.append((c, tuple(t.to(dev) for t in rec['args']),
+                       c.count.clone()))
+        cases.append(("the shipped default clip's", xs))
+
+    def run(x):
+        cloud, args, count = x
+        cloud.count.copy_(count)
+        state.append_masked_into(cloud, *args)
+        return cloud.points, cloud.count
+
+    def plain(x):
+        cloud, args, count = x
+        out = cloud.clone()
+        out.count.copy_(count)
+        state.append_masked_plain(out, *args)
+        return out.points, out.count
+    return [(f'compact {where}', run, plain, xs,
+             {'bounds': [(x[1][4].numel() + int(x[1][4].sum()) * 64, 0)
+                         for x in xs], 'share': True})
+            for where, xs in cases]
+
+
+def save_path_inputs(cs, median_path, compact_path, seed: int) -> None:
+    """Run the shipped default clip (``shipped_default_clip``) and save
+    the arguments of its K6 and median-5 calls to ``median_path`` (a
+    dict: 'insmedian', the (values, masks, valid) of each call;
+    'median5', each call's map) and of its K10 calls to
+    ``compact_path`` (a list: each call's cloud before it, as
+    (points, colors, disparity, depth, count), and its entries and
+    mask); either path may be None."""
+    import torch
+    from cartoonsegmentation_torch.models import kenburns as net
+    from cartoonsegmentation_torch.pipeline import kenburns as pipe
+    from cartoonsegmentation_torch.pipeline import state
+    print(f'card: {cs.card_line()}', flush=True)
+    seen = {'insmedian': [], 'median5': [], 'compact': []}
+    k6, median, append = (pipe.masked_median_u8, net.median_filter,
+                          state.append_masked_into)
+
+    def rec_k6(*x):
+        seen['insmedian'].append(tuple(t.detach().cpu() for t in x))
+        return k6(*x)
+
+    def rec_median(x, size):
+        seen['median5'].append(x.detach().cpu())
+        return median(x, size)
+
+    def rec_append(cloud, *x):
+        seen['compact'].append({
+            'cloud': tuple(getattr(cloud, k).cpu() for k in (
+                'points', 'colors', 'disparity', 'depth', 'count')),
+            'args': tuple(t.detach().cpu() for t in x)})
+        return append(cloud, *x)
+    pipe.masked_median_u8, net.median_filter = rec_k6, rec_median
+    state.append_masked_into = rec_append
+    try:
+        shipped_default_clip(cs, seed)
+    finally:
+        pipe.masked_median_u8, net.median_filter = k6, median
+        state.append_masked_into = append
+    if median_path:
+        torch.save({k: seen[k] for k in ('insmedian', 'median5')},
+                   median_path)
+        _, m, ok = seen['insmedian'][0]
+        share = float(m[ok].float().mean())
+        print(f'saved {len(seen["insmedian"])} K6 calls ({m.shape[0]} '
+              f'slots, {int(ok.sum())} valid, {share:.4%} of their masks '
+              f'set, strides {m.stride()}) and {len(seen["median5"])} '
+              f'median-5 calls '
+              f'{[tuple(x.shape) for x in seen["median5"]]} to {median_path}',
+              flush=True)
+    if compact_path:
+        torch.save(seen['compact'], compact_path)
+        print(f'saved {len(seen["compact"])} K10 calls (M '
+              f'{[int(r["args"][4].numel()) for r in seen["compact"]]}, set '
+              f'{[int(r["args"][4].sum()) for r in seen["compact"]]}, '
+              f'capacity {int(seen["compact"][0]["cloud"][0].shape[0])}) to '
+              f'{compact_path}', flush=True)
+
+
 def save_detector_inputs(cs, path: str, seed: int, images: int = 3) -> None:
     """Save the K8 and K9 calls of the shipped default clip's detector
     forward (``chip_smoke.detector_inputs`` with ``edged_nets``) on the
@@ -748,7 +938,7 @@ def clip_times(cs, root: str, seed: int, only: str | None = None,
     """The shipped default, SAM, Mask R-CNN and CRF clips of the package
     at ``root`` (with ``only``, those whose name holds one of its
     comma-separated words): ``runs`` warm runs each after a cold one,
-    wall seconds to the mp4 and two stages' seconds."""
+    wall seconds to the mp4 and four stages' seconds."""
     import tempfile
 
     import torch
@@ -765,7 +955,7 @@ def clip_times(cs, root: str, seed: int, only: str | None = None,
         if only and not any(w in tag for w in only.split(',')):
             continue
         pipe = shipped_default_clip(cs, seed, **cfg)
-        walls, refine, render = [], [], []
+        walls, refine, render, forward, adjust = [], [], [], [], []
         for _ in range(runs):
             pipe.timer.reset()
             with tempfile.TemporaryDirectory(dir=str(_cuda.BUILD_DIR)) as d:
@@ -776,12 +966,17 @@ def clip_times(cs, root: str, seed: int, only: str | None = None,
                 walls.append(time.perf_counter() - t0)
             refine.append(pipe.timer.seconds.get('depth_refine', 0.0))
             render.append(pipe.timer.seconds['stream_render'])
+            forward.append(pipe.timer.seconds.get('detector_forward', 0.0))
+            adjust.append(pipe.timer.seconds['depth_adjust'])
         out[tag] = dict(wall_s=walls, depth_refine_s=refine,
-                        stream_render_s=render)
+                        stream_render_s=render, detector_forward_s=forward,
+                        depth_adjust_s=adjust)
         print(f'[clips] {tag} warm: {" ".join(f"{w:.3f}" for w in walls)} '
               f's (median {statistics.median(walls):.3f}); depth_refine '
               f'{" ".join(f"{v:.3f}" for v in refine)} s; stream_render '
-              f'{" ".join(f"{v:.3f}" for v in render)} s', flush=True)
+              f'{" ".join(f"{v:.3f}" for v in render)} s; detector_forward '
+              f'{" ".join(f"{v:.3f}" for v in forward)} s; depth_adjust '
+              f'{" ".join(f"{v:.3f}" for v in adjust)} s', flush=True)
         del pipe
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     print(json.dumps({'root': root, 'clips': out}), flush=True)

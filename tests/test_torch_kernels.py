@@ -7,7 +7,9 @@ package, so it also runs on a machine with a card and no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Exact: z-buffer keys, the w > 0 mask, coverage counts, fill output,
-the per-instance medians (K6), the median-5 and laplacian (K7), the
+the per-instance medians (K6, NaN values in bin 0), the median-5
+(NaN where the plain version has it, the sign of a zero free) and
+laplacian (K7), the
 NMS keep sets (K8, and K14b's, a graph-captured call too), the
 RoIAlign's level map (K14a), the colorize (K5b), the cloud compaction
 (K10) and the CRF's norm pass (K12b). Within the stated tolerance:
@@ -541,6 +543,132 @@ def test_filter_kernels_vs_plain(rng, cuda, shape):
                        tfilters.median_filter_plain(x, 5))
     assert torch.equal(tfilters.laplacian_filter(x),
                        tfilters.laplacian_filter_plain(x))
+
+
+def _median5_plane(rng, shape, kind):
+    """(B, H, W, C) f32: 'nan': levels with ±0 and ±inf, NaNs of both
+    signs over about half the taps (windows of 12 and 13 NaNs); 'mask':
+    0/1, as the main path's `existing`; 'floats': uniform values."""
+    if kind == 'floats':
+        return rng.rand(*shape).astype(np.float32)
+    if kind == 'mask':
+        return (rng.rand(*shape) > 0.4).astype(np.float32)
+    x = rng.choice(np.array([-2.5, -0.0, 0.0, 1.0, np.inf, -np.inf],
+                            np.float32), shape)
+    nan = rng.rand(*shape) < 0.5
+    neg = np.array([0xffc00001], np.uint32).view(np.float32)[0]
+    x[nan] = np.where(rng.rand(int(nan.sum())) < 0.5, np.nan, neg)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shape', [(1, 576, 1024, 1), (1, 70, 1024, 1),
+                                   (1, 5, 33, 1), (1, 3, 3, 1),
+                                   (1, 130, 36, 1), (2, 67, 100, 3)])
+@pytest.mark.parametrize('kind', ['nan', 'mask', 'floats'])
+def test_median5_kernel_cases(rng, cuda, shape, kind):
+    """The tile's 16-byte path (C = 1, W % 4 == 0, a whole tile of
+    columns) and its scalar one (a ragged last tile, C > 1), H below a
+    tile and not a multiple of it; NaN where the plain version has it
+    (13 or more NaN taps), the sign of a zero free."""
+    x = torch.from_numpy(_median5_plane(rng, shape, kind)).to(cuda)
+    torch.testing.assert_close(tfilters.median_filter(x, 5),
+                               tfilters.median_filter_plain(x, 5), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_median5_kernel_unaligned(rng, cuda):
+    """A contiguous input 4 bytes off a 16-byte boundary takes the
+    scalar loads."""
+    x = torch.from_numpy(_median5_plane(rng, (1, 64, 128, 1), 'nan'))
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x.to(cuda))
+    assert xu.data_ptr() % 16 == 4
+    torch.testing.assert_close(tfilters.median_filter(xu, 5),
+                               tfilters.median_filter_plain(xu, 5), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+def _median_values(rng, H, W):
+    """A map of [0, 255] values with NaNs of both signs, ±inf and values
+    past the ends."""
+    vals = (rng.rand(H, W) * 300 - 20).astype(np.float32)
+    vals[rng.rand(H, W) < 0.05] = np.nan
+    vals[rng.rand(H, W) < 0.02] = np.inf
+    vals[rng.rand(H, W) < 0.02] = -np.inf
+    vals[rng.rand(H, W) < 0.02] = np.array(
+        [0xffc00001], np.uint32).view(np.float32)[0]
+    return vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('N,H,W', [(1, 72, 128), (12, 57, 83),
+                                   (256, 40, 64), (100, 576, 1024)])
+def test_masked_median_kernel_cases(rng, cuda, N, H, W):
+    """NaN (bin 0) and ±inf values, an all-zero valid mask, invalid
+    slots with masks; H * W a multiple of 16 (16-byte loads) or not."""
+    masks, valid = _instance_masks(rng, max(N, 4), H, W)
+    masks, valid = masks[:N], valid[:N]
+    if N == 1:
+        valid[:] = True
+    vals = torch.from_numpy(_median_values(rng, H, W)).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in (masks, valid)]
+    got = tdepth.masked_median_u8(vals, *args)
+    want = tdepth.masked_median_u8_plain(vals, *args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_masked_median_kernel_unaligned_values(rng, cuda):
+    """A values map 4 bytes off a 16-byte boundary takes the scalar
+    loads."""
+    H, W, N = 48, 64, 9
+    masks, valid = _instance_masks(rng, N, H, W)
+    buf = torch.empty(H * W + 1, device=cuda)
+    vals = buf[1:].view(H, W)
+    vals.copy_(torch.from_numpy(_median_values(rng, H, W)))
+    args = [torch.from_numpy(a).to(cuda) for a in (masks, valid)]
+    assert torch.equal(tdepth.masked_median_u8(vals, *args),
+                       tdepth.masked_median_u8_plain(vals, *args))
+
+
+@pytest.mark.gpu
+def test_masked_median_kernel_one_launch_graph_no_sync(rng, cuda):
+    """One kernel a call (no memset), no host sync, and a graph that
+    replays right on new values copied into the captured map."""
+    H, W, N = 72, 128, 100
+    masks, valid = (torch.from_numpy(a).to(cuda)
+                    for a in _instance_masks(rng, N, H, W))
+    vals = torch.from_numpy(_median_values(rng, H, W)).to(cuda)
+
+    def call():
+        return tdepth.masked_median_u8(vals, masks, valid)
+    ops, launches = _device_ops(call, 'insmedian')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
+    _no_sync(call)
+    graph, got = _in_graph(call)
+    for _ in range(2):
+        vals.copy_(torch.from_numpy(_median_values(rng, H, W)))
+        graph.replay()
+        assert torch.equal(got, tdepth.masked_median_u8_plain(vals, masks,
+                                                              valid))
+
+
+@pytest.mark.gpu
+def test_masked_median_kernel_leaves_scratch_zero(rng, cuda):
+    """A call leaves its histogram and tickets zero, so the next call,
+    of other masks and values, starts from zero."""
+    for N, H, W in ((100, 72, 128), (30, 57, 83), (100, 72, 128)):
+        masks, valid = (torch.from_numpy(a).to(cuda)
+                        for a in _instance_masks(rng, N, H, W))
+        vals = torch.from_numpy(_median_values(rng, H, W)).to(cuda)
+        got = tdepth.masked_median_u8(vals, masks, valid)
+        torch.cuda.synchronize()
+        assert not bool(tdepth._scratch[vals.device.index].any())
+        assert torch.equal(got, tdepth.masked_median_u8_plain(vals, masks,
+                                                              valid))
 
 
 def _nms_case(rng, K):
