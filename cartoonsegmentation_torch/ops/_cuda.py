@@ -61,7 +61,7 @@ SIGNATURES = {
     'maskhead': ('kb_mask_heads', 'pppppiiiiifppp'),
     'epilogue': ('kb_frame_epilogue', 'piiqiiiiiiiiippp'),
     'colorize': ('kb_colorize', 'pqiipp'),
-    'compact': ('kb_append_masked', 'pppppippppippp'),
+    'compact': ('kb_append_masked', 'pppppiiippppippp'),
     'samattn': ('kb_sam_attention', 'pppiiiiiifpp'),
     'discfill_exact': ('kb_discfill_exact', 'pppiiiipp'),
     'roialign': ('kb_roi_align', 'pppiiiiiiiiiiiipp'),

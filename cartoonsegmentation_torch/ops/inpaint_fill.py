@@ -22,11 +22,12 @@ Layout (H, W, C) f32 with an (H, W) bool hole, as in the JAX package.
 
 The random offsets: the JAX refine draws them inside with
 ``jax.random`` (threefry), which the port cannot reproduce without
-JAX. Here ``jitter_offsets`` draws them on the host from a seeded
-``torch.Generator`` and ``jitter_refine`` takes them as an argument,
-so the CPU and the card get the same offsets for the same seed; the
-port's fill differs from JAX's by the draws alone, and the tests hold
-it to JAX by feeding it JAX's draws.
+JAX. Here ``jitter_offsets`` draws them on the given device from a
+counter-based integer hash of (seed, iteration, radius, plane, pixel),
+in torch integer ops that give the same bits on the CPU and on CUDA,
+and ``jitter_refine`` takes them as an argument; the port's fill
+differs from JAX's by the draws alone, and the tests hold it to JAX by
+feeding it JAX's draws.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch
 from ..device import resolve_device
 from . import _cuda
 
-RADII = (4, 8, 16, 32)
+RADII = (4, 8, 16, 32)                     # each twice the one before
 _TINY = 1e-8
 
 
@@ -140,16 +141,43 @@ def push_pull_fill(image: torch.Tensor, hole: torch.Tensor,
     return out
 
 
-def jitter_offsets(h: int, w: int, seed: int = 0,
-                   iters: int = 2) -> torch.Tensor:
-    """(iters, 4, 2, h, w) int32 offsets in [-r, r] for the radii
-    4, 8, 16, 32, drawn on the host from torch.Generator().manual_seed(
-    seed) in the order iteration, then radius (dy plane, dx plane)."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.stack([
-        torch.stack([torch.randint(-r, r + 1, (2, h, w), generator=gen,
-                                   dtype=torch.int32) for r in RADII])
-        for _ in range(iters)])
+_MASK32 = 0xffffffff
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for x in [0, 2^32) (an int or an int64 tensor)
+    and a 32-bit constant c, in two 16-bit halves of c so that no
+    product leaves int64 (each is below 2^48)."""
+    return (x * (c & 0xffff) + (((x * (c >> 16)) & 0xffff) << 16)) & _MASK32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (the lowbias32 finaliser): x in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7feb352d)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846ca68b)
+    return x ^ (x >> 16)
+
+
+def jitter_offsets(h: int, w: int, seed: int = 0, iters: int = 2,
+                   device=None) -> torch.Tensor:
+    """(iters, 4, 2, h, w) int32 offsets in [-r, r] for the radii 4, 8,
+    16, 32, drawn on ``device`` (the CPU unless given). Plane s =
+    (iteration * 4 + radius) * 2 + (0 for dy, 1 for dx) takes the key
+    k_s = mix(mix(seed) ^ mix(s + 1)); pixel p draws v = mix(p ^ k_s),
+    a 32-bit value mapped to (v * (2r + 1)) >> 32, less r. Integer ops
+    only, every product below 2^48, so the CPU and CUDA give the same
+    bits."""
+    dev = torch.device('cpu') if device is None else torch.device(device)
+    n = len(RADII)
+    # the planes' keys and radii made on the device: no host copy
+    s = torch.arange(iters * n * 2, dtype=torch.int64, device=dev)[:, None]
+    k = _mix32(_mix32(s + 1) ^ _mix32((seed ^ (seed >> 32)) & _MASK32))
+    r = RADII[0] << ((s // 2) % n)
+    p = torch.arange(h * w, dtype=torch.int64, device=dev)[None, :]
+    off = ((_mix32(p ^ k) * (2 * r + 1)) >> 32) - r
+    return off.to(torch.int32).reshape(iters, n, 2, h, w)
 
 
 def _ring(img: torch.Tensor) -> torch.Tensor:
@@ -233,13 +261,14 @@ def inpaint(image: np.ndarray, mask: np.ndarray, patch_size: int = 3,
             refine: bool = True,
             device: Optional[torch.device] = None) -> np.ndarray:
     """uint8 BGR image + uint8/bool mask (> 0 = hole) → uint8 BGR, on
-    ``device`` (CUDA unless given). ``patch_size`` is the reference
-    PatchMatch's argument, kept for its callers; the ring is 3x3."""
+    ``device`` (CUDA unless given), the jitter offsets drawn there too.
+    ``patch_size`` is the reference PatchMatch's argument, kept for its
+    callers; the ring is 3x3."""
     dev = resolve_device(device)
     img = torch.from_numpy(image.astype(np.float32) / 255.0).to(dev)
     hole = torch.from_numpy(np.asarray(mask) > 0).to(dev)
     out = push_pull_fill(img, hole)
     if refine:
         h, w = hole.shape
-        out = jitter_refine(out, hole, jitter_offsets(h, w).to(dev))
+        out = jitter_refine(out, hole, jitter_offsets(h, w, device=dev))
     return (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()

@@ -327,9 +327,10 @@ class KenBurnsPipeline:
         valid = valid_depth_mask(disparity)
         pts = depth_to_points((depth * valid)[..., 0], focal).reshape(-1, 3)
         dr = depth_range(depth[..., 0])
+        # appended in place: the cloud is new, so no copy
         cloud = PointCloud.with_capacity(
             int(cfg.point_capacity_factor * H * W), self.device)
-        cloud = cloud.append_masked(
+        cloud.append_masked_(
             pts, image.reshape(-1, 3), disparity.reshape(-1),
             depth.reshape(-1),
             torch.ones((H * W,), dtype=torch.bool, device=self.device))
@@ -397,39 +398,41 @@ class KenBurnsPipeline:
                                    segmasks=segmask)
         return out, shift
 
-    def _inpaint_append(self, state: KenBurnsState, image, disparity,
-                        existing, shift) -> KenBurnsState:
-        """Unproject the hallucinated pixels and append the hole ones
-        (kenburns_effect.py:453-512)."""
+    def _hole_entries(self, image, disparity, existing, shift) -> tuple:
+        """The hallucinated pixels unprojected, and the hole ones to
+        append: append_masked's arguments (kenburns_effect.py:453-512)."""
         focal, baseline = self.cfg.focal, self.cfg.baseline
         new_depth = true_div(focal * baseline, disparity + 1e-7)
         valid = valid_depth_mask(disparity)
         pts = depth_to_points((new_depth * valid)[..., 0], focal)
         pts = pts.reshape(-1, 3) - shift[None, :]
         hole = (existing[..., 0] == 0.0).reshape(-1)
-        cloud = state.cloud.append_masked(
-            pts, image.reshape(-1, 3), disparity.reshape(-1),
-            new_depth.reshape(-1), hole)
-        return state.replace(cloud=cloud)
+        return (pts, image.reshape(-1, 3), disparity.reshape(-1),
+                new_depth.reshape(-1), hole)
 
     def inpaint_pass(self, state: KenBurnsState, shift_u: float,
                      shift_v: float, depth_scale: float) -> KenBurnsState:
         """One inpainting pass at a camera extreme (inpaint_type
-        'default'). Parity: kenburns_effect.py:441-514."""
+        'default'), into a new cloud. Parity: kenburns_effect.py:441-514."""
         out, shift = self._inpaint_forward(state, shift_u, shift_v,
                                            depth_scale)
-        return self._inpaint_append(state, out['image'], out['disparity'],
-                                    out['existing'], shift)
+        cloud = state.cloud.append_masked(*self._hole_entries(
+            out['image'], out['disparity'], out['existing'], shift))
+        return state.replace(cloud=cloud)
 
     def inpaint_extremes(self, state: KenBurnsState, obj_from: Dict,
                          obj_to: Dict) -> KenBurnsState:
         """One inpaint pass at each camera extreme (t = 0, 1), then
-        compact the grown cloud."""
+        compact the grown cloud. The passes append in place to one copy
+        of the state's cloud, so the caller's state is left as it was."""
         with self.timer.time('inpaint_passes', self.device):
+            state = state.replace(cloud=state.cloud.clone())
             for t in (0.0, 1.0):
                 su, sv, ds, _, _ = self._camera_params(t, obj_from, obj_to,
                                                        state)
-                state = self.inpaint_pass(state, su, sv, ds)
+                out, shift = self._inpaint_forward(state, su, sv, ds)
+                state.cloud.append_masked_(*self._hole_entries(
+                    out['image'], out['disparity'], out['existing'], shift))
         return self.compact_state(state)
 
     def compact_state(self, state: KenBurnsState) -> KenBurnsState:

@@ -2,11 +2,14 @@
 ``cartoonsegmentation_tpu/pipeline/state.py``): a fixed-capacity point
 cloud with invalid slots encoded as z = 0 points, which the splat
 drops, grown by masked stream compaction (K10: ``append_masked_plain``
-on the CPU, ``csrc/compact.cu`` on CUDA).
+on the CPU, ``csrc/compact.cu`` on CUDA). ``append_masked`` returns a
+new cloud, as in JAX; ``append_masked_`` appends in place where the
+caller owns the cloud (the pipeline's clip makes one copy).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Dict
 
 import torch
 
@@ -60,8 +63,15 @@ class PointCloud:
         as in the JAX version: its buffers are copied on the device and
         the copy is appended to, with no host sync."""
         out = self.clone()
-        append_masked_into(out, points, colors, disparity, depth, mask)
+        out.append_masked_(points, colors, disparity, depth, mask)
         return out
+
+    def append_masked_(self, points, colors, disparity, depth, mask
+                       ) -> 'PointCloud':
+        """``append_masked`` into this cloud's own buffers (no copy), for
+        a caller that owns the cloud; returns it."""
+        append_masked_into(self, points, colors, disparity, depth, mask)
+        return self
 
 
 def append_masked_into(cloud: PointCloud, points, colors, disparity, depth,
@@ -93,30 +103,62 @@ def append_masked_plain(cloud: PointCloud, points, colors, disparity, depth,
 def _append_masked_kernel(cloud: PointCloud, points, colors, disparity,
                           depth, mask) -> None:
     dev = cloud.points.device
-    points, colors = points.contiguous(), colors.contiguous()
-    disparity, depth = disparity.contiguous(), depth.contiguous()
-    mask = mask.contiguous()
+    # colors are read at their strides, with no copy: the inpaint net's
+    # image reaches the clip's appends channel-planar
+    points, disparity = points.contiguous(), disparity.contiguous()
+    depth, mask = depth.contiguous(), mask.contiguous()
     M = mask.shape[0]
-    for name, t, nd in (('points', points, 2), ('colors', colors, 2),
-                        ('disparity', disparity, 1), ('depth', depth, 1)):
+    for name, t, nd in (('points', points, 2), ('disparity', disparity, 1),
+                        ('depth', depth, 1)):
         _cuda.check(t, name, torch.float32, nd, dev)
         if t.shape[0] != M or (nd == 2 and t.shape[1] != 3):
             raise ValueError(f'{name} {tuple(t.shape)} does not fit a '
                              f'mask of {M}')
+    if colors.device != dev:
+        raise ValueError(f'colors is on {colors.device}, expected {dev}')
+    if colors.dtype != torch.float32:
+        raise TypeError(f'colors has dtype {colors.dtype}, expected '
+                        f'torch.float32')
+    if tuple(colors.shape) != (M, 3):
+        raise ValueError(f'colors {tuple(colors.shape)} does not fit a mask '
+                         f'of {M}')
     _cuda.check(mask, 'mask', torch.bool, 1, dev)
     for name in ('points', 'colors', 'disparity', 'depth'):
         _cuda.check(getattr(cloud, name), f'cloud.{name}', torch.float32,
                     2 if name in ('points', 'colors') else 1, dev)
     _cuda.check(cloud.count, 'cloud.count', torch.int32, 0, dev)
-    scratch = torch.empty((2 * -(-M // 1024),), dtype=torch.int32,
-                          device=dev)
+    scratch = _compact_scratch(dev, M)
     _cuda.launch('compact',
                  points.data_ptr(), colors.data_ptr(), disparity.data_ptr(),
-                 depth.data_ptr(), mask.data_ptr(), M,
-                 cloud.points.data_ptr(), cloud.colors.data_ptr(),
-                 cloud.disparity.data_ptr(), cloud.depth.data_ptr(),
+                 depth.data_ptr(), mask.data_ptr(), M, colors.stride(0),
+                 colors.stride(1), cloud.points.data_ptr(),
+                 cloud.colors.data_ptr(), cloud.disparity.data_ptr(),
+                 cloud.depth.data_ptr(),
                  cloud.capacity, cloud.count.data_ptr(), scratch.data_ptr(),
                  _cuda.stream_ptr(mask))
+
+
+# csrc/compact.cu's entries a tile
+COMPACT_TILE = 2048
+
+# K10's scratch a card, by device index
+_scratch: Dict[int, torch.Tensor] = {}
+
+
+def _compact_scratch(dev: torch.device, M: int) -> torch.Tensor:
+    """csrc/compact.cu's scratch on ``dev`` for M entries (int64): the
+    slot word, two slots of a tile counter and a status word a tile of
+    COMPACT_TILE entries. Zero when made; each call zeroes the slot the
+    call before it used and hands it to the next, so one buffer serves
+    every call on the card, made (or grown, zero again) by the first
+    call that needs it; calls that overlap on two streams would share
+    it, and the port makes them on one."""
+    n = 5 + 2 * -(-M // COMPACT_TILE)
+    buf = _scratch.get(dev.index)
+    if buf is None or buf.numel() < n:
+        buf = _scratch[dev.index] = torch.zeros(n, dtype=torch.int64,
+                                                device=dev)
+    return buf
 
 
 @dataclass

@@ -1111,17 +1111,25 @@ def check_frame_kernels(dev, filled) -> dict:
     masks = [torch.ones((M,), dtype=torch.bool, device=dev),
              torch.rand((M,), device=dev, generator=g) < 0.3,
              torch.rand((M,), device=dev, generator=g) < 0.6]
-    for P in (2 * M, M + 100000):
+    # the colours in rows of 3, and channel-planar as the inpaint net's
+    planar = src[1].t().contiguous().t()
+    for P, col in ((2 * M, src[1]), (M + 100000, src[1]),
+                   (M + 100000, planar)):
+        args = [src[0], col, src[2], src[3]]
         kern = state.PointCloud.with_capacity(P, dev)
         plain = state.PointCloud.with_capacity(P, dev)
         for m in masks:
-            kern = no_host_sync(lambda: kern.append_masked(*src, m),
+            kern = no_host_sync(lambda: kern.append_masked(*args, m),
                                 'compact')
-            state.append_masked_plain(plain, *src, m)
+            state.append_masked_plain(plain, *args, m)
         for k in ('points', 'colors', 'disparity', 'depth', 'count'):
             if not torch.equal(getattr(kern, k), getattr(plain, k)):
                 fail(f'compact: {k} differs from the plain version '
-                     f'(capacity {P})')
+                     f'(capacity {P}, colour strides {col.stride()})')
+    del planar
+    cloud = state.PointCloud.with_capacity(2 * M, dev)
+    one_launch(lambda: state.append_masked_into(cloud, *src, masks[0]),
+               'compact')
     clouds = [state.PointCloud.with_capacity(2 * M, dev) for _ in range(RUNS)]
     ms = time_ms(lambda c: state.append_masked_into(c, *src, masks[0]),
                  clouds)
@@ -1129,15 +1137,96 @@ def check_frame_kernels(dev, filled) -> dict:
     plain_ms = time_ms(lambda c: state.append_masked_plain(c, *src, masks[0]),
                        clouds)
     del clouds
+    dev_ms = compact_device_ms(cloud, src, masks[0])
+    # the nearest single PyTorch call: boolean-index compaction of the
+    # (M, 8) payload, its host sync included (no count offset, no
+    # capacity)
+    payload = torch.cat([src[0], src[1], src[2][:, None], src[3][:, None]],
+                        1).contiguous()
+    lib_ms = time_ms(lambda _: payload[masks[0]], [None] * RUNS)
+    del payload
     # the mask byte of every entry; 8 payload floats of each set entry
     # read and written once
     b, by = bound(M + M * 64, 0)
     res['compact'] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b, bound_by=by)
+                          bound_ms=b, bound_by=by, device_ms=dev_ms,
+                          library_ms=lib_ms)
     print(f'[kernel] compact M={M} (all set) into 2M slots: kernel '
-          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}); '
-          f'exact with an overflow, no host sync', flush=True)
+          f'{ms:.4f} ms (device {dev_ms:.4f} ms with a 4-byte count reset), '
+          f'plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), payload[mask] '
+          f'{lib_ms:.4f} ms; exact with an overflow and with planar '
+          f'colours, no host sync, one launch', flush=True)
     return res
+
+
+def compact_device_ms(cloud, src, mask) -> float:
+    """K10's device time on a cloud (``graph_ms``): each call first sets
+    the count back to 0 (a 4-byte fill inside the timed call), so that
+    every call writes the same slots."""
+    from cartoonsegmentation_torch.pipeline import state
+
+    def run(_):
+        cloud.count.zero_()
+        state.append_masked_into(cloud, *src, mask)
+    return graph_ms(run, None)
+
+
+class CompactCalls:
+    """Records each K10 call (``state.append_masked_into``) that a clip
+    makes: the cloud before it and the call's entries and mask, as
+    copies on the card."""
+
+    def __init__(self):
+        from cartoonsegmentation_torch.pipeline import state
+        self.calls, self.append = [], state.append_masked_into
+
+        def record(cloud, *args):
+            self.calls.append((cloud.clone(), [a.clone() for a in args]))
+            return self.append(cloud, *args)
+        state.append_masked_into = record
+
+    def close(self):
+        from cartoonsegmentation_torch.pipeline import state
+        state.append_masked_into = self.append
+
+
+def check_compact_real(calls: list) -> dict:
+    """K10 on the shipped default clip's own appends (the prepared cloud,
+    then each inpainting pass's hole pixels): each call on a copy of its
+    cloud, under the sync debug mode, against the plain version on
+    another copy: the slots, their order and the count exact. Device
+    time of each (``compact_device_ms``, its cloud's count reset to 0)
+    and its bound (the mask and 64 bytes a set entry)."""
+    from cartoonsegmentation_torch.pipeline import state
+    out = {'set': [], 'device_ms_each': [], 'bound_ms_each': []}
+    for i, (cloud, args) in enumerate(calls):
+        kern, plain = cloud.clone(), cloud.clone()
+        no_host_sync(lambda: state.append_masked_into(kern, *args),
+                     'compact (the clip\'s appends)')
+        state.append_masked_plain(plain, *args)
+        for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+            if not torch.equal(getattr(kern, k), getattr(plain, k)):
+                fail(f'compact: the clip\'s append {i}: {k} differs from '
+                     f'the plain version')
+        n_set = int(args[4].sum())
+        start = int(cloud.count)
+        work = cloud.clone()
+        # the saved count back before each timed call: the same slots
+        dev_ms = graph_ms(lambda _: (work.count.fill_(start),
+                                     state.append_masked_into(work, *args)),
+                          None)
+        out['set'].append(n_set)
+        out['device_ms_each'].append(dev_ms)
+        out['bound_ms_each'].append(bound(args[4].numel() + n_set * 64, 0)[0])
+    out['device_ms'] = sum(out['device_ms_each'])
+    out['bound_ms'] = sum(out['bound_ms_each'])
+    print(f'[kernel] compact on the shipped default clip\'s {len(calls)} '
+          f'appends (set {out["set"]}): exact, no host sync; device '
+          f'{" ".join(f"{t:.4f}" for t in out["device_ms_each"])} ms (each '
+          f'with a 4-byte count fill), bounds '
+          f'{" ".join(f"{t:.4f}" for t in out["bound_ms_each"])} ms',
+          flush=True)
+    return out
 
 
 def check_samattn(dev, gen) -> dict:
@@ -2705,6 +2794,10 @@ def tagger_phase(det, img: np.ndarray, seed: int) -> dict:
 # the style path's working sizes: long_side_to(576, 1024, 768) and
 # repaint_person's default -W/-H
 FILL_SIZES = ((448, 768), (768, 768))
+# K13a alone: an odd size, and one whose coarse levels exceed a block's
+# shared memory (block 0 sums them in the scratch behind a second
+# barrier)
+FILL_ODD = ((37, 53), (1600, 1200))
 JITTER_SHARE = 0.9999
 STYLE_FILL_SHARE = 0.999
 
@@ -2747,11 +2840,23 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
     """K13a push-pull and K13b jitter refine against their plain
     versions on the card at the style path's sizes, on the image
     resized and a hole of seeded discs (``fill_hole``): K13a within
-    1e-6; K13b on K13a's result with host-drawn offsets (the same for
-    both), >= 99.99% of the hole pixels equal."""
+    1e-6 and one launch; K13b on K13a's result with the offsets drawn
+    on the card (equal to the CPU's draw bit for bit; the same for
+    both), >= 99.99% of the hole pixels equal. K13a alone at FILL_ODD."""
     from cartoonsegmentation_torch.ops import inpaint_fill as fill
     res = {}
     rgb = torch.from_numpy(img).to(dev).float().permute(2, 0, 1)[None] / 255
+    for h, w in FILL_ODD:
+        x = torch.nn.functional.interpolate(rgb, size=(h, w), mode='bilinear',
+                                            align_corners=False)
+        x = x[0].permute(1, 2, 0).contiguous()
+        hole = fill_hole(gen, h, w).to(dev)
+        got = fill.push_pull_fill(x, hole)
+        err = float((got - fill.push_pull_fill_plain(x, hole)).abs().max())
+        print(f'[kernel] pushpull {h}x{w}: max err {err:.3g}', flush=True)
+        if not err <= 1e-6 or not torch.equal(got[~hole], x[~hole]):
+            fail(f'pushpull {h}x{w}: {err:.3g} from the plain version (1e-6 '
+                 f'allowed), or a pixel outside the hole changed')
     for h, w in FILL_SIZES:
         tag = f'{h}x{w}'
         x = torch.nn.functional.interpolate(rgb, size=(h, w), mode='bilinear',
@@ -2767,15 +2872,16 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
         plain_ms = time_ms(lambda c: fill.push_pull_fill_plain(c, hole),
                            cases[:3])
         dev_ms = graph_ms(lambda c: fill.push_pull_fill(c, hole), cases[0])
+        one_launch(lambda: fill.push_pull_fill(x, hole), 'pushpull')
         levels = fill.fill_levels(h, w)
         # per pyramid pixel: the 2x2 sums of 4 channels (12 adds), the
         # upsample (3 channels x 6) and the blend (3 x 6 and a clip)
         b, by = bound(fill_bytes(h, w),
                       50 * sum(a * c for a, c in levels))
         print(f'[kernel] pushpull {tag} ({share:.1%} hole, {len(levels) - 1} '
-              f'levels, {2 * len(levels) - 1} launches a call): kernel '
-              f'{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} '
-              f'ms, bound {b:.4f} ms ({by}); max err {err:.3g}', flush=True)
+              f'levels, one launch a call): kernel {ms:.4f} ms (device '
+              f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+              f'({by}); max err {err:.3g}', flush=True)
         if not err <= 1e-6:
             fail(f'pushpull {tag}: {err:.3g} from the plain version (1e-6 '
                  f'allowed)')
@@ -2785,7 +2891,10 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
                                       device_ms=dev_ms)
 
         base = want
-        off = fill.jitter_offsets(h, w).to(dev)
+        off = fill.jitter_offsets(h, w, device=dev)
+        if not torch.equal(off.cpu(), fill.jitter_offsets(h, w)):
+            fail(f'jitter_offsets {tag}: the card\'s draw differs from the '
+                 f'CPU\'s')
         got = fill.jitter_refine(base, hole, off)
         want = fill.jitter_refine_plain(base, hole, off)
         same = float((got == want).all(-1)[hole].float().mean())
@@ -2805,7 +2914,8 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
               f'call): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain '
               f'{plain_ms:.4f} ms, bound {b:.4f} ms ({by}); hole pixels '
               f'equal {same:.6f}, max err {err:.3g}; the refine moved '
-              f'{moved:.1%} of them', flush=True)
+              f'{moved:.1%} of them; offsets drawn on the card, equal to '
+              f'the CPU\'s draw', flush=True)
         if same < JITTER_SHARE or moved == 0.0:
             fail(f'jitter {tag}: {same:.6f} of hole pixels equal to the plain '
                  f'version ({JITTER_SHARE} required), {moved:.1%} moved')
@@ -2874,7 +2984,7 @@ class MaskBoxed:
         return ins.replace(valid=ins.valid & ins.masks.any((1, 2)))
 
 
-def style_phase(det, img: np.ndarray) -> tuple:
+def style_phase(det, img: np.ndarray, save: str = None) -> tuple:
     """``StyleEditor.repaint`` on the card: the edged detector with its
     ISNet refine (``MaskBoxed``), the full-width random tagger of the
     tagger phase, a stub sd-webui server; long_side 768 (a 448x768
@@ -2882,9 +2992,11 @@ def style_phase(det, img: np.ndarray) -> tuple:
     K13b launched once each, one img2img and one inpaint an instance at
     768x448 with the style prompt, and the card's background fill
     against the plain versions on the CPU on the same host arrays:
-    outside the hole exact, inside >= 99.9% equal; then K13a's and K13b's
-    device times on that fill's inputs. Returns the launches of the
-    repaint and those times."""
+    outside the hole exact, inside >= 99.9% equal; then the draw of the
+    offsets on the card, and K13a's and K13b's device times on that
+    fill's inputs, which ``save`` (a path) keeps as an .npz of the
+    image and mask for render_kernel_times.py. Returns the launches of
+    the repaint and those times."""
     import cv2
     from cartoonsegmentation_torch.ops import _cuda
     from cartoonsegmentation_torch.ops.inpaint_fill import (
@@ -2953,19 +3065,17 @@ def style_phase(det, img: np.ndarray) -> tuple:
         inside = float((card[hole] == cpu[hole]).all(-1).mean())
         fill_ms = time_ms(lambda _: inpaint(small, mask, device=det.device),
                           [None] * RUNS)
-        # of which the host's draw of the jitter offsets
-        draw_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            jitter_offsets(h, w)
-            draw_s.append(time.perf_counter() - t0)
+        # of which the draw of the jitter offsets on the card
+        draw_ms = time_ms(lambda _: jitter_offsets(h, w, device=det.device),
+                          [None] * RUNS)
         print(f'[style] background fill {h}x{w}, {hole.mean():.1%} hole: '
               f'{fill_ms:.3f} ms on the card (uint8 in and out, host copies '
-              f'included; the host draw of the offsets alone '
-              f'{1e3 * statistics.median(draw_s):.3f} ms), '
-              f'{1e3 * cpu_s:.1f} ms on the CPU; outside the hole '
-              f'{"exact" if outside else "DIFFERENT"}, inside '
+              f'included; the card\'s draw of the offsets alone '
+              f'{draw_ms:.3f} ms), {1e3 * cpu_s:.1f} ms on the CPU; outside '
+              f'the hole {"exact" if outside else "DIFFERENT"}, inside '
               f'{inside:.6f} of pixels equal', flush=True)
+        if save:
+            np.savez(save, image=small, mask=mask)
         if not outside or inside < STYLE_FILL_SHARE:
             fail(f'style: the card\'s background fill disagrees with the CPU '
                  f'(outside exact: {outside}, inside {inside:.6f})')
@@ -2974,7 +3084,7 @@ def style_phase(det, img: np.ndarray) -> tuple:
             det.device)
         hole_t = torch.from_numpy(hole).to(det.device)
         base = push_pull_fill(img_t, hole_t)
-        off = jitter_offsets(h, w).to(det.device)
+        off = jitter_offsets(h, w, device=det.device)
         fill_dev = {
             'pushpull': graph_ms(lambda x: push_pull_fill(*x),
                                  (img_t, hole_t)),
@@ -2983,6 +3093,7 @@ def style_phase(det, img: np.ndarray) -> tuple:
         print(f'[style] device time on the repaint\'s {h}x{w} fill: '
               f'pushpull {fill_dev["pushpull"]:.4f} ms, jitter '
               f'{fill_dev["jitter"]:.4f} ms', flush=True)
+        fill_dev.update(fill_ms=fill_ms, draw_ms=draw_ms)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -3023,6 +3134,10 @@ def odd_clip_phase(seed: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--save-style-fill', metavar='PATH',
+                    help='save the [style] phase\'s background fill inputs '
+                    '(an .npz of the image and mask) for '
+                    'render_kernel_times.py --style-fill-inputs')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3085,7 +3200,11 @@ def main() -> None:
     pipe.ensure_detector()
     pipe._detector.model = copy.deepcopy(det_net)
     pipe._detector.refine.net = isnet
-    launches = run_clip(pipe, img, 'main')
+    appends = CompactCalls()
+    try:
+        launches = run_clip(pipe, img, 'main')
+    finally:
+        appends.close()
     require_launches('main', launches,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
@@ -3095,6 +3214,8 @@ def main() -> None:
     cloud_copies(pipe, 'main')
     res['discfill_real'] = check_fill_real(real_fill_inputs(pipe))
     res['coverage_real'] = check_coverage_real(real_coverage_inputs(pipe))
+    res['compact_real'] = check_compact_real(appends.calls)
+    del appends
 
     # 5. kernel frames against the plain versions on the CPU ---------------
     compare_frames(pipe, 'main')
@@ -3218,7 +3339,8 @@ def main() -> None:
 
     # 15. the style flow: StyleEditor.repaint with the same detector and
     # tagger against a stub sd-webui server ------------------------------
-    launches_style, style_dev = style_phase(cp._detector, img)
+    launches_style, style_dev = style_phase(cp._detector, img,
+                                            args.save_style_fill)
     del cp
 
     # 16. the detector-free clip at a frame size I420 does not fit --------
@@ -3255,7 +3377,10 @@ def main() -> None:
         # :975, bgr_to_i420 :194
         ('epilogue', res['epilogue'], 'utils/image.py:146', {}),
         ('colorize', res['colorize'], 'pipeline/depth.py:113', {}),
-        ('compact', res['compact'], 'pipeline/state.py:58', {}),
+        # the synthetic all-set append; the shipped default clip's three
+        # appends beside it (device ms and bound summed, and each)
+        ('compact', res['compact'], 'pipeline/state.py:58',
+         {f'{k}_real': v for k, v in res['compact_real'].items()}),
         # the global blocks; the windowed ones beside them
         ('samattn', res['samattn_global'], 'models/sam.py:76',
          {f'{k}_windowed': win[k] for k in (
@@ -3297,7 +3422,9 @@ def main() -> None:
         ('pushpull', res['pushpull_448x768'], 'ops/inpaint_fill.py:43',
          {**{f'{k}_768x768': res['pushpull_768x768'][k] for k in (
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'device_ms')},
-          'device_ms_style': style_dev['pushpull']}),
+          'device_ms_style': style_dev['pushpull'],
+          'inpaint_ms_style': style_dev['fill_ms'],
+          'offsets_draw_ms_style': style_dev['draw_ms']}),
         ('jitter', res['jitter_448x768'], 'ops/inpaint_fill.py:70',
          {**{f'{k}_768x768': res['jitter_768x768'][k] for k in (
              'max_abs_err', 'equal_share', 'ms', 'plain_ms', 'bound_ms',

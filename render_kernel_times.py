@@ -4,8 +4,10 @@ coverage), K3 (the disocclusion fill), K4 (bokeh), K5a (the frame
 epilogue), K5b (the depth colorize) and K11 (the exact fill), of the
 per-instance median K6, of K7 (the median-5 and the laplacian), of
 the detector's K8 and K9, of the cloud compaction K10, of the dense
-CRF's k-means K12a and step K12b and of Mask R-CNN's RoIAlign K14a
-and NMS K14b, of one checkout of the PyTorch/CUDA port, on one GPU.
+CRF's k-means K12a and step K12b, of the style fill's push-pull K13a
+(and the whole uint8 fill, ``inpaint``) and of Mask R-CNN's RoIAlign
+K14a and NMS K14b, of one checkout of the PyTorch/CUDA port, on one
+GPU.
 
     python3 render_kernel_times.py [--save-fill-inputs PATH]
                                    [--save-coverage-inputs PATH]
@@ -24,10 +26,19 @@ and NMS K14b, of one checkout of the PyTorch/CUDA port, on one GPU.
                                    [--detector-inputs PATH]
                                    [--median-inputs PATH]
                                    [--compact-inputs PATH]
+                                   [--style-fill-inputs PATH]
                                    [--only WORD[,WORD...]] [--seed N]
     python3 render_kernel_times.py --loop [--root DIR] [--seed N]
+    python3 render_kernel_times.py --inpaint-passes [--root DIR] [--seed N]
     python3 render_kernel_times.py --clips [--root DIR] [--only WORD,...]
                                    [--seed N]
+
+With ``--inpaint-passes`` it prepares the shipped default clip's state
+with DIR's package (``generate_state``, ``autozoom``) and profiles, 5
+times each, ``_prepare_state`` on that state's image, disparity and
+instances and ``inpaint_extremes`` on the state (torch.profiler: the
+device time of each call by kernel, and of its device-to-device
+copies, the cloud's clones among them), and exits.
 
 With ``--loop`` it runs the shipped default clip with DIR's package
 and times its frame loop on the host instead (16 frames a run, 7 runs:
@@ -108,7 +119,12 @@ random 0/1 mask and, with ``--median-inputs``, their saved calls of
 the shipped default clip; K10 appending all of 576x1024 to a cloud
 of twice that and, with ``--compact-inputs``, the saved appends of
 the shipped default clip, each call on its saved cloud with the
-count set back first, a 4-byte copy inside the call) prints,
+count set back first, a 4-byte copy inside the call; K13a at 448x768
+and 768x768 on chip_smoke's image with a hole of its seeded discs
+and, with ``--style-fill-inputs`` (saved by ``chip_smoke.py
+--save-style-fill``), on the [style] phase's own image and mask, and
+there the whole uint8 fill ``inpaint``, host work included, with no
+device time) prints,
 for each call (with ``--only``, for the calls whose tag holds one of
 the words):
 - its device time (the call captured in a CUDA graph and replayed:
@@ -194,11 +210,16 @@ def main() -> None:
                     '--save-compact-inputs, timed as calls of their own')
     ap.add_argument('--save-compact-inputs', metavar='PATH',
                     help='save the K10 inputs of the shipped default clip')
+    ap.add_argument('--style-fill-inputs', help="the [style] phase's "
+                    'fill inputs saved by chip_smoke.py --save-style-fill')
     ap.add_argument('--only', help='comma-separated words: time only the '
                     'calls whose tag holds one of them')
     ap.add_argument('--clips', action='store_true',
                     help='warm seconds of the shipped default, SAM, Mask '
                     'R-CNN and CRF clips')
+    ap.add_argument('--inpaint-passes', action='store_true',
+                    help="profile the shipped default clip's "
+                    '_prepare_state and inpaint_extremes')
     ap.add_argument('--loop', action='store_true',
                     help="time the shipped default clip's frame loop on "
                     'the host instead of the kernels')
@@ -234,6 +255,9 @@ def main() -> None:
     if args.loop:
         loop_times(cs, root, args.seed)
         return
+    if args.inpaint_passes:
+        inpaint_pass_times(cs, root, args.seed)
+        return
     if args.clips:
         clip_times(cs, root, args.seed, args.only)
         return
@@ -250,7 +274,7 @@ def main() -> None:
     _cuda.build(['splat', 'coverage', 'bokeh', 'discfill', 'epilogue',
                  'colorize', 'laplacian', 'discfill_exact', 'kmeans', 'crf',
                  'roialign', 'nms_large', 'nms', 'maskhead', 'insmedian',
-                 'median5', 'compact'])
+                 'median5', 'compact', 'pushpull'])
     H, W, dev = cs.H, cs.W, torch.device('cuda')
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -345,6 +369,7 @@ def main() -> None:
     calls += detector_calls(cs, gen, args.detector_inputs)
     calls += median_calls(cs, gen, args.median_inputs)
     calls += compact_calls(cs, gen, args.compact_inputs)
+    calls += fill_calls(cs, args.style_fill_inputs, args.seed)
     if args.only:
         words = args.only.split(',')
         calls = [c for c in calls if any(wd in c[0] for wd in words)]
@@ -739,6 +764,49 @@ def compact_calls(cs, gen, inputs_path) -> list:
             for where, xs in cases]
 
 
+def fill_calls(cs, inputs_path, seed: int) -> list:
+    """K13a's calls (``push_pull_fill``, one image and hole each):
+    chip_smoke's image resized to 448x768 and 768x768 with a hole of
+    its seeded discs (``chip_smoke.fill_hole``) and, with
+    ``inputs_path``, the [style] phase's own; there also the whole
+    uint8 fill (``inpaint``: host copies, the offsets' draw and both
+    kernels), timed by ``ms`` only. The bound: ``chip_smoke.fill_bytes``
+    and 50 operations a pyramid pixel."""
+    import numpy as np
+    import torch
+    from cartoonsegmentation_torch.ops import inpaint_fill as fill
+    dev = torch.device('cuda')
+    rgb = torch.from_numpy(cs.make_image(seed)).to(dev).float().permute(
+        2, 0, 1)[None] / 255
+    cases = []
+    for h, w in cs.FILL_SIZES:
+        x = torch.nn.functional.interpolate(rgb, size=(h, w), mode='bilinear',
+                                            align_corners=False)
+        cases.append((f'{h}x{w}', x[0].permute(1, 2, 0).contiguous(),
+                      cs.fill_hole(torch.Generator().manual_seed(seed), h,
+                                   w).to(dev)))
+    style = None
+    if inputs_path:
+        style = np.load(inputs_path)
+        cases.append(("the [style] phase's",
+                      torch.from_numpy(style['image'].astype(np.float32) /
+                                       255.0).to(dev),
+                      torch.from_numpy(style['mask'] > 0).to(dev)))
+    calls = []
+    for tag, x, hole in cases:
+        h, w = hole.shape
+        levels = fill.fill_levels(h, w)
+        calls.append((f'pushpull {tag}', lambda a: fill.push_pull_fill(*a),
+                      lambda a: fill.push_pull_fill_plain(*a), [(x, hole)],
+                      {'bounds': [(cs.fill_bytes(h, w),
+                                   50 * sum(a * b for a, b in levels))]}))
+    if style is not None:
+        calls.append(("inpaint the [style] phase's uint8 fill",
+                      lambda a: fill.inpaint(*a, device=dev), None,
+                      [(style['image'], style['mask'])], {'graph': False}))
+    return calls
+
+
 def save_path_inputs(cs, median_path, compact_path, seed: int) -> None:
     """Run the shipped default clip (``shipped_default_clip``) and save
     the arguments of its K6 and median-5 calls to ``median_path`` (a
@@ -980,6 +1048,55 @@ def clip_times(cs, root: str, seed: int, only: str | None = None,
         del pipe
     print(f'card: {cs.card_line()}; root {root}', flush=True)
     print(json.dumps({'root': root, 'clips': out}), flush=True)
+
+
+def inpaint_pass_times(cs, root: str, seed: int, runs: int = 5) -> None:
+    """The shipped default clip's ``_prepare_state`` and
+    ``inpaint_extremes`` of the package at ``root``, each profiled
+    ``runs`` times after a warm-up: device ms a call in all and in the
+    device-to-device copies, and the three kernels that take the
+    most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cartoonsegmentation_torch.ops import _cuda
+    if not os.path.abspath(_cuda.__file__).startswith(root):
+        cs.fail(f'imported {_cuda.__file__}, not from {root}')
+    pipe = shipped_default_clip(cs, seed)
+    state = pipe.generate_state(cs.make_image(seed))
+    boxes = pipe.autozoom(state)
+    calls = {'prepare_state': lambda: pipe._prepare_state(
+                 state.image, state.disparity, state.instances),
+             'inpaint_extremes': lambda: pipe.inpaint_extremes(state,
+                                                               *boxes)}
+    out = {}
+    for tag, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        rows = []
+        for _ in range(runs):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ev = {e.key: e.self_device_time_total / 1e3
+                  for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU}
+            rows.append(dict(
+                device_ms=sum(ev.values()),
+                dtod_ms=sum(v for k, v in ev.items() if 'DtoD' in k),
+                top=sorted(ev.items(), key=lambda kv: -kv[1])[:3]))
+        out[tag] = rows
+        for k in ('device_ms', 'dtod_ms'):
+            print(f'[inpaint passes] {tag} {k}: '
+                  f'{" ".join(f"{r[k]:.4f}" for r in rows)} (median '
+                  f'{statistics.median(r[k] for r in rows):.4f})', flush=True)
+        print(f'   top kernels (last run): '
+              f'{[(k[:50], round(v, 4)) for k, v in rows[-1]["top"]]}',
+              flush=True)
+    print(f'card: {cs.card_line()}; root {root}', flush=True)
+    print(json.dumps({'root': root, 'inpaint_passes': {
+        k: [{kk: vv for kk, vv in r.items() if kk != 'top'} for r in v]
+        for k, v in out.items()}}), flush=True)
 
 
 def loop_times(cs, root: str, seed: int, runs: int = 7) -> None:

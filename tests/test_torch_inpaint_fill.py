@@ -110,8 +110,9 @@ def test_inpaint_uint8_with_jax_offsets(monkeypatch):
     mask = _hole('blobs', h, w).astype(np.uint8) * 255
     want = jfill.inpaint(img, mask)
     monkeypatch.setattr(tfill, 'jitter_offsets',
-                        lambda hh, ww, seed=0, iters=2: torch.from_numpy(
-                            jax_offsets(hh, ww, seed, iters)))
+                        lambda hh, ww, seed=0, iters=2, device=None:
+                        torch.from_numpy(jax_offsets(hh, ww, seed, iters)).to(
+                            device or 'cpu'))
     got = tfill.inpaint(img, mask, device='cpu')
     assert got.dtype == np.uint8 and got.shape == img.shape
     hole = mask > 0

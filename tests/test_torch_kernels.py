@@ -1215,6 +1215,75 @@ def test_compact_kernel_vs_plain(rng, cuda):
     assert int(kern.count) == P
 
 
+def _compact_slot_zero():
+    """The slot the next K10 call takes is zero: its tile counter and
+    its status words (tstate._compact_scratch's layout)."""
+    buf = tstate._scratch[torch.cuda.current_device()]
+    slot = int(buf[0])
+    return int(buf[1 + slot]) == 0 and not bool(buf[5 + slot::2].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('M,share,P,start,unaligned,planar', [
+    (589824, 1.0, 1179648, 0, False, False),  # the prepared cloud's
+    # an inpainting pass's: ~3% set, its colours channel-planar
+    (589824, 0.03, 1179648, 589824, False, True),
+    (9000, 0.9, 5000, 900, False, False),     # P crossed inside a tile
+    (6144, 1.0, 7000, 2000, False, False),    # ... inside a dense tile
+    (6144, 1.0, 9000, 0, False, True),        # dense tiles, planar
+    (2049, 0.7, 3000, 10, True, False),       # an unaligned mask
+    (1, 1.0, 10, 3, False, False)])
+def test_compact_kernel_cases(rng, cuda, M, share, P, start, unaligned,
+                              planar):
+    """Dense and ranked tiles, overflow and ragged tails, colours at
+    other strides: slots, order and count exact; the slot the next call
+    takes left zero."""
+    args = _cloud_args(rng, M, cuda)
+    if planar:
+        args[1] = args[1].t().contiguous().t()
+    buf = torch.from_numpy(rng.rand(M + 1) < share).to(cuda)
+    mask = buf[1:] if unaligned else buf[:M].clone()
+    kern = tstate.PointCloud.with_capacity(P, cuda)
+    kern.count.fill_(start)
+    plain = kern.clone()
+    for _ in range(2):
+        _no_sync(lambda: tstate.append_masked_into(kern, *args, mask))
+        tstate.append_masked_plain(plain, *args, mask)
+    for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+        assert torch.equal(getattr(kern, k), getattr(plain, k)), k
+    torch.cuda.synchronize()
+    assert _compact_slot_zero()
+
+
+@pytest.mark.gpu
+def test_compact_kernel_one_launch_graph(rng, cuda):
+    """One kernel a call (no memset), and a graph that replays right on
+    new masks copied into the captured one."""
+    M, P = 20000, 50000
+    args = _cloud_args(rng, M, cuda)
+    mask = torch.from_numpy(rng.rand(M) < 0.5).to(cuda)
+    cloud = tstate.PointCloud.with_capacity(P, cuda)
+
+    def call():
+        cloud.count.zero_()
+        tstate.append_masked_into(cloud, *args, mask)
+    ops, launches = _device_ops(
+        lambda: tstate.append_masked_into(cloud, *args, mask), 'compact')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
+    graph, _ = _in_graph(call)
+    for share in (0.03, 1.0, 0.5):
+        mask.copy_(torch.from_numpy(rng.rand(M) < share))
+        for k in ('points', 'colors', 'disparity', 'depth'):
+            getattr(cloud, k).zero_()     # the slots a call leaves alone
+        graph.replay()
+        plain = tstate.PointCloud.with_capacity(P, cuda)
+        tstate.append_masked_plain(plain, *args, mask)
+        for k in ('points', 'colors', 'disparity', 'depth', 'count'):
+            assert torch.equal(getattr(cloud, k), getattr(plain, k)), k
+    torch.cuda.synchronize()
+    assert _compact_slot_zero()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,side,n,hd,kind', [
     (3, 14, 3, 64, 'random'), (1, 20, 3, 64, 'random'),
@@ -1510,6 +1579,39 @@ def test_pushpull_kernel_vs_plain(rng, cuda, H, W):
     full = torch.ones_like(hole)
     assert torch.equal(tfill.push_pull_fill(img, full),
                        torch.zeros_like(img))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W,levels', [(1, 77, 0), (77, 1, 0),
+                                        (1600, 1200, 0), (448, 768, 3)])
+def test_pushpull_kernel_more_sizes(rng, cuda, H, W, levels):
+    """1xW and Hx1; 1600x1200, whose coarse levels exceed a block's
+    shared memory (block 0 sums them in the scratch behind a second
+    barrier); levels given, so that the top lies inside a tile."""
+    img, hole = _fill_case(rng, H, W)
+    img, hole = img.to(cuda), hole.to(cuda)
+    got = tfill.push_pull_fill(img, hole, levels)
+    want = tfill.push_pull_fill_plain(img, hole, levels)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(got[~hole], img[~hole])
+
+
+@pytest.mark.gpu
+def test_pushpull_kernel_one_launch(rng, cuda):
+    img, hole = (t.to(cuda) for t in _fill_case(rng, 448, 768))
+    ops, launches = _device_ops(lambda: tfill.push_pull_fill(img, hole),
+                                'pushpull')
+    assert ops == ['kernel'] and launches == 1, (ops, launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('H,W,seed', [(448, 768, 0), (37, 53, 5),
+                                      (1, 1, 2 ** 40 + 3)])
+def test_jitter_offsets_card_equals_cpu(cuda, H, W, seed):
+    """The hash's draws, bit for bit, with no copy from the host."""
+    got = _no_sync(lambda: tfill.jitter_offsets(H, W, seed, device=cuda))
+    assert got.device.type == 'cuda'
+    assert torch.equal(got.cpu(), tfill.jitter_offsets(H, W, seed))
 
 
 @pytest.mark.gpu

@@ -118,8 +118,9 @@ def calls(server):
 def jax_draws(monkeypatch):
     """The port's fill takes JAX's jitter offsets."""
     monkeypatch.setattr(tfill, 'jitter_offsets',
-                        lambda h, w, seed=0, iters=2: torch.from_numpy(
-                            jax_offsets(h, w, seed, iters)))
+                        lambda h, w, seed=0, iters=2, device=None:
+                        torch.from_numpy(jax_offsets(h, w, seed, iters)).to(
+                            device or 'cpu'))
 
 
 def _pil(b64):
