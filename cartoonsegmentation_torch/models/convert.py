@@ -1,17 +1,23 @@
 """Carry the JAX package's Flax parameter trees into the port.
 
-``inpaint_from_flax``, ``leres_from_flax``, ``rtmdet_from_flax``,
-``isnet_from_flax``, ``sam_from_flax``, ``maskrcnn_from_flax`` and
-``swinv2_from_flax`` turn a Flax tree (numpy arrays, or anything
-``np.asarray`` takes) into a ``state_dict`` of the port's ``Inpaint``,
-``LeReS``, ``AnimeDetector``, ``ISNetDIS``, ``SAM``, ``MaskRCNN`` and
-``SwinV2``. Each walks the port module's own keys and looks up the Flax
-path that the JAX package's converters (``models/convert.py:
-convert_inpaint``, ``models/leres.py:convert_leres``,
-``models/convert_rtmdet.py:convert_rtmdet``, ``models/isnet.py:
-convert_isnet``, ``models/sam.py:convert_sam``, ``models/maskrcnn.py:
-convert_maskrcnn``, ``models/swinv2.py:convert_swinv2``) write for that
-checkpoint key, so the two directions stay inverse to each other.
+``inpaint_from_flax``, ``disparity_from_flax``, ``refine_from_flax``,
+``leres_from_flax``, ``rtmdet_from_flax``, ``isnet_from_flax``,
+``u2net_from_flax``, ``isnet_gt_from_flax``, ``modnet_from_flax``,
+``sam_from_flax``, ``maskrcnn_from_flax`` and ``swinv2_from_flax`` turn
+a Flax tree (numpy arrays, or anything ``np.asarray`` takes) into a
+``state_dict`` of the port's ``Inpaint``, ``DisparityEstimator``,
+``Refine``, ``LeReS``, ``AnimeDetector``, ``ISNetDIS``, ``U2Net``,
+``ISNetGTEncoder``, ``MODNet``, ``SAM``, ``MaskRCNN`` and ``SwinV2``.
+Each walks the port module's own keys and looks up the Flax path that
+the JAX package's converters (``models/convert.py: convert_inpaint``,
+``convert_disparity``, ``convert_semantics``, ``convert_refine``,
+``models/leres.py:convert_leres``, ``models/convert_rtmdet.py:
+convert_rtmdet``, ``models/isnet.py:convert_isnet``,
+``models/u2net.py:convert_u2net``, ``convert_isnet_gt``,
+``models/modnet.py:convert_modnet``, ``models/sam.py:convert_sam``,
+``models/maskrcnn.py:convert_maskrcnn``, ``models/swinv2.py:
+convert_swinv2``) write for that checkpoint key, so the two directions
+stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
 Dense kernel (in, out) → Linear (out, in); ConvTranspose kernel →
@@ -51,14 +57,38 @@ def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 def _from_flax(module: nn.Module, variables: Mapping,
                path_of) -> Dict[str, torch.Tensor]:
     """state_dict of ``module`` with every tensor that ``path_of(key)``
-    maps to a (collection, path) read from ``variables``; keys it maps
-    to None keep the module's value."""
+    maps to a (collection, path) read from ``variables`` (or to
+    (collection, path, layout), ``layout`` applied to the array first);
+    keys it maps to None keep the module's value."""
     out = {}
     for k, v in module.state_dict().items():
         loc = path_of(k)
-        out[k] = v.clone() if loc is None else \
-            _to_torch(_fetch(variables[loc[0]], loc[1]), v)
+        if loc is None:
+            out[k] = v.clone()
+            continue
+        arr = _fetch(variables[loc[0]], loc[1])
+        if len(loc) == 3:
+            arr = loc[2](arr)
+        out[k] = _to_torch(arr, v)
     return out
+
+
+def _lin(a: np.ndarray) -> np.ndarray:          # Dense (in, out) → (out, in)
+    return a.T
+
+
+def _conv(a: np.ndarray) -> np.ndarray:         # (kh, kw, in, out)
+    return a.transpose(3, 2, 0, 1)
+
+
+def _deconv(a: np.ndarray) -> np.ndarray:
+    """Flax ConvTranspose kernel → torch (in, out, kh, kw): the inverse
+    of the JAX ``deconv_w`` (layout and spatial flip)."""
+    return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -98,16 +128,20 @@ def inpaint_flax_path(key: str) -> Tuple[str, Path]:
         name = {'netInput': 'net_input', 'netImage': 'net_image',
                 'netDisparity': 'net_disparity'}[head]
         return 'params', (name,) + _block_leaf(parts, _BASIC_CRC)
+    return 'params', _grid_leaf(key, head, parts)
+
+
+def _grid_leaf(key: str, head: str, parts) -> Path:
+    """Flax path of a grid U-net cell's leaf ('{r}x{c} - {r'}x{c'}')."""
     m = re.fullmatch(r'(\d+)x(\d+) - (\d+)x(\d+)', head)
     if m is None:
         raise KeyError(key)
     r1, c1, r2, c2 = map(int, m.groups())
     if r1 == r2:
-        return 'params', (f'basic_r{r1}c{c1}',) + \
-            _block_leaf(parts, _BASIC_RCRC)
+        return (f'basic_r{r1}c{c1}',) + _block_leaf(parts, _BASIC_RCRC)
     if r2 == r1 + 1:
-        return 'params', (f'down_c{c1}r{r1}',) + _block_leaf(parts, _DOWN)
-    return 'params', (f'up_c{c1 - 2}r{r2}',) + _block_leaf(parts, _UP)
+        return (f'down_c{c1}r{r1}',) + _block_leaf(parts, _DOWN)
+    return (f'up_c{c1 - 2}r{r2}',) + _block_leaf(parts, _UP)
 
 
 def inpaint_from_flax(params: Mapping, module: Optional[nn.Module] = None
@@ -117,6 +151,73 @@ def inpaint_from_flax(params: Mapping, module: Optional[nn.Module] = None
     from .kenburns import Inpaint
     module = module or Inpaint()
     return _from_flax(module, {'params': params}, inpaint_flax_path)
+
+
+# ---------------------------------------------------------------------------
+# DisparityEstimator (Semantics + Disparity) and Refine
+# ---------------------------------------------------------------------------
+
+# vgg19_bn features' conv indices, the JAX Semantics' unit0..unit11
+_VGG_CONV_IDX = (0, 3, 7, 10, 14, 17, 20, 23, 27, 30, 33, 36)
+
+
+def disparity_flax_path(key: str) -> Optional[Tuple[str, Path]]:
+    """Flax location of one ``DisparityEstimator`` state_dict key (None
+    for the BatchNorm step counters)."""
+    top, head, rest = key.split('.', 2)
+    parts = rest.split('.')
+    if top == 'semantics':                         # netVgg.<idx>.<attr>
+        idx, attr = int(parts[0]), parts[1]
+        if idx in _VGG_CONV_IDX:
+            unit = f'unit{_VGG_CONV_IDX.index(idx)}'
+            return 'params', ('semantics', unit, 'conv', _LEAF[attr])
+        unit = f'unit{_VGG_CONV_IDX.index(idx - 1)}'
+        return _bn(('semantics', unit, 'bn'), attr)
+    pre = ('disparity',)
+    if head in ('netImage', 'netSemantics'):
+        name = {'netImage': 'net_image', 'netSemantics': 'net_semantics'}
+        return 'params', pre + (name[head], _LEAF[parts[0]])
+    if head == 'netDisparity':
+        return 'params', pre + ('net_disparity',) + \
+            _block_leaf(parts, _BASIC_CRC)
+    return 'params', pre + _grid_leaf(key, head, parts)
+
+
+def disparity_from_flax(variables: Mapping,
+                        module: Optional[nn.Module] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Flax ``DisparityEstimator`` variables ({'params',
+    'batch_stats'}: Semantics' BatchNorm statistics) → the port's
+    ``DisparityEstimator`` state_dict."""
+    from .kenburns import DisparityEstimator
+    module = module or DisparityEstimator()
+    return _from_flax(module, variables, disparity_flax_path)
+
+
+_REFINE = {'netImageOne': ('img_one', _BASIC_CRC),
+           'netImageTwo': ('img_two', _DOWN),
+           'netImageThr': ('img_thr', _DOWN),
+           'netDisparityOne': ('disp_one', _BASIC_CRC),
+           'netDisparityTwo': ('disp_two', _UP),
+           'netDisparityThr': ('disp_thr', _UP),
+           'netDisparityFou': ('disp_fou', _BASIC_CRC),
+           'netRefine': ('refine', _BASIC_CRC)}
+
+
+def refine_flax_path(key: str) -> Tuple[str, Path]:
+    """Flax location of one ``Refine`` state_dict key."""
+    head, rest = key.split('.', 1)
+    name, table = _REFINE[head]
+    return 'params', (name,) + _block_leaf(rest.split('.'), table)
+
+
+def refine_from_flax(params: Mapping, module: Optional[nn.Module] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``Refine`` params (the 'params' collection) → the port's
+    ``Refine`` state_dict."""
+    from .kenburns import Refine
+    module = module or Refine()
+    return _from_flax(module, {'params': params}, refine_flax_path)
 
 
 # ---------------------------------------------------------------------------
@@ -286,27 +387,98 @@ def isnet_from_flax(variables: Mapping, module: Optional[nn.Module] = None
     return _from_flax(module, variables, isnet_flax_path)
 
 
+def u2net_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flax ``U2Net`` variables → the port's ``U2Net`` state_dict (the
+    stages, sides and ``outconv`` under ISNet's naming; ``module``
+    defaults to the full net)."""
+    from .u2net import U2Net
+    module = module or U2Net()
+    return _from_flax(module, variables, isnet_flax_path)
+
+
+def isnet_gt_flax_path(key: str) -> Optional[Tuple[str, Path]]:
+    """Flax location of one ``ISNetGTEncoder`` state_dict key: the stem
+    ``conv_in.{conv,bn}``, the rest as ISNet's."""
+    parts = key.split('.')
+    if parts[0] != 'conv_in':
+        return isnet_flax_path(key)
+    if parts[1] == 'conv':
+        return 'params', ('conv_in', 'conv', _LEAF[parts[2]])
+    return _bn(('conv_in', 'bn'), parts[2])
+
+
+def isnet_gt_from_flax(variables: Mapping,
+                       module: Optional[nn.Module] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax ``ISNetGTEncoder`` variables → the port's state_dict."""
+    from .u2net import ISNetGTEncoder
+    module = module or ISNetGTEncoder()
+    return _from_flax(module, variables, isnet_gt_flax_path)
+
+
+# torch InvertedResidual ``conv`` indices → the Flax block's children
+# (expansion 1 has no expanding 1x1 conv)
+_IR_EXP1 = {'0': 'dw', '1': 'dw_bn', '3': 'pw_lin', '4': 'pw_lin_bn'}
+_IR_EXP6 = {'0': 'pw', '1': 'pw_bn', '3': 'dw', '4': 'dw_bn', '6': 'pw_lin',
+            '7': 'pw_lin_bn'}
+# the inference-time MODNet has no semantic or detail head in Flax
+_MODNET_TRAIN_ONLY = ('conv_lr', 'conv_hr_0', 'conv_hr_1')
+
+
+def _modnet_leaf(name: Path, attr: str, is_bn: bool):
+    if is_bn:
+        return _bn(name, attr)
+    return 'params', name + (_LEAF[attr],)
+
+
+def modnet_flax_path(key: str):
+    """Flax location of one ``MODNet`` state_dict key (the backbone's
+    under both of its names), or None for the step counters."""
+    parts = key.split('.')
+    if parts[0] == 'lr_branch' and parts[1] == 'backbone':
+        parts = parts[1:]
+    if parts[0] == 'backbone':                 # backbone.model.features.*
+        n, rest = int(parts[3]), parts[4:]
+        if n in (0, 18):
+            name = ('stem', 'stem_bn') if n == 0 else ('head', 'head_bn')
+            return _modnet_leaf(('backbone', name[rest[0] == '1']), rest[1],
+                                rest[0] == '1')
+        child = (_IR_EXP1 if n == 1 else _IR_EXP6)[rest[1]]
+        return _modnet_leaf(('backbone', f'block{n}', child), rest[2],
+                            child.endswith('bn'))
+    if parts[1] == 'se_block':                 # Linear (out, in) ← (in, out)
+        return 'params', ('se_block', 'fc0' if parts[3] == '0' else 'fc1',
+                          'kernel'), _lin
+    # a Conv2dIBNormRelu: <branch>.<name>[.<i>].layers.<0|1>...
+    at = parts.index('layers')
+    flax = '_'.join(parts[1:at])
+    if parts[at + 1] == '0':
+        return 'params', (flax, 'conv', _LEAF[parts[at + 2]])
+    return _bn((flax, 'ibn', 'bnorm'), parts[at + 3])
+
+
+def modnet_from_flax(variables: Mapping, module: Optional[nn.Module] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``MODNet`` variables → the port's ``MODNet`` state_dict. The
+    semantic and detail heads, which the inference-time Flax tree lacks,
+    keep the module's values."""
+    from .modnet import MODNet
+    module = module or MODNet()
+    have = set(variables['params'])
+
+    def path_of(key):
+        loc = modnet_flax_path(key)
+        if loc is not None and loc[1][0] in _MODNET_TRAIN_ONLY \
+                and loc[1][0] not in have:
+            return None
+        return loc
+    return _from_flax(module, variables, path_of)
+
+
 # ---------------------------------------------------------------------------
 # SAM
 # ---------------------------------------------------------------------------
-
-def _lin(a: np.ndarray) -> np.ndarray:          # Dense (in, out) → (out, in)
-    return a.T
-
-
-def _conv(a: np.ndarray) -> np.ndarray:         # (kh, kw, in, out)
-    return a.transpose(3, 2, 0, 1)
-
-
-def _deconv(a: np.ndarray) -> np.ndarray:
-    """Flax ConvTranspose kernel → torch (in, out, kh, kw): the inverse
-    of the JAX ``deconv_w`` (layout and spatial flip)."""
-    return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-
-
-def _same(a: np.ndarray) -> np.ndarray:
-    return a
-
 
 _SAM_LEAF = {'weight': ('kernel', _lin), 'bias': ('bias', _same)}
 _SAM_LN = {'weight': ('scale', _same), 'bias': ('bias', _same)}

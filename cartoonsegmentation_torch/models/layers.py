@@ -2,14 +2,16 @@
 ``cartoonsegmentation_tpu/models/layers.py``).
 
 Modules keep the published checkpoints' parameter names (``netMain``,
-``netShortcut``) and torch's NCHW layout; ``normalize_mean_std`` works
-on the JAX package's channel-last tensors.
+``netShortcut``) and torch's NCHW layout, as do ``upsample2x`` and
+``resize_to``; ``normalize_mean_std`` works on the JAX package's
+channel-last tensors.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -23,6 +25,20 @@ def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
     if pad is None:
         pad = kernel // 2
     return nn.Conv2d(cin, cout, kernel, stride, pad, bias=bias)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear x2 of an NCHW tensor, half-pixel centres (jax.image.resize
+    'linear', whose antialias does nothing when it enlarges)."""
+    return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                         mode='bilinear', align_corners=False)
+
+
+def resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to (h, w) without antialias, on
+    minification too (jax.image.resize 'linear', antialias=False)."""
+    return F.interpolate(x, size=(h, w), mode='bilinear',
+                         align_corners=False, antialias=False)
 
 
 class Basic(nn.Module):

@@ -16,17 +16,25 @@ K14a, NMS K14b); ``detector: none`` skips the detector.
 ``discfill_mode: exact`` fills with the K11 ray march in place of K3.
 ``refine_crf`` snaps the disparity to the image's colour edges
 (``pipeline/crf_refine.py``: host cv2 segments, each through the dense
-CRF of kernels K12a k-means and K12b mean-field step). What the port
-does not run yet raises NotImplementedError: the animeseg refine,
-depth estimators other than LeReS, the depth refine net and inpaint
-types other than 'default' (the sd-webui ``ldm`` of
-3dkenburns_sam.yaml among them).
+CRF of kernels K12a k-means and K12b mean-field step). ``refine_method``
+takes every refiner of ``pipeline/refine.py`` (the animeseg nets too).
+``depth_est: default`` runs the 3D-Ken-Burns disparity net at its coarse
+grid (the instance adjustment at image resolution and back), and
+``default_depth_refine`` its Refine net up to image resolution.
+``inpaint_type`` 'patchmatch' (the host C++ PatchMatch) and 'ldm' (a
+stable-diffusion-webui server) fill each pass's image on the host
+before its holes join the cloud. Still refused with NotImplementedError:
+``depth_est`` 'zoe', 'zoe_nk', 'leres_boost' and 'marigold', and
+``inpaint_type: ldm_native``.
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
 version). The frame loop is a Python loop: kernels are enqueued on the
 current stream and the host waits only where a result must reach it
-(the autozoom choice, the cloud count, each chunk's bytes).
+(the autozoom choice, the cloud count, each chunk's bytes). With
+``stage_previews`` on (off by default: each preview is a full-frame
+copy to the host), ``stages`` collects the verbose stage images that
+``save_stages`` writes.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ import torch
 from ..config import KenBurnsConfig, build_kenburns_cfg
 from ..device import resolve_device, resolve_dtype
 from ..instances import Instances
-from ..models.kenburns import Inpaint
+from ..models.kenburns import DisparityEstimator, Inpaint, Refine
 from ..models.leres import LeReS, _normalize_leres_keys, leres_postprocess
 from ..ops.bokeh import bokeh_blur
 from ..ops.camera import autozoom, compute_shift, depth_range
@@ -63,22 +71,24 @@ from .state import KenBurnsState, PointCloud
 LOGGER = logging.getLogger('cartoonsegmentation_torch')
 
 
+# the depth estimators and inpaint types of the JAX package that the port
+# does not run yet
+UNPORTED_DEPTH = ('zoe', 'zoe_nk', 'leres_boost', 'marigold')
+UNPORTED_INPAINT = ('ldm_native',)
+_NETS = {'inpaint': Inpaint, 'leres': LeReS,
+         'disparity': DisparityEstimator, 'refine': Refine}
+
+
 def _check_supported(cfg: KenBurnsConfig) -> None:
     """Raise for the options this slice of the port does not run."""
     todo = []
     if cfg.detector not in ('none', '', 'animeinsseg', 'sam', 'maskrcnn'):
         todo.append(f"detector={cfg.detector!r} (only 'animeinsseg', "
                     "'sam', 'maskrcnn', 'none')")
-    if cfg.detector == 'animeinsseg' and \
-            cfg.refine_method not in ('none', '', 'refinenet_isnet'):
-        todo.append(f"refine_method={cfg.refine_method!r} (only "
-                    "'refinenet_isnet', 'none')")
-    if cfg.depth_est != 'leres':
-        todo.append(f"depth_est={cfg.depth_est!r} (only 'leres')")
-    if cfg.default_depth_refine:
-        todo.append('default_depth_refine')
-    if cfg.inpaint_type != 'default':
-        todo.append(f"inpaint_type={cfg.inpaint_type!r} (only 'default')")
+    if cfg.depth_est in UNPORTED_DEPTH:
+        todo.append(f'depth_est={cfg.depth_est!r}')
+    if cfg.inpaint_type in UNPORTED_INPAINT:
+        todo.append(f'inpaint_type={cfg.inpaint_type!r}')
     if todo:
         raise NotImplementedError(
             'not ported to cartoonsegmentation_torch yet: '
@@ -138,6 +148,8 @@ class KenBurnsPipeline:
         # loaded first; tests may install smaller ones here
         self.inpaint_net: Optional[Inpaint] = None
         self.leres_net: Optional[LeReS] = None
+        self.disparity_net: Optional[DisparityEstimator] = None
+        self.refine_net: Optional[Refine] = None
         # an AnimeInsSeg, any img → Instances callable, or None; run()
         # installs the configured one first (ensure_detector)
         self._detector = None
@@ -147,6 +159,12 @@ class KenBurnsPipeline:
         self.last_state: Optional[KenBurnsState] = None
         self.last_boxes: Optional[Tuple[Dict, Dict]] = None
         self.last_video_path: Optional[str] = None
+        # the verbose stage images (BGR uint8 on the host), keyed as the
+        # JAX package's: input, depth_coarse, depth_adjusted, depth_final,
+        # instances, inpainted_<cloud count>; all but 'input' are taken
+        # only with stage_previews on
+        self.stages: Dict[str, np.ndarray] = {}
+        self.stage_previews: bool = False
 
     @property
     def conv_dtype(self) -> torch.dtype:
@@ -154,6 +172,9 @@ class KenBurnsPipeline:
         return resolve_dtype(self.cfg.dtype, self.device)
 
     def _net(self, which: str) -> torch.nn.Module:
+        """The named net on the device: made from the seed at first use,
+        in cfg.dtype's conv dtype (Inpaint, LeReS) or f32 (the disparity
+        estimator and Refine, as in the JAX package)."""
         attr = f'{which}_net'
         net = getattr(self, attr)
         if net is None:
@@ -161,19 +182,42 @@ class KenBurnsPipeline:
                            'loaded)', which)
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(self._seed)
-                net = Inpaint() if which == 'inpaint' else LeReS()
+                net = _NETS[which]()
             setattr(self, attr, net)
-        return net.to(self.device, self.conv_dtype).eval()
+        dtype = self.conv_dtype if which in ('inpaint', 'leres') \
+            else torch.float32
+        return net.to(self.device, dtype).eval()
 
     # -- weights -------------------------------------------------------
-    def load_torch_checkpoints(self, inpaint: Optional[str] = None) -> None:
-        """Load the Inpaint net's published state dict."""
-        if inpaint:
-            sd = torch.load(inpaint, map_location='cpu', weights_only=True)
-            sd = sd.get('state_dict', sd)
-            net = Inpaint()
-            net.load_state_dict(sd)
-            self.inpaint_net = net
+    def load_torch_checkpoints(self, disparity: Optional[str] = None,
+                               refine: Optional[str] = None,
+                               inpaint: Optional[str] = None,
+                               vgg: Optional[str] = None) -> None:
+        """Load the published 3D-Ken-Burns state dicts: the disparity net
+        (its 'module*' keys renamed 'net*', as the reference loads them),
+        torchvision's vgg19_bn (its ``features`` through the 4th pool
+        become Semantics), the Refine and Inpaint nets."""
+        def load(path):
+            sd = torch.load(path, map_location='cpu', weights_only=True)
+            return sd.get('state_dict', sd)
+        if disparity or vgg:
+            est = self.disparity_net or DisparityEstimator()
+            if disparity:
+                est.disparity.load_state_dict(
+                    {k.replace('module', 'net'): v
+                     for k, v in load(disparity).items()})
+            if vgg:
+                n = len(est.semantics.netVgg)
+                est.semantics.netVgg.load_state_dict(
+                    {k[len('features.'):]: v for k, v in load(vgg).items()
+                     if k.startswith('features.')
+                     and int(k.split('.')[1]) < n})
+            self.disparity_net = est
+        for which, path in (('refine', refine), ('inpaint', inpaint)):
+            if path:
+                net = _NETS[which]()
+                net.load_state_dict(load(path))
+                setattr(self, f'{which}_net', net)
 
     def load_leres_checkpoint(self, path: str) -> None:
         """res101.pth (ckpt['depth_model'], 'module.'-prefixed keys)."""
@@ -263,6 +307,9 @@ class KenBurnsPipeline:
             with self.timer.time('detector', dev):
                 instances = self._detector.infer(img, cfg.pred_score_thr)
         img = scaledown_maxsize(img, cfg.max_size)
+        # a new image: the last one's stage images go
+        self.stages.clear()
+        self.stages['input'] = np.ascontiguousarray(img)
         H, W = img.shape[:2]
         if instances is None:
             instances = Instances.empty(cfg.max_instances, H, W, dev)
@@ -271,17 +318,80 @@ class KenBurnsPipeline:
         image = torch.from_numpy(img.astype(np.float32) / 255.0).to(dev)
 
         with self.timer.time('depth_estimate', dev):
-            disparity = self._est_leres(image)
+            disparity = self._estimate_disparity(image)
+            self._stage_depth('depth_coarse', disparity)
         with self.timer.time('depth_adjust', dev):
-            disparity = self._adjust_disparity(disparity, instances)
+            disparity = self._adjust_disparity(image, disparity, instances)
+            self._stage_depth('depth_adjusted', disparity)
         with self.timer.time('depth_refine', dev):
-            if disparity.shape[:2] != (H, W):
-                disparity = resize_bilinear(disparity, H, W)
-            if cfg.refine_crf:
-                disparity = self._refine_crf(img, disparity, instances)
+            disparity = self._refine_stage(img, image, disparity, instances)
+            self._stage_depth('depth_final', disparity)
+        if self._detector is not None and self.stage_previews:
+            self.stages['instances'] = instances.draw(img)
         with self.timer.time('prepare_state', dev):
             state = self._prepare_state(image, disparity, instances)
         return state
+
+    def _estimate_disparity(self, image: torch.Tensor) -> torch.Tensor:
+        """The configured estimator's disparity: 'leres' at image
+        resolution, 'default' at its coarse grid. Parity: the JAX
+        package's ``_estimate_disparity`` (an unknown name runs LeReS
+        with a warning)."""
+        if self.cfg.depth_est == 'default':
+            return self._est_default(image)
+        if self.cfg.depth_est != 'leres':
+            LOGGER.warning('unknown depth_est=%s; using leres',
+                           self.cfg.depth_est)
+        return self._est_leres(image)
+
+    @torch.inference_mode()
+    def _est_default(self, image: torch.Tensor) -> torch.Tensor:
+        """The 3D-Ken-Burns disparity net at its native grid (half of the
+        image fitted into 512): no resize back, the coarse grid goes
+        through the adjustment and into Refine as it is."""
+        d = self._net('disparity')(image.permute(2, 0, 1)[None])
+        return d[0].permute(1, 2, 0)
+
+    @torch.inference_mode()
+    def _refine_disparity(self, image: torch.Tensor,
+                          disparity: torch.Tensor) -> torch.Tensor:
+        """The Refine net: the image at its resolution guides the
+        disparity at its own grid up to the image's (H, W, 1)."""
+        d = self._net('refine')(image.permute(2, 0, 1)[None],
+                                disparity.permute(2, 0, 1)[None])
+        return d[0].permute(1, 2, 0)
+
+    def _refine_stage(self, img: np.ndarray, image: torch.Tensor,
+                      disparity: torch.Tensor,
+                      instances: Instances) -> torch.Tensor:
+        """The final depth refinement, at image resolution: the Refine
+        net (``default_depth_refine``) or the CRF refine, both optional;
+        a coarse grid left over is resized up (no antialias). Parity:
+        the JAX package's ``_refine_stage``."""
+        H, W = img.shape[:2]
+        if self.cfg.default_depth_refine:
+            disparity = self._refine_disparity(image, disparity)
+        elif self.cfg.refine_crf:
+            if disparity.shape[:2] != (H, W):
+                disparity = resize_bilinear(disparity, H, W)
+            disparity = self._refine_crf(img, disparity, instances)
+        if disparity.shape[:2] != (H, W):
+            disparity = resize_bilinear(disparity, H, W)
+        return disparity
+
+    def _stage_depth(self, name: str, disparity: torch.Tensor) -> None:
+        if self.stage_previews:
+            self.stages[name] = colorize_gray_r(
+                disparity[..., 0]).cpu().numpy().astype(np.uint8)
+
+    def save_stages(self, save_dir: str, name: str) -> None:
+        """Write the stage images as <save_dir>/tmp_stage_<stage>_<name>.png
+        (the reference run_kenburns --verbose dumps)."""
+        import cv2
+        os.makedirs(save_dir, exist_ok=True)
+        for stage, img in self.stages.items():
+            cv2.imwrite(os.path.join(save_dir,
+                                     f'tmp_stage_{stage}_{name}.png'), img)
 
     @torch.inference_mode()
     def _est_leres(self, image: torch.Tensor) -> torch.Tensor:
@@ -311,12 +421,19 @@ class KenBurnsPipeline:
                                    device=self.device)
         return torch.from_numpy(refined).to(self.device)[..., None]
 
-    def _adjust_disparity(self, disparity: torch.Tensor,
+    def _adjust_disparity(self, image: torch.Tensor, disparity: torch.Tensor,
                           instances: Instances) -> torch.Tensor:
-        """Instance depth adjustment at image resolution."""
-        return adjust_disparity_by_instances(
-            disparity[..., 0], instances,
-            self.cfg.depthest_use_medium)[..., None]
+        """Instance depth adjustment at image resolution, returned at the
+        disparity's own grid: a coarser grid is resized up to the image,
+        adjusted there and resized back, both without antialias
+        (kenburns_effect.py:49-92)."""
+        H, W = image.shape[:2]
+        dh, dw = disparity.shape[:2]
+        d = disparity if (dh, dw) == (H, W) else \
+            resize_bilinear(disparity, H, W)
+        adj = adjust_disparity_by_instances(
+            d[..., 0], instances, self.cfg.depthest_use_medium)[..., None]
+        return adj if (dh, dw) == (H, W) else resize_bilinear(adj, dh, dw)
 
     def _prepare_state(self, image, disparity, instances) -> KenBurnsState:
         cfg = self.cfg
@@ -410,14 +527,68 @@ class KenBurnsPipeline:
         return (pts, image.reshape(-1, 3), disparity.reshape(-1),
                 new_depth.reshape(-1), hole)
 
-    def inpaint_pass(self, state: KenBurnsState, shift_u: float,
-                     shift_v: float, depth_scale: float) -> KenBurnsState:
-        """One inpainting pass at a camera extreme (inpaint_type
-        'default'), into a new cloud. Parity: kenburns_effect.py:441-514."""
+    def _pass_entries(self, state: KenBurnsState, shift_u: float,
+                      shift_v: float, depth_scale: float) -> tuple:
+        """One inpainting pass at a camera extreme up to the entries it
+        appends: the Inpaint net's forward, the stage preview, and for
+        inpaint_type 'patchmatch' or 'ldm' the net's image filled on the
+        host (``_host_fill``). Parity: kenburns_effect.py:441-514."""
         out, shift = self._inpaint_forward(state, shift_u, shift_v,
                                            depth_scale)
-        cloud = state.cloud.append_masked(*self._hole_entries(
-            out['image'], out['disparity'], out['existing'], shift))
+        if self.stage_previews:
+            self.stages[f'inpainted_{int(state.cloud.count)}'] = \
+                (out['image'].clamp(0.0, 1.0) * 255.0).to(
+                    torch.uint8).cpu().numpy()
+        image = out['image']
+        if self.cfg.inpaint_type != 'default':
+            image = self._host_fill(out)
+        return self._hole_entries(image, out['disparity'], out['existing'],
+                                  shift)
+
+    def _host_fill(self, out: dict) -> torch.Tensor:
+        """The hallucinated image filled on the host under the hole mask
+        (``existing`` == 0, OR-ed with the rendered instance masks):
+        'patchmatch' through the C++ PatchMatch on the BGR bytes, 'ldm'
+        through the sd-webui server on the RGB bytes with the mask
+        dilated by a 5-px ellipse; back on the device as f32."""
+        cfg = self.cfg
+        mask = (out['existing'][..., 0] == 0.0).cpu().numpy().astype(
+            np.uint8) * 255
+        seg = out.get('segmasks')
+        if seg is not None:
+            mask |= (seg[..., 0] > 0).cpu().numpy().astype(np.uint8) * 255
+        img_u8 = (out['image'].clamp(0.0, 1.0) * 255.0).to(
+            torch.uint8).cpu().numpy()
+        t0 = _time.perf_counter()
+        if cfg.inpaint_type == 'patchmatch':
+            from ..ops import patchmatch_native
+            filled = patchmatch_native.inpaint(img_u8, mask, patch_size=3)
+        else:
+            import cv2
+            from ..serving.sd_webui import ldm_inpaint_webui
+            e = 5
+            el = cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
+                                           (2 * e + 1, 2 * e + 1))
+            opts = {k: getattr(cfg.ldm_inpaint_options, k)
+                    for k in ('steps', 'cfg_scale', 'sample_name',
+                              'denoising_strength', 'inpainting_fill',
+                              'seed', 'subseed')}
+            filled = ldm_inpaint_webui(
+                img_u8[..., ::-1], cv2.dilate(mask, el),
+                cfg.ldm_inpaint_size or cfg.max_size, cfg.sd_img2img_url,
+                'high quality, masterpiece, no_humans',
+                'cat, human, single, person, girl, 1girl, creature, '
+                'animal, alien, robot, body', **opts)[..., ::-1]
+        self.timer.add(f'inpaint_{cfg.inpaint_type}_host',
+                       _time.perf_counter() - t0)
+        return torch.from_numpy(np.ascontiguousarray(filled).astype(
+            np.float32) / 255.0).to(self.device)
+
+    def inpaint_pass(self, state: KenBurnsState, shift_u: float,
+                     shift_v: float, depth_scale: float) -> KenBurnsState:
+        """One inpainting pass at a camera extreme, into a new cloud."""
+        cloud = state.cloud.append_masked(*self._pass_entries(
+            state, shift_u, shift_v, depth_scale))
         return state.replace(cloud=cloud)
 
     def inpaint_extremes(self, state: KenBurnsState, obj_from: Dict,
@@ -430,9 +601,8 @@ class KenBurnsPipeline:
             for t in (0.0, 1.0):
                 su, sv, ds, _, _ = self._camera_params(t, obj_from, obj_to,
                                                        state)
-                out, shift = self._inpaint_forward(state, su, sv, ds)
-                state.cloud.append_masked_(*self._hole_entries(
-                    out['image'], out['disparity'], out['existing'], shift))
+                state.cloud.append_masked_(*self._pass_entries(state, su, sv,
+                                                               ds))
         return self.compact_state(state)
 
     def compact_state(self, state: KenBurnsState) -> KenBurnsState:
@@ -709,3 +879,51 @@ def write_video(frames: np.ndarray, path: str, fps: int = 25,
     finally:
         sink.close()
     return sink.path
+
+
+def stream_video(frames: torch.Tensor, path: str, fps: int = 25,
+                 playback: bool = True, chunk: int = 8,
+                 yuv420: bool = True) -> np.ndarray:
+    """(T, H, W, 3) BGR uint8 frames on the device → video, in chunks:
+    every chunk's copy to pinned host memory is enqueued before the
+    first is encoded, so the copies run while the host encodes. With ``yuv420`` and H % 4 == 0, W % 2 ==
+    0 the chunks are packed to I420 on the device first (half the bytes
+    to move; ``bgr_to_i420``, the bytes K5a's I420 output is held to)
+    and decoded on the host; otherwise they move as BGR. The palindrome
+    tail (``playback``) reuses the host frames. Returns the forward
+    frames as written (decoded from I420 where it was used). Parity:
+    the JAX package's ``stream_video``."""
+    T, h, w = frames.shape[:3]
+    use_i420 = yuv420 and h % 4 == 0 and w % 2 == 0 and T > 0
+    pin = frames.device.type == 'cuda'
+    copies = []
+    for c0 in range(0, T, chunk):
+        sent = frames[c0:c0 + chunk]
+        if use_i420:
+            sent = bgr_to_i420(sent)
+        host = torch.empty(sent.shape, dtype=torch.uint8, pin_memory=pin)
+        host.copy_(sent, non_blocking=pin)
+        ev = None
+        if pin:
+            ev = torch.cuda.Event()
+            ev.record()
+        copies.append((ev, host))
+    sink = _VideoSink(path, w, h, fps)
+    out = []
+    try:
+        for ev, host in copies:
+            if ev is not None:
+                ev.synchronize()
+            arr = host.numpy()
+            bgr = i420_to_bgr_host(arr) if use_i420 else arr
+            out.append(bgr)
+            for f, y in zip(bgr, arr if use_i420 else [None] * len(arr)):
+                sink.write(f, y)
+        frames_h = np.concatenate(out) if out else \
+            np.zeros((0, h, w, 3), np.uint8)
+        if playback:
+            for f in list(frames_h)[::-1][1:-1]:
+                sink.write(f, None)
+    finally:
+        sink.close()
+    return frames_h

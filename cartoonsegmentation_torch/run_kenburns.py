@@ -6,6 +6,10 @@
 Writes <save-dir>/<name>.mp4 (a raw <name>.yuv I420 stream where cv2
 is missing). The configured detector (AnimeInsSeg with its ISNet
 refine in the shipped config) runs unless --no-detector is given.
+--verbose also writes the stage images (<save-dir>/tmp_stage_<stage>_
+<name>.png); --trace-dir DIR records a torch.profiler trace of the run
+into DIR/trace.json (an error when a CUDA run's trace holds no kernel
+event).
 """
 from __future__ import annotations
 
@@ -30,10 +34,17 @@ def main(argv=None) -> None:
                          'checkpoint')
     ap.add_argument('--profile', action='store_true',
                     help='print the per-stage wall-time table when done')
+    ap.add_argument('--verbose', action='store_true',
+                    help='write the intermediate stage images (depth, '
+                         'instances, inpainted views)')
+    ap.add_argument('--trace-dir', default='',
+                    help='record a torch.profiler trace of the run here '
+                         '(trace.json, Chrome trace format)')
     args = ap.parse_args(argv)
 
     from .config import build_kenburns_cfg
     from .pipeline.kenburns import KenBurnsPipeline
+    from .utils.profiling import trace
 
     cfg = build_kenburns_cfg(args.cfg)
     if args.no_depth_field:
@@ -41,10 +52,17 @@ def main(argv=None) -> None:
     if args.no_detector:
         cfg = cfg.replace(detector='none')
     pipe = KenBurnsPipeline(cfg, seed=args.seed, device=args.device)
+    # each stage image is a full-frame copy to the host: only --verbose
+    # writes them
+    pipe.stage_previews = args.verbose
 
     os.makedirs(args.save_dir, exist_ok=True)
     name = osp.splitext(osp.basename(args.input_img))[0]
-    frames = pipe.run(args.input_img, osp.join(args.save_dir, f'{name}.mp4'))
+    with trace(args.trace_dir, pipe.device):
+        frames = pipe.run(args.input_img,
+                          osp.join(args.save_dir, f'{name}.mp4'))
+    if args.verbose:
+        pipe.save_stages(args.save_dir, name)
     print(f'{len(frames)} frames → {pipe.last_video_path}')
     if args.profile:
         print(pipe.timer.report())

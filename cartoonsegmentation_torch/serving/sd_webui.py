@@ -5,8 +5,8 @@ The same requests with the same JSON bodies as the JAX client, sent
 with the standard library (``urllib.request``) in place of
 ``requests``; images travel as base64 PNGs (``utils/io.py``, cv2).
 ``submit_request`` retries a bounded number of times and returns the
-decoded JSON reply. Not ported yet: ``ldm_inpaint_webui`` (the
-``inpaint_type: ldm`` fill of the Ken Burns pipeline).
+decoded JSON reply. ``ldm_inpaint_webui`` is the Ken Burns pipeline's
+``inpaint_type: ldm`` fill.
 """
 from __future__ import annotations
 
@@ -123,6 +123,42 @@ def set_sd_model(url: str, title: str, auth=None) -> bool:
     except Exception as e:  # noqa: BLE001 — network seam
         LOGGER.warning(f'sd model switch failed: {e}')
         return False
+
+
+def ldm_inpaint_webui(img: np.ndarray, mask: np.ndarray, resolution: int,
+                      url: str, prompt: str = '', neg_prompt: str = '',
+                      retries: int = 5, wait_time: float = 5.0,
+                      **options) -> np.ndarray:
+    """img2img inpaint of an RGB uint8 image under a grey uint8 mask
+    (255 = repaint) at the aspect kept and the longer side rounded down
+    to a multiple of 32, the shorter side at ``resolution``; ``options``
+    join the request (``username``/``password`` become the request's
+    basic auth). A reply of another size is resized back with PIL's
+    LANCZOS. Raises RuntimeError when the server stays unreachable
+    after ``retries`` tries ``wait_time`` seconds apart."""
+    im_h, im_w = img.shape[:2]
+    if im_h > im_w:
+        W = resolution
+        H = int((im_h / im_w * resolution) // 32 * 32)
+    else:
+        H = resolution
+        W = int((im_w / im_h * resolution) // 32 * 32)
+    auth = None
+    if options.get('username'):
+        auth = (options.pop('username'), options.pop('password', ''))
+    options.pop('username', None)
+    options.pop('password', None)
+    data = {'init_images': [img2b64(img)], 'mask': img2b64(mask),
+            'prompt': prompt, 'negative_prompt': neg_prompt,
+            'width': W, 'height': H, **options}
+    reply = submit_request(url, json.dumps(data), auth=auth,
+                           retries=retries, wait_time=wait_time)
+    out = b64_2img(reply['images'][0])
+    if out.shape[:2] != (im_h, im_w):
+        from PIL import Image
+        out = np.array(Image.fromarray(out).resize(
+            (im_w, im_h), resample=Image.Resampling.LANCZOS))
+    return out
 
 
 def run_img2img_all(img_b64: str, data: Dict, prompt: str, nprompt: str,

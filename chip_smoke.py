@@ -72,6 +72,17 @@
    row of the last output, the valid instances);
 7. runs the main path again warm, and profiles 16 frames of the render
    loop (host enqueue time, device busy share, device time by kernel);
+   then the options clip (``options_phase``): the shipped default with
+   ``refine_method: animeseg`` (ISNet-IS at 1024, its logits centred on
+   the image, ``edged_animeseg``), ``depth_est: default`` with
+   ``default_depth_refine`` (the disparity net and Refine with their
+   last blocks scaled on a probe, ``edged_depth``) and ``inpaint_type:
+   patchmatch`` (the host C++ PatchMatch, built with g++ first), after
+   U2Net, U2Net-lite, ISNetGTEncoder and MODNet at 1024 and the
+   disparity net and Refine at the clip's sizes in f32 card against
+   CPU (within 1e-4 of the output's range): the launches, the
+   instances, the frames against the CPU, both PatchMatch passes' host
+   seconds, the instances the refine changed;
 8. runs the SAM path, ``configs/3dkenburns_sam.yaml`` with
    ``inpaint_type: default`` (AnimeInsSeg's boxes re-masked by SAM
    ViT-B at 1024, DoF off), with the same edged detector and a seeded
@@ -82,7 +93,11 @@
    image and (at most 8) boxes: the embedding, masks and IoUs within
    the stated tolerances; then ``SamDetector.infer`` →
    ``instances_to_coco`` on the card, whose RLEs must decode to the
-   masks exactly;
+   masks exactly; then ``configs/3dkenburns_sam.yaml`` as shipped
+   (``inpaint_type: ldm``) against a stub sd-webui on 127.0.0.1 at the
+   shipped URL's port (``ldm_phase``): each pass's request size by the
+   /32 rule, its mask the dilated hole mask, the stub's reply in the
+   cloud;
 10. runs the Mask R-CNN path with the exact fill,
    ``KenBurnsConfig(detector='maskrcnn', discfill_mode='exact')``, with
    the seeded Mask R-CNN set so that detections survive
@@ -125,6 +140,9 @@
    and K13b's device times on that fill's inputs;
 16. runs the detector-free clip at 683x1024 (H % 4 != 0), which
    streams BGR chunks: the frames, the clip's frame count, no I420;
+   then ``run_kenburns --verbose --trace-dir`` in a subprocess (the
+   stage images, CUDA kernel events in the trace) and ``stream_video``
+   of frames on the card against ``write_video`` (``cli_phase``);
 17. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
@@ -1786,13 +1804,21 @@ def video_frames(path: str, h: int, w: int) -> int:
     from the size of a raw I420 stream."""
     if path.endswith('.yuv'):
         return os.path.getsize(path) // (h * w * 3 // 2)
+    return len(decode_video(path))
+
+
+def decode_video(path: str) -> list:
+    """The frames of an mp4, decoded with cv2 (BGR uint8)."""
     import cv2
     cap = cv2.VideoCapture(path)
-    n = 0
-    while cap.read()[0]:
-        n += 1
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        out.append(f)
     cap.release()
-    return n
+    return out
 
 
 def run_clip(pipe, img, tag: str):
@@ -2925,16 +2951,17 @@ def check_fill_kernels(dev, gen, img: np.ndarray) -> dict:
     return res
 
 
-def stub_sd_server():
+def stub_sd_server(port: int = 0):
     """A stub stable-diffusion-webui on 127.0.0.1 (stdlib http.server in
-    a thread): img2img answers n_iter * batch_size images of the asked
-    size, PNG-encoded with cv2, and records each request body. Returns
-    (server, url, calls)."""
+    a thread), at ``port`` (a free one for 0): img2img answers n_iter *
+    batch_size images of the asked size, PNG-encoded with cv2 (a fixed
+    function of the request), records each request body and keeps each
+    reply's images in ``server.replies``. Returns (server, url, calls)."""
     import base64
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
     import cv2
-    calls, cache = [], {}
+    calls, cache, replies = [], {}, []
 
     def image(w, h, k):
         if (w, h, k) not in cache:
@@ -2956,6 +2983,7 @@ def stub_sd_server():
             imgs = [image(w, h, k + 1) for k in range(count)]
             if count > 1:
                 imgs = [image(w, h, 0)] + imgs
+            replies.append(imgs)
             body = json.dumps({'images': imgs}).encode()
             self.send_response(200)
             self.send_header('Content-Type', 'application/json')
@@ -2966,7 +2994,8 @@ def stub_sd_server():
         def log_message(self, *a):
             pass
 
-    srv = ThreadingHTTPServer(('127.0.0.1', 0), Handler)
+    srv = ThreadingHTTPServer(('127.0.0.1', port), Handler)
+    srv.replies = replies
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv, f'http://127.0.0.1:{srv.server_port}/sdapi/v1/img2img', calls
 
@@ -3131,6 +3160,426 @@ def odd_clip_phase(seed: int) -> dict:
     return launches
 
 
+def _probe(module, fn):
+    """The output of ``module`` (a forward hook) while fn() runs."""
+    seen = {}
+    h = module.register_forward_hook(lambda m, i, o: seen.setdefault('o', o))
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        h.remove()
+    return seen['o']
+
+
+def _scale_block(block, o, mean: float = 0.0) -> None:
+    """Scale a residual Basic block whose output on a probe was ``o`` so
+    that its output there has std 1 and the given mean: both its last
+    conv and its shortcut conv are divided by o's std, and the last
+    conv's bias takes the shift."""
+    mu, sd = float(o.mean()), float(o.std())
+    with torch.no_grad():
+        for conv in (block.netMain[-1], block.netShortcut):
+            conv.weight /= sd
+            conv.bias /= sd
+        block.netMain[-1].bias += mean - mu / sd
+
+
+def edged_depth(seed: int, img: np.ndarray):
+    """The 3D-Ken-Burns disparity estimator and Refine net as
+    ``KenBurnsPipeline(seed=seed)`` makes them (random from the seed),
+    with their last blocks scaled on a probe of ``img`` on the card.
+    Random weights alone put the disparity's logits below 0 at all but
+    0.3% of the pixels (a disparity of zeros after the ReLU) and the
+    Refine net's output within ~1% of the mean of its input. Here
+    - the estimator's last block (``netDisparity``) gives std 1 and mean
+      2 before the ReLU (a disparity positive nearly everywhere);
+    - Refine's last block (``netRefine``) gives std 1 and mean 0 on the
+      estimator's output, so that the refined disparity spreads as its
+      input does.
+    Returns (DisparityEstimator, Refine), f32 on the CPU."""
+    from cartoonsegmentation_torch.models.kenburns import (DisparityEstimator,
+                                                           Refine)
+    nets = []
+    for cls in (DisparityEstimator, Refine):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            nets.append(cls().eval().cuda())
+    est, ref = nets
+    x = torch.from_numpy(img.astype(np.float32) / 255.0).permute(
+        2, 0, 1)[None].cuda()
+    _scale_block(est.disparity.netDisparity,
+                 _probe(est.disparity.netDisparity, lambda: est(x)), 2.0)
+    with torch.no_grad():
+        d = est(x)
+    _scale_block(ref.netRefine, _probe(ref.netRefine, lambda: ref(x, d)))
+    with torch.no_grad():
+        r = ref(x, d)
+    print(f'[options] edged_depth: disparity {tuple(d.shape[-2:])} positive '
+          f'at {float((d > 0).float().mean()):.4f}, std / mean '
+          f'{float(d.std() / d.mean()):.4f}; refined {tuple(r.shape[-2:])} '
+          f'std / mean {float(r.std() / r.mean()):.4f}', flush=True)
+    return est.cpu(), ref.cpu()
+
+
+def refiner_input(img: np.ndarray, size: int) -> torch.Tensor:
+    """AnimeSegRefiner's input on the card: the RGB image shrunk (with
+    antialias) to fit ``size``, at the top left of a size x size frame
+    of zeros."""
+    from cartoonsegmentation_torch.utils.image import (resize_bilinear_aa,
+                                                       scaledown_size)
+    nh, nw = scaledown_size(*img.shape[:2], size)
+    rgb = torch.from_numpy(img[..., ::-1].astype(np.float32) / 255.0).cuda()
+    x = torch.zeros((1, 3, size, size), device='cuda')
+    x[0, :, :nh, :nw] = resize_bilinear_aa(rgb, nh, nw).permute(2, 0, 1)
+    return x
+
+
+def edged_animeseg(seed: int, img: np.ndarray, name: str = 'isnet_is',
+                   size: int = 1024):
+    """The animeseg refiner's net as ``AnimeSegRefiner(seed=seed)`` makes
+    it, with its last conv moved so that on ``img`` its logits are 4
+    (logit - median): the 0.5 threshold then cuts the frame about in
+    half (a random net's probabilities sit within ~0.1 of 0.5, on one
+    side of it over most of the frame). Returns the net, on the CPU."""
+    from cartoonsegmentation_torch.pipeline.refine import get_refine_net
+    from cartoonsegmentation_torch.utils.image import scaledown_size
+    make, run = get_refine_net(name)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = make().eval().cuda()
+    nh, nw = scaledown_size(*img.shape[:2], size)
+    with torch.no_grad():
+        p = run(net, refiner_input(img, size))[0, :nh, :nw].double()
+        m = float(torch.log(p / (1 - p)).median())
+        conv = net.side1
+        conv.bias -= m
+        conv.weight *= 4.0
+        conv.bias *= 4.0
+        share = float((run(net, refiner_input(img, size))[0, :nh, :nw]
+                       > 0.5).float().mean())
+    print(f'[options] edged_animeseg ({name} at {size}): median logit '
+          f'{m:.4f} moved to 0; {share:.4f} of the frame above 0.5',
+          flush=True)
+    return net.cpu()
+
+
+def calibrate_bn(net, fn) -> None:
+    """Set every BatchNorm's running statistics to its batch statistics
+    in one forward (``fn()``, train mode), as a trained net's match its
+    data; then eval mode. At PyTorch's initial statistics (mean 0,
+    variance 1) a random U2Net's probabilities all sit within 0.01 of
+    0.48 and the card-vs-CPU check of its mask would be empty; with its
+    own statistics they spread over 0.02..0.71 (PR 18)."""
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None                   # a cumulative mean of 1 batch
+    net.train()
+    with torch.no_grad():
+        fn()
+    for m in bns:
+        m.momentum = 0.1
+    net.eval()
+
+
+# MODNet's probabilities, card against CPU: the difference grows through
+# its MobileNetV2 backbone (1.6e-5 of a layer's range after block 3,
+# 4e-4 after block 17, the matte 4.5e-4), the same with cuDNN off: f32
+# summation order through 17 depthwise blocks, not an algorithm of cuDNN
+PROB_TOL = {'u2net': 1e-4, 'u2netl': 1e-4, 'isnet_gt': 1e-4, 'modnet': 1e-3}
+
+
+def compare_nets_card_cpu(seed: int, img: np.ndarray, est, ref,
+                          tol: float = 1e-4) -> None:
+    """Each new net in f32 on the card (cuDNN, TF32 off) against the same
+    weights on the CPU: U2Net, U2Net-lite, ISNetGTEncoder and MODNet as
+    the animeseg refiner runs them at 1024 (random from the seed, their
+    BatchNorm statistics from the input, ``calibrate_bn``), their
+    foreground probabilities within ``PROB_TOL`` and their masks (> 0.5)
+    >= 99.9% equal; the disparity estimator on the clip's image (its
+    144x256 output) and Refine from that grid to 576x1024 within ``tol``
+    of the output's range. Else the run fails."""
+    from cartoonsegmentation_torch.pipeline.refine import get_refine_net
+    x = refiner_input(img, 1024)
+    for name, ptol in PROB_TOL.items():
+        make, run = get_refine_net(name)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            net = make().cuda()
+        calibrate_bn(net, lambda: run(net, x))
+        with torch.no_grad():
+            got = run(net, x).cpu()
+            t0 = time.perf_counter()
+            want = run(net.cpu(), x.cpu())
+            tc = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        same = float(((got > 0.5) == (want > 0.5)).float().mean())
+        print(f'[options f32] {name} at 1024 card vs cpu ({tc:.1f} s on the '
+              f'CPU): probabilities {float(want.min()):.4f}..'
+              f'{float(want.max()):.4f}, max |diff| {err:.3g} (tolerance '
+              f'{ptol:g}), masks equal at {same:.6f} (>= 0.999)', flush=True)
+        if not (err <= ptol and same >= 0.999):
+            fail(f'options: {name} on the card differs from the CPU by {err}'
+                 f', its mask at {1 - same:.6f} of the pixels')
+    xi = torch.from_numpy(img.astype(np.float32) / 255.0).permute(
+        2, 0, 1)[None]
+    with torch.no_grad():
+        d = est(xi)
+        r = ref(xi, d)
+        outs = ((f'DisparityEstimator {tuple(d.shape[-2:])}', d,
+                 est.cuda()(xi.cuda()).cpu()),
+                (f'Refine {tuple(d.shape[-2:])} → {tuple(r.shape[-2:])}', r,
+                 ref.cuda()(xi.cuda(), d.cuda()).cpu()))
+    est.cpu(), ref.cpu()
+    for tag, want, got in outs:
+        err = float((got - want).abs().max())
+        rng = float(want.max() - want.min())
+        print(f'[options f32] {tag} card vs cpu: max |diff| {err:.3g}, '
+              f'tolerance {tol:g} x range {rng:.4f} = {tol * rng:.3g}',
+              flush=True)
+        if not err <= tol * rng:
+            fail(f'options: {tag} on the card differs from the CPU by {err}')
+
+
+def options_phase(det_net, img: np.ndarray, seed: int) -> tuple:
+    """The options clip: the shipped default with refine_method
+    'animeseg' (ISNet-IS at 1024 over the edged detector's instances,
+    ``edged_animeseg``), depth_est 'default' with default_depth_refine
+    (``edged_depth``) and inpaint_type 'patchmatch'. First each new net
+    card against CPU (``compare_nets_card_cpu``) and the PatchMatch
+    library's build; then the clip with its launches, instances and
+    frames against the CPU, the two PatchMatch passes' host seconds,
+    and how many instances the animeseg refine changed. Returns (the
+    launches, the pipeline)."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.ops import patchmatch_native
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    from cartoonsegmentation_torch.device import resolve_device
+    from cartoonsegmentation_torch.pipeline.refine import AnimeSegRefiner
+    resolve_device('cuda')              # TF32 off: the nets run in f32
+    est, ref = edged_depth(seed, img)
+    compare_nets_card_cpu(seed, img, est, ref)
+    t0 = time.perf_counter()
+    lib = patchmatch_native.build_library()
+    print(f'[options] PatchMatch library {lib.name} built or found in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    cfg = KenBurnsConfig(refine_method='animeseg', depth_est='default',
+                         default_depth_refine=True, inpaint_type='patchmatch')
+    pipe = KenBurnsPipeline(cfg, seed=seed, device='cuda')
+    pipe.ensure_detector()
+    det = pipe._detector
+    if not isinstance(det.refine, AnimeSegRefiner) or \
+            det.refine.input_size != 1024:
+        fail(f'options: the refine is {det.refine!r}')
+    det.model = copy.deepcopy(det_net)
+    det.refine.net = edged_animeseg(seed, img)
+    pipe.disparity_net, pipe.refine_net = est, ref
+    passes = []
+    pm = patchmatch_native.inpaint
+
+    def timed(image, mask, **k):
+        t = time.perf_counter()
+        out = pm(image, mask, **k)
+        passes.append((time.perf_counter() - t, float((mask > 0).mean())))
+        return out
+    patchmatch_native.inpaint = timed
+    try:
+        launches = run_clip(pipe, img, 'options')
+    finally:
+        patchmatch_native.inpaint = pm
+    print('[options] PatchMatch passes (host seconds, hole share of '
+          '576x1024): ' + ', '.join(f'{t:.3f} s ({h:.4f})'
+                                    for t, h in passes), flush=True)
+    if len(passes) != 2:
+        fail(f'options: {len(passes)} PatchMatch passes, expected 2')
+    require_launches('options', launches,
+                     ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian',
+                      'median5', 'laplacian', 'nms', 'maskhead', 'epilogue',
+                      'colorize', 'compact'))
+    check_instances(pipe, 'options')
+    compare_frames(pipe, 'options')
+    # what the animeseg refine did to the instances: the detector again
+    # with the refine and without it
+    refine = det.refine
+    refined = det.infer(img, cfg.pred_score_thr)
+    det.refine = None
+    raw = det.infer(img, cfg.pred_score_thr)
+    det.refine = refine
+    valid = raw.valid
+    changed = int(((refined.masks != raw.masks).any((1, 2)) & valid).sum())
+    print(f'[options] animeseg refine: {changed} of {int(valid.sum())} '
+          f'instances changed', flush=True)
+    if changed == 0:
+        fail('options: the animeseg refine changed no instance')
+    return launches, pipe
+
+
+def ldm_phase(root: str, det_net, sam_net, img: np.ndarray, seed: int
+              ) -> dict:
+    """configs/3dkenburns_sam.yaml as shipped (detector 'sam',
+    inpaint_type 'ldm') against the stub sd-webui on 127.0.0.1, at the
+    shipped URL's port where it is free: one img2img request a pass at
+    the /32 rule's size, the mask sent equal to the pass's hole mask
+    (``existing`` == 0 or a rendered instance) dilated by the 5-px
+    ellipse, and the stub's reply, resized back with PIL's LANCZOS and
+    flipped to BGR, in the cloud as the colours of the points that pass
+    appended. Returns the launches."""
+    import base64
+    import urllib.parse
+    import cv2
+    from PIL import Image
+    from cartoonsegmentation_torch.config import build_kenburns_cfg
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    path = os.path.join(root, 'configs', '3dkenburns_sam.yaml')
+    cfg = build_kenburns_cfg(path)
+    port = urllib.parse.urlparse(cfg.sd_img2img_url).port
+    try:
+        srv, url, calls = stub_sd_server(port)
+    except OSError as e:
+        srv, url, calls = stub_sd_server()
+        print(f'[ldm] port {port} is taken ({e}): the stub listens at {url}',
+              flush=True)
+    if url != cfg.sd_img2img_url:
+        cfg = cfg.replace(sd_img2img_url=url)
+    print(f'[ldm] {path}: detector {cfg.detector}, inpaint_type '
+          f'{cfg.inpaint_type!r}, ldm_inpaint_size {cfg.ldm_inpaint_size}, '
+          f'stub at {cfg.sd_img2img_url}', flush=True)
+    pipe = KenBurnsPipeline(cfg, seed=seed, device='cuda')
+    pipe.ensure_detector()
+    pipe._detector.box_detector.model = copy.deepcopy(det_net)
+    pipe._detector.sam.model = sam_net
+    seen = []
+    host_fill = pipe._host_fill
+
+    def recorded(out):
+        filled = host_fill(out)
+        seen.append((out['existing'][..., 0].cpu().numpy(),
+                     out['segmasks'][..., 0].cpu().numpy(),
+                     filled.cpu().numpy()))
+        return filled
+    pipe._host_fill = recorded
+    try:
+        launches = run_clip(pipe, img, 'ldm')
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    require_launches('ldm', launches,
+                     ('splat', 'coverage', 'discfill', 'median5', 'laplacian',
+                      'nms', 'maskhead', 'epilogue', 'compact', 'samattn'))
+    h, w = img.shape[:2]
+    res = cfg.ldm_inpaint_size or cfg.max_size
+    want = (res, int((w / h * res) // 32 * 32)) if h <= w else \
+        (int((h / w * res) // 32 * 32), res)
+    if len(calls) != 2 or len(seen) != 2:
+        fail(f'ldm: {len(calls)} requests and {len(seen)} fills, expected '
+             f'2 (one a pass)')
+    el = cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (11, 11))
+    cloud = pipe.last_state.cloud
+    colors = cloud.colors[:int(cloud.count)].cpu().numpy()
+    start = h * w
+    for i, (call, reply, (existing, seg, filled)) in enumerate(
+            zip(calls, srv.replies, seen)):
+        size = (call['height'], call['width'])
+        if size != want:
+            fail(f'ldm: pass {i} asked for {size}, the /32 rule gives {want}')
+        hole = existing == 0
+        mask = ((hole | (seg > 0)) * 255).astype(np.uint8)
+        sent = cv2.imdecode(np.frombuffer(base64.b64decode(call['mask']),
+                                          np.uint8), cv2.IMREAD_UNCHANGED)
+        if not np.array_equal(sent, cv2.dilate(mask, el)):
+            fail(f'ldm: pass {i} sent a mask other than the dilated holes')
+        rgb = cv2.imdecode(np.frombuffer(base64.b64decode(reply[0]),
+                                         np.uint8), cv2.IMREAD_COLOR)
+        rgb = np.ascontiguousarray(rgb[..., ::-1])
+        back = np.array(Image.fromarray(rgb).resize(
+            (w, h), resample=Image.Resampling.LANCZOS))[..., ::-1]
+        if not np.array_equal(filled, back.astype(np.float32) / 255.0):
+            fail(f'ldm: pass {i}\'s fill is not the stub\'s reply')
+        n = int(hole.sum())
+        if not np.array_equal(colors[start:start + n],
+                              filled.reshape(-1, 3)[hole.reshape(-1)]):
+            fail(f'ldm: pass {i}\'s appended colours are not the reply\'s')
+        print(f'[ldm] pass {i}: {size[1]}x{size[0]} request, hole '
+              f'{hole.mean():.4f} and instances {(seg > 0).mean():.4f} of '
+              f'the frame, the sent mask {(sent > 0).mean():.4f} (dilated), '
+              f'{n} points of the reply appended', flush=True)
+        start += n
+    check_instances(pipe, 'ldm')
+    return launches
+
+
+def cli_phase(root: str, seed: int, pipe) -> None:
+    """``python -m cartoonsegmentation_torch.run_kenburns --verbose
+    --trace-dir DIR --no-detector`` (the shipped YAML) on a 288x512
+    image in a subprocess: the stage images written, the trace holding
+    CUDA kernel events. Then ``stream_video`` of 9 frames rendered on
+    the card by ``pipe`` (its last clip): through BGR chunks its frames
+    are the frames and its clip decodes as ``write_video``'s of them;
+    through I420 its frames are their I420 round trip on the CPU."""
+    import cv2
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline.kenburns import (stream_video,
+                                                             write_video)
+    from cartoonsegmentation_torch.utils.image import (bgr_to_i420,
+                                                       i420_to_bgr_host)
+    from cartoonsegmentation_torch.utils.profiling import trace_events
+    tmp = tempfile.mkdtemp(prefix='cli_', dir=str(_cuda.BUILD_DIR))
+    try:
+        src = os.path.join(tmp, 'pic.png')
+        cv2.imwrite(src, make_image(seed, 288, 512))
+        out, tdir = os.path.join(tmp, 'out'), os.path.join(tmp, 'trace')
+        cmd = [sys.executable, '-m', 'cartoonsegmentation_torch.run_kenburns',
+               '--input-img', src, '--save-dir', out, '--no-detector',
+               '--verbose', '--trace-dir', tdir, '--seed', str(seed)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        tail = '\n'.join(proc.stdout.strip().splitlines()[-3:])
+        print(f'[cli] {" ".join(cmd[1:4])} ... exit {proc.returncode} in '
+              f'{wall:.1f} s:\n{tail}', flush=True)
+        if proc.returncode != 0:
+            fail(f'cli: run_kenburns exited {proc.returncode}: '
+                 f'{proc.stderr[-2000:]}')
+        stages = sorted(f[len('tmp_stage_'):-len('_pic.png')]
+                        for f in os.listdir(out) if f.startswith('tmp_stage_'))
+        plain = [s for s in stages if not s.startswith('inpainted_')]
+        print(f'[cli] stage images: {stages}', flush=True)
+        if plain != ['depth_adjusted', 'depth_coarse', 'depth_final',
+                     'input'] or len(stages) != len(plain) + 2:
+            fail(f'cli: --verbose wrote the stages {stages}')
+        kernels, other = trace_events(os.path.join(tdir, 'trace.json'))
+        print(f'[cli] trace: {kernels} CUDA kernel events, {other} other '
+              f'events ({os.path.getsize(os.path.join(tdir, "trace.json"))} '
+              f'bytes)', flush=True)
+        if kernels == 0:
+            fail('cli: the --trace-dir trace holds no CUDA kernel event')
+        state, (obj_from, obj_to) = pipe.last_state, pipe.last_boxes
+        frames = pipe.render_frames(state, obj_from, obj_to,
+                                    np.linspace(0.0, 1.0, 9),
+                                    return_device=True)
+        host = frames.cpu().numpy()
+        got = stream_video(frames, os.path.join(tmp, 'a.mp4'), yuv420=False)
+        ref = write_video(host, os.path.join(tmp, 'b.mp4'))
+        same_clip = all(np.array_equal(a, b) for a, b in zip(
+            decode_video(os.path.join(tmp, 'a.mp4')), decode_video(ref)))
+        n = video_frames(os.path.join(tmp, 'a.mp4'), *host.shape[1:3])
+        got_i420 = stream_video(frames, os.path.join(tmp, 'c.mp4'))
+        want_i420 = i420_to_bgr_host(bgr_to_i420(torch.from_numpy(host))
+                                     .numpy())
+        print(f'[cli] stream_video of {len(host)} frames on the card: BGR '
+              f'frames equal {np.array_equal(got, host)}, the clip equal to '
+              f'write_video\'s {same_clip} ({n} frames); I420 frames equal '
+              f'the CPU round trip {np.array_equal(got_i420, want_i420)}',
+              flush=True)
+        if not (np.array_equal(got, host) and same_clip and n == 16
+                and np.array_equal(got_i420, want_i420)):
+            fail('cli: stream_video differs from write_video')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
     ap.add_argument('--seed', type=int, default=0)
@@ -3238,6 +3687,11 @@ def main() -> None:
     profile_frame_loop(pipe, state, obj_from, obj_to)
     del pipe, state
 
+    # 7b. the options clip: the animeseg refine, the 3D-Ken-Burns depth
+    # with its Refine net, PatchMatch inpainting; each new net card
+    # against CPU first --------------------------------------------------
+    launches_opt, opt = options_phase(det_net, img, args.seed)
+
     # 8. the SAM path: 3dkenburns_sam.yaml, AnimeInsSeg boxes re-masked
     # by SAM ViT-B ------------------------------------------------------
     sp = KenBurnsPipeline(sam_config(root), seed=args.seed, device='cuda')
@@ -3258,7 +3712,12 @@ def main() -> None:
     # 9. SAM in f32 card against CPU; the segmentation API ---------------
     compare_sam(img, sam_net, sp._detector.box_detector)
     segment_api(sp._detector, img)
-    del sp, sam_net
+    del sp
+
+    # 9b. 3dkenburns_sam.yaml as shipped: the sd-webui 'ldm' inpainting
+    # against a stub server ------------------------------------------------
+    launches_ldm = ldm_phase(root, det_net, sam_net, img, args.seed)
+    del sam_net
 
     # 10. the Mask R-CNN path with the exact fill --------------------------
     mp = KenBurnsPipeline(KenBurnsConfig(detector='maskrcnn',
@@ -3345,6 +3804,10 @@ def main() -> None:
 
     # 16. the detector-free clip at a frame size I420 does not fit --------
     launches_odd = odd_clip_phase(args.seed)
+
+    # 16b. the CLI with --verbose and --trace-dir; stream_video ----------
+    cli_phase(root, args.seed, opt)
+    del opt
 
     # 17. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
@@ -3434,7 +3897,8 @@ def main() -> None:
     paths = {'detector-free': launches_free, 'main': launches,
              'sam': launches_sam, 'maskrcnn': launches_mr,
              'crf': launches_crf, 'tagger': launches_tag,
-             'style': launches_style, 'clip 683x1024': launches_odd}
+             'style': launches_style, 'clip 683x1024': launches_odd,
+             'options': launches_opt, 'ldm': launches_ldm}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,

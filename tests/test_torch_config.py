@@ -85,14 +85,11 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
 
 
 @pytest.mark.parametrize('kw', [
-    {'detector': 'animeinsseg', 'refine_method': 'animeseg'},
-    # the SAM detector runs; 3dkenburns_sam.yaml's sd-webui inpaint
-    # does not yet
-    pytest.param({'detector': 'sam', 'inpaint_type': 'ldm'},
-                 id='detector=sam'),
     {'detector': 'none', 'depth_est': 'zoe'},
-    {'detector': 'none', 'default_depth_refine': True},
-    {'detector': 'none', 'inpaint_type': 'patchmatch'},
+    {'detector': 'none', 'depth_est': 'zoe_nk'},
+    {'detector': 'none', 'depth_est': 'leres_boost'},
+    {'detector': 'none', 'depth_est': 'marigold'},
+    {'detector': 'none', 'inpaint_type': 'ldm_native'},
 ], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match='not ported'):

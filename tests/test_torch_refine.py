@@ -125,8 +125,14 @@ def test_isnet_refiner_chunk_independent(isnet, rng):
 
 
 def test_make_refiner_names():
+    """'none', the ISNet refine, the animeseg refine (its names against
+    the JAX package's: tests/test_torch_refiners.py) and an unknown
+    name."""
+    from cartoonsegmentation_torch.pipeline.refine import AnimeSegRefiner
     assert make_refiner('none', device='cpu') is None
     assert isinstance(make_refiner('refinenet_isnet', 64, device='cpu'),
                       ISNetRefiner)
-    with pytest.raises(NotImplementedError):
-        make_refiner('animeseg', device='cpu')
+    assert isinstance(make_refiner('animeseg', device='cpu'),
+                      AnimeSegRefiner)
+    with pytest.raises(ValueError):
+        make_refiner('nope', device='cpu')

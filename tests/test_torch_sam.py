@@ -277,10 +277,10 @@ def test_sam_detector_vs_jax(models, rng):
 
 
 def test_pipeline_sam_wiring():
-    """configs/3dkenburns_sam.yaml: its ldm inpainting is not ported
-    and is named; with inpaint_type 'default' the pipeline builds a
-    SamDetector over an AnimeInsSeg without refine, at capacity
-    max_instances, and routes checkpoints to it."""
+    """configs/3dkenburns_sam.yaml as shipped (its sd-webui 'ldm'
+    inpainting runs; 'ldm_native' is not ported and is named): the
+    pipeline builds a SamDetector over an AnimeInsSeg without refine, at
+    capacity max_instances, and routes checkpoints to it."""
     from pathlib import Path
     from cartoonsegmentation_torch.config import build_kenburns_cfg
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
@@ -288,11 +288,11 @@ def test_pipeline_sam_wiring():
     path = Path(__file__).resolve().parent.parent / 'configs' / \
         '3dkenburns_sam.yaml'
     cfg = build_kenburns_cfg(str(path))
-    assert cfg.detector == 'sam'
+    assert (cfg.detector, cfg.inpaint_type) == ('sam', 'ldm')
     with pytest.raises(NotImplementedError, match='inpaint_type'):
-        KenBurnsPipeline(cfg, device='cpu')
-    pipe = KenBurnsPipeline(cfg.replace(inpaint_type='default'),
-                            device='cpu')
+        KenBurnsPipeline(cfg.replace(inpaint_type='ldm_native'),
+                         device='cpu')
+    pipe = KenBurnsPipeline(cfg, device='cpu')
     pipe.ensure_detector()
     det = pipe._detector
     assert isinstance(det, tpsam.SamDetector)
