@@ -2,18 +2,18 @@
 depth tool; port of the JAX package's ``scripts/estimate_depth.py``).
 
   python -m cartoonsegmentation_torch.estimate_depth --in photo.png \
-      --out depth.npy [--depth-est default|leres]
+      --out depth.npy [--depth-est default|leres|leres_boost|zoe|zoe_nk]
 
 For 'default' the reference chain (depthestim.py:60-78): the disparity
 net at its grid, Refine guided by the image resized (no antialias) to 4x
 that grid, the disparity resized to the image and scaled by
 max(H, W) / 256, depth = focal · baseline / (disparity + 1e-7) with
-focal = max(H, W) / 2 and baseline 40. For 'leres' the pipeline's
-conversion: the disparity normalised to the baseline, depth = focal ·
-baseline / (disparity + 1e-5). <out> gets the float32 depth (.npy) and
-the sibling .png the disparity / baseline · 255 as uint8. The other
-estimators of the JAX tool (leres_boost, zoe, zoe_nk, marigold) are not
-ported and raise NotImplementedError.
+focal = max(H, W) / 2 and baseline 40. For 'leres', 'leres_boost',
+'zoe' and 'zoe_nk' the pipeline's conversion: the disparity normalised
+to the baseline, depth = focal · baseline / (disparity + 1e-5).
+``--zoe-ckpt`` loads ZoeD_M12_N.pt or ZoeD_M12_NK.pt. <out> gets the
+float32 depth (.npy) and the sibling .png the disparity / baseline · 255
+as uint8. 'marigold' is not ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -75,6 +75,7 @@ def main(argv=None) -> None:
     ap.add_argument('--refine-ckpt', default=None)
     ap.add_argument('--vgg-ckpt', default=None)
     ap.add_argument('--leres-ckpt', default=None)
+    ap.add_argument('--zoe-ckpt', default=None)
     ap.add_argument('--device', default=None,
                     help="torch device (default: cuda; 'cpu' runs on the "
                          'CPU)')
@@ -96,6 +97,8 @@ def main(argv=None) -> None:
                                     vgg=args.vgg_ckpt)
     if args.leres_ckpt:
         pipe.load_leres_checkpoint(args.leres_ckpt)
+    if args.zoe_ckpt:
+        pipe.load_zoe_checkpoint(args.zoe_ckpt)
 
     img = cv2.imread(args.input, cv2.IMREAD_COLOR)
     if img is None:

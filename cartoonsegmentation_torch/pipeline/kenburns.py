@@ -23,9 +23,12 @@ grid (the instance adjustment at image resolution and back), and
 ``default_depth_refine`` its Refine net up to image resolution.
 ``inpaint_type`` 'patchmatch' (the host C++ PatchMatch) and 'ldm' (a
 stable-diffusion-webui server) fill each pass's image on the host
-before its holes join the cloud. Still refused with NotImplementedError:
-``depth_est`` 'zoe', 'zoe_nk', 'leres_boost' and 'marigold', and
-``inpaint_type: ldm_native``.
+before its holes join the cloud. ``depth_est`` 'zoe' and 'zoe_nk' run
+ZoeDepth (BEiT-L DPT, N or the NK router) with its flip average at the
+image fitted into 672, 'leres_boost' LeReS boosted by the pix2pix merge
+over gradient-dense patches (``pipeline/boost.py``). Still refused with
+NotImplementedError: ``depth_est: marigold`` and ``inpaint_type:
+ldm_native``.
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -54,6 +57,7 @@ from ..device import resolve_device, resolve_dtype
 from ..instances import Instances
 from ..models.kenburns import DisparityEstimator, Inpaint, Refine
 from ..models.leres import LeReS, _normalize_leres_keys, leres_postprocess
+from ..models.pix2pix4depth import Pix2Pix4Depth
 from ..ops.bokeh import bokeh_blur
 from ..ops.camera import autozoom, compute_shift, depth_range
 from ..ops import discfill, discfill3
@@ -73,10 +77,21 @@ LOGGER = logging.getLogger('cartoonsegmentation_torch')
 
 # the depth estimators and inpaint types of the JAX package that the port
 # does not run yet
-UNPORTED_DEPTH = ('zoe', 'zoe_nk', 'leres_boost', 'marigold')
+UNPORTED_DEPTH = ('marigold',)
 UNPORTED_INPAINT = ('ldm_native',)
 _NETS = {'inpaint': Inpaint, 'leres': LeReS,
-         'disparity': DisparityEstimator, 'refine': Refine}
+         'disparity': DisparityEstimator, 'refine': Refine,
+         'p2p': Pix2Pix4Depth}
+
+
+def _load_torch_ckpt(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's tensors by name (its 'state_dict' entry
+    where it has one), as the JAX package's ``load_torch_ckpt`` reads
+    it."""
+    sd = torch.load(path, map_location='cpu', weights_only=False)
+    if isinstance(sd, dict) and 'state_dict' in sd:
+        sd = sd['state_dict']
+    return {k: v for k, v in sd.items() if hasattr(v, 'shape')}
 
 
 def _check_supported(cfg: KenBurnsConfig) -> None:
@@ -150,6 +165,15 @@ class KenBurnsPipeline:
         self.leres_net: Optional[LeReS] = None
         self.disparity_net: Optional[DisparityEstimator] = None
         self.refine_net: Optional[Refine] = None
+        # leres_boost's merge net; ZoeDepth or ZoeDepthNK at the grid of
+        # the last image (made again for another grid, and loaded again
+        # from the checkpoint's path where one was loaded)
+        self.p2p_net: Optional[Pix2Pix4Depth] = None
+        self.zoe_net = None
+        self._zoe_ckpt_path: Optional[str] = None
+        self._zoe_ckpt_is_nk = False
+        # the last leres_boost run's LeReSBoost (its patches, R_x)
+        self.last_boost = None
         # an AnimeInsSeg, any img → Instances callable, or None; run()
         # installs the configured one first (ensure_detector)
         self._detector = None
@@ -171,10 +195,12 @@ class KenBurnsPipeline:
         """cfg.dtype: 'auto' → bf16 on CUDA, f32 on the CPU."""
         return resolve_dtype(self.cfg.dtype, self.device)
 
-    def _net(self, which: str) -> torch.nn.Module:
+    def _net(self, which: str,
+             dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
         """The named net on the device: made from the seed at first use,
-        in cfg.dtype's conv dtype (Inpaint, LeReS) or f32 (the disparity
-        estimator and Refine, as in the JAX package)."""
+        in ``dtype`` if given, else cfg.dtype's conv dtype (Inpaint,
+        LeReS) or f32 (the disparity estimator, Refine and the pix2pix
+        merge net, as in the JAX package)."""
         attr = f'{which}_net'
         net = getattr(self, attr)
         if net is None:
@@ -184,8 +210,9 @@ class KenBurnsPipeline:
                 torch.manual_seed(self._seed)
                 net = _NETS[which]()
             setattr(self, attr, net)
-        dtype = self.conv_dtype if which in ('inpaint', 'leres') \
-            else torch.float32
+        if dtype is None:
+            dtype = self.conv_dtype if which in ('inpaint', 'leres') \
+                else torch.float32
         return net.to(self.device, dtype).eval()
 
     # -- weights -------------------------------------------------------
@@ -228,6 +255,35 @@ class KenBurnsPipeline:
         net = LeReS()
         net.load_state_dict(sd)
         self.leres_net = net
+
+    def load_pix2pix_checkpoint(self, path: str) -> None:
+        """leres_boost's merge net: latest_net_G.pth."""
+        sd = _load_torch_ckpt(path)
+        net = Pix2Pix4Depth()
+        net.load_state_dict({k[len('module.'):] if k.startswith('module.')
+                             else k: v for k, v in sd.items()})
+        self.p2p_net = net
+
+    def load_zoe_checkpoint(self, path: str) -> None:
+        """ZoeD_M12_N.pt or ZoeD_M12_NK.pt; the variant is the state
+        dict's (NK carries the router's ``patch_transformer.*`` keys).
+        The path is kept: an image of another grid size makes the net
+        again and loads the checkpoint into it."""
+        self._zoe_ckpt_path = path
+        self._load_zoe(path)
+
+    def _load_zoe(self, path: str) -> None:
+        from ..models.zoedepth import (ZoeDepth, ZoeDepthNK,
+                                       load_zoe_state_dict)
+        sd = _load_torch_ckpt(path)
+        is_nk = any(k.startswith('patch_transformer.') for k in sd)
+        self._zoe_ckpt_is_nk = is_nk
+        cls = ZoeDepthNK if is_nk else ZoeDepth
+        if not isinstance(self.zoe_net, cls):
+            size = self.zoe_net.img_size if self.zoe_net is not None \
+                else (672, 672)
+            self.zoe_net = cls(img_size=size)
+        load_zoe_state_dict(self.zoe_net, sd)
 
     def load_detector_checkpoints(self, det: Optional[str] = None,
                                   sam: Optional[str] = None) -> None:
@@ -333,15 +389,20 @@ class KenBurnsPipeline:
         return state
 
     def _estimate_disparity(self, image: torch.Tensor) -> torch.Tensor:
-        """The configured estimator's disparity: 'leres' at image
-        resolution, 'default' at its coarse grid. Parity: the JAX
-        package's ``_estimate_disparity`` (an unknown name runs LeReS
-        with a warning)."""
-        if self.cfg.depth_est == 'default':
+        """The configured estimator's disparity: 'default' at its coarse
+        grid, the others ('leres', 'leres_boost', 'zoe', 'zoe_nk') at
+        image resolution. Parity: the JAX package's
+        ``_estimate_disparity`` (an unknown name runs LeReS with a
+        warning)."""
+        est = self.cfg.depth_est
+        if est == 'default':
             return self._est_default(image)
-        if self.cfg.depth_est != 'leres':
-            LOGGER.warning('unknown depth_est=%s; using leres',
-                           self.cfg.depth_est)
+        if est in ('zoe', 'zoe_nk'):
+            return self._est_zoe(image, nk=est == 'zoe_nk')
+        if est == 'leres_boost':
+            return self._est_leres_boost(image)
+        if est != 'leres':
+            LOGGER.warning('unknown depth_est=%s; using leres', est)
         return self._est_leres(image)
 
     @torch.inference_mode()
@@ -407,6 +468,72 @@ class KenBurnsPipeline:
         # zeros → min positive (kenburns_effect.py:577)
         pos_min = torch.where(disp > 0, disp, float('inf')).min()
         return torch.where(disp == 0, pos_min, disp)[..., None]
+
+    def _est_leres_boost(self, image: torch.Tensor) -> torch.Tensor:
+        """BoostingMonoDepth (``pipeline/boost.py``) with LeReS and the
+        pix2pix merge net in f32 on the pipeline's device, on the image's
+        uint8 bytes; then apply_leres's post-processing at image
+        resolution. Parity: the JAX package's ``_est_leres_boost``,
+        depth_modules/leres/__init__.py:112-141."""
+        from .boost import LeReSBoost
+        f32 = torch.float32
+        boost = LeReSBoost(self._net('leres', f32), self._net('p2p', f32))
+        img_u8 = (image.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        depth = torch.from_numpy(boost(img_u8)).to(self.device)
+        self.last_boost = boost
+        disp = leres_postprocess(depth)
+        # zeros → min positive, where one is positive
+        pos_min = torch.where(disp > 0, disp, float('inf')).min()
+        return torch.where((disp == 0) & torch.isfinite(pos_min), pos_min,
+                           disp)[..., None]
+
+    def _zoe(self, hw: Tuple[int, int], nk: bool) -> torch.nn.Module:
+        """ZoeDepth (or NK) at the grid ``hw`` on the device, in the conv
+        dtype: the installed net if it fits, else one made from the seed
+        and loaded from the checkpoint's path where one was loaded
+        (whose variant then wins over ``nk``)."""
+        from ..models.zoedepth import ZoeDepth, ZoeDepthNK
+        ckpt = self._zoe_ckpt_path
+        want_nk = self._zoe_ckpt_is_nk if ckpt is not None else nk
+        if ckpt is not None and want_nk != nk:
+            LOGGER.warning('depth_est asks for ZoeDepth %s but the loaded '
+                           'checkpoint is %s: using the checkpoint\'s',
+                           'NK' if nk else 'N', 'NK' if want_nk else 'N')
+        cls = ZoeDepthNK if want_nk else ZoeDepth
+        net = self.zoe_net
+        if not isinstance(net, cls) or net.img_size != tuple(hw):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(self._seed)
+                self.zoe_net = cls(img_size=tuple(hw))
+            if ckpt is not None:
+                LOGGER.info('loading the zoe checkpoint again for %s', hw)
+                self._load_zoe(ckpt)
+            else:
+                LOGGER.warning('zoedepth: RANDOM init (no checkpoint '
+                               'loaded)')
+        return self.zoe_net.to(self.device, self.conv_dtype).eval()
+
+    @torch.inference_mode()
+    def _est_zoe(self, image: torch.Tensor, nk: bool = False
+                 ) -> torch.Tensor:
+        """ZoeDepth's metric depth at the image fitted into 672 (/32),
+        flip-averaged, as disparity focal · baseline / (depth + 1e-5)
+        (NaN and inf to 0), resized to the image. The net runs in the
+        conv dtype (bf16 on the card under 'auto'); the resizes and the
+        conversion in f32. Parity: the JAX package's ``_est_zoe``,
+        kenburns_effect.py:812-818."""
+        from ..models.zoedepth import infer_zoe
+        cfg = self.cfg
+        H, W = image.shape[:2]
+        zh, zw = scaledown_size(H, W, 672, divisor=32)
+        net = self._zoe((zh, zw), nk)
+        rgb = resize_bilinear(image.flip(-1), zh, zw)      # BGR → RGB
+        depth = infer_zoe(net, rgb.permute(2, 0, 1)[None],
+                          dtype=self.conv_dtype)[0, 0]
+        depth = depth.clamp_min(1e-5)
+        disp = true_div(cfg.focal * cfg.baseline, depth + 1e-5)
+        disp = torch.nan_to_num(disp, nan=0.0, posinf=0.0, neginf=0.0)
+        return resize_bilinear_aa(disp[..., None], H, W)
 
     def _refine_crf(self, img: np.ndarray, disparity: torch.Tensor,
                     instances: Instances) -> torch.Tensor:

@@ -176,6 +176,22 @@ def resize_bilinear_ac(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return _interp(x, h, w, align_corners=True)
 
 
+def resize_cubic_nchw(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(..., 'cubic')`` of an (N, C, H, W) tensor: Keys'
+    cubic with a = -0.5 at half-pixel centres, widened on minification
+    with its weights normalised (antialias). F.interpolate's antialiased
+    bicubic is that kernel (its plain bicubic is a = -0.75); the tests
+    hold it against JAX."""
+    return F.interpolate(x, size=(h, w), mode='bicubic', align_corners=False,
+                         antialias=True)
+
+
+def resize_cubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``resize_cubic_nchw`` of a channel-last (..., H, W, C) tensor."""
+    y, lead = _as_nchw(x)
+    return _from_nchw(resize_cubic_nchw(y, h, w), lead).contiguous()
+
+
 def crop_center_resize(frame: torch.Tensor, crop_h: int, crop_w: int,
                        out_h: int, out_w: int) -> torch.Tensor:
     """Centre crop (crop_h, crop_w) then bilinear resize to (out_h,

@@ -82,7 +82,18 @@
    disparity net and Refine at the clip's sizes in f32 card against
    CPU (within 1e-4 of the output's range): the launches, the
    instances, the frames against the CPU, both PatchMatch passes' host
-   seconds, the instances the refine changed;
+   seconds, the instances the refine changed; then the depth
+   estimators (``zoe_boost_phase``): ZoeDepth and ZoeDepthNK at full
+   width on the clip's 384x672 grid in f32 card against CPU (the
+   metric depth within ``ZOE_TOL`` of its range, the NK router's vote
+   equal; each net's seed bins and log-binomial head set so that the
+   depth spans its bins, ``edged_zoe``), the merge net at 1024 and
+   LeReSBoost on a 432x768 image (``boost_image``: the same patches,
+   the boosted depth within ``BOOST_TOL``), then the shipped default
+   with ``depth_est`` 'zoe', 'zoe_nk' and 'leres_boost' at 576x1024,
+   75 frames each: K1-K10 launched, the instances, the disparity's
+   range and the frames' hole share, the boost's steps in seconds,
+   the frames against the CPU;
 8. runs the SAM path, ``configs/3dkenburns_sam.yaml`` with
    ``inpaint_type: default`` (AnimeInsSeg's boxes re-masked by SAM
    ViT-B at 1024, DoF off), with the same edged detector and a seeded
@@ -3415,6 +3426,293 @@ def options_phase(det_net, img: np.ndarray, seed: int) -> tuple:
     return launches, pipe
 
 
+# the depth estimators: ZoeDepth N and NK at the grid of a 576x1024 image
+# fitted into 672, and LeReS boosting
+ZOE_TOL = 1e-4          # metric depth, card vs CPU, share of its range
+MERGE_TOL = 1e-4        # the merge net's [0, 1] output, card vs CPU
+BOOST_TOL = 1e-3        # the boosted [0, 1] depth, card vs CPU
+
+
+def zoe_grid(img: np.ndarray) -> tuple:
+    from cartoonsegmentation_torch.utils.image import scaledown_size
+    return scaledown_size(*img.shape[:2], 672, divisor=32)
+
+
+def edged_zoe(seed: int, img: np.ndarray, nk: bool):
+    """ZoeDepth (or NK) at the image's grid as ``KenBurnsPipeline(seed=
+    seed)`` makes it (random from the seed), with two last convs of each
+    head set. A random net's seed bins all sit near softplus(0) = 0.69
+    (the metric depth spans ~1%), its p near 0.5 and its temperature
+    high. Here the seed bin regressor's last conv puts the bins at 0.5
+    to 3.0, in order, everywhere (its weights 0, its biases softplus's
+    inverse of those); and in the conditional log-binomial's last conv,
+    set on a probe of ``img`` on the card, the p logit (channel 0 against
+    channel 1, their rows opposite) is the hidden feature that varies
+    most over the probe, standardised to std 2, and the temperature is
+    pinned near its 0.0212 floor, so each pixel's weight sits near the
+    bin p · (K - 1) and the depth spans the bins. (A random row of the
+    conv varies little over the image: standardising it amplified the
+    features' f32 noise, ~1e-5 of their spread card against CPU, to
+    8e-5 of the depth's range.) Prints the disparity's range; returns
+    the net, f32 on the CPU."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.models.zoedepth import ZoeDepth, ZoeDepthNK
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = (ZoeDepthNK if nk else ZoeDepth)(img_size=zoe_grid(img))
+    net = net.eval().cuda()
+    est = 'zoe_nk' if nk else 'zoe'
+    pipe = KenBurnsPipeline(KenBurnsConfig(detector='none', depth_est=est,
+                                           dtype='float32'), seed=seed,
+                            device='cuda')
+    pipe.zoe_net = net
+    image = torch.from_numpy(img.astype(np.float32) / 255.0).cuda()
+    heads = list(net.conditional_log_binomial.values()) if nk \
+        else [net.conditional_log_binomial]
+    seeds = list(net.seed_bin_regressors.values()) if nk \
+        else [net.seed_bin_regressor]
+    with torch.no_grad():
+        for reg in seeds:
+            conv = reg._net[2]
+            bins = torch.linspace(0.5, 3.0, conv.out_channels,
+                                  dtype=torch.float64)
+            conv.weight.zero_()
+            conv.bias.copy_(torch.log(torch.expm1(bins)))
+    for clb in heads:
+        conv = clb.mlp[2]
+        g = _probe(clb.mlp[1], lambda: pipe._estimate_disparity(image))
+        with torch.inference_mode():
+            spread = g[0].flatten(1).std(1)
+            c = int(spread.argmax())
+            mu, sd = float(g[0, c].mean()), float(spread[c])
+        with torch.no_grad():
+            conv.weight.zero_()
+            conv.weight[0, c] = 2.0 / sd
+            conv.weight[1, c] = -2.0 / sd
+            conv.bias.copy_(torch.tensor([-2.0 * mu / sd, 2.0 * mu / sd,
+                                          -10.0, 5.0]))
+    d = pipe._estimate_disparity(image)
+    print(f'[zoe] edged_zoe ({est} at {net.img_size}): disparity '
+          f'{float(d.min()):.3f}..{float(d.max()):.3f}, std / mean '
+          f'{float(d.std() / d.mean()):.4f}', flush=True)
+    return net.cpu()
+
+
+def zoe_input(img: np.ndarray) -> torch.Tensor:
+    """The image as ZoeDepth's input at its grid: RGB, resized with the
+    cubic of ``infer_zoe`` (1, 3, zh, zw), on the CPU."""
+    from cartoonsegmentation_torch.utils.image import resize_cubic_nchw
+    rgb = torch.from_numpy(img[..., ::-1].astype(np.float32) / 255.0)
+    return resize_cubic_nchw(rgb.permute(2, 0, 1)[None], *zoe_grid(img))
+
+
+def compare_zoe_card_cpu(net, img: np.ndarray, tag: str) -> None:
+    """One forward of ZoeDepth (N or NK) at full width on the image's
+    grid, f32 on the card (TF32 off) against the CPU: the metric depth
+    within ZOE_TOL of its range; for NK the same vote. Else the run
+    fails."""
+    x = zoe_input(img)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = net(x)
+        tc = time.perf_counter() - t0
+        got = {k: v.cpu() for k, v in net.cuda()(x.cuda()).items()}
+    net.cpu()
+    md = want['metric_depth']
+    err = float((got['metric_depth'] - md).abs().max())
+    rng = float(md.max() - md.min())
+    line = (f'[zoe f32] {tag} at {tuple(x.shape[-2:])} card vs cpu ({tc:.1f} '
+            f's on the CPU): metric depth {float(md.min()):.4f}..'
+            f'{float(md.max()):.4f}, max |diff| {err:.3g}, tolerance '
+            f'{ZOE_TOL:g} x range = {ZOE_TOL * rng:.3g}')
+    if 'domain_logits' in want:
+        lw, lg = want['domain_logits'].sum(0), got['domain_logits'].sum(0)
+        kw, kg = bool(lw[1] > lw[0]), bool(lg[1] > lg[0])
+        line += (f'; router: {"kitti" if kw else "nyu"} on the CPU, '
+                 f'{"kitti" if kg else "nyu"} on the card (logit margin '
+                 f'{float(lw[1] - lw[0]):.4g}, max |diff| '
+                 f'{float((lg - lw).abs().max()):.3g})')
+        if kw != kg:
+            fail(f'zoe: {tag}\'s router voted otherwise on the card')
+    print(line, flush=True)
+    if not rng > 0 or not err <= ZOE_TOL * rng:
+        fail(f'zoe: {tag} on the card differs from the CPU by {err} '
+             f'(range {rng})')
+
+
+def boost_image(seed: int) -> np.ndarray:
+    """432x768: make_image with a band of seeded noise along its left
+    side, so that R_x (448 at seed 0) fits the image and a few patches
+    are dense enough (2 at seed 0), which keeps the CPU side short."""
+    img = make_image(seed, 432, 768)
+    rng = np.random.RandomState(seed + 1)
+    img[:, :160] = rng.randint(0, 256, (432, 160, 3), dtype=np.uint8)
+    return img
+
+
+def seeded(cls, seed: int, **kw):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return cls(**kw).eval()
+
+
+def compare_boost_card_cpu(seed: int) -> None:
+    """The merge net at 1024 and LeReSBoost on ``boost_image``, f32 on the
+    card against the CPU with the pipeline's seeded LeReS and merge net:
+    the merge within MERGE_TOL, the same patches, the boosted depth within
+    BOOST_TOL of its range. Else the run fails."""
+    from cartoonsegmentation_torch.models.leres import LeReS
+    from cartoonsegmentation_torch.models.pix2pix4depth import (
+        Pix2Pix4Depth, merge_depths)
+    from cartoonsegmentation_torch.pipeline.boost import LeReSBoost
+    leres, p2p = seeded(LeReS, seed), seeded(Pix2Pix4Depth, seed)
+    img = boost_image(seed)
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(64, 64, generator=g)
+    a = torch.nn.functional.interpolate(a[None, None], size=(1024, 1024),
+                                        mode='bicubic')[0, 0]
+    b = torch.from_numpy(np.ascontiguousarray(
+        img[:, :, 1].astype(np.float32) / 255.0))
+    b = torch.nn.functional.interpolate(b[None, None], size=(1024, 1024),
+                                        mode='bilinear')[0, 0]
+    with torch.no_grad():
+        want = merge_depths(p2p, a[None], b[None])
+        got = merge_depths(p2p.cuda(), a[None].cuda(), b[None].cuda()).cpu()
+    err = float((got - want).abs().max())
+    print(f'[boost f32] merge net at 1024 card vs cpu: output '
+          f'{float(want.min()):.4f}..{float(want.max()):.4f}, max |diff| '
+          f'{err:.3g} (tolerance {MERGE_TOL:g})', flush=True)
+    if not err <= MERGE_TOL:
+        fail(f'boost: the merge net on the card differs from the CPU by {err}')
+    runs = {}
+    for dev in ('cuda', 'cpu'):
+        bst = LeReSBoost(leres.to(dev), p2p.to(dev))
+        t0 = time.perf_counter()
+        out = bst(img)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        runs[dev] = (out, list(bst.last_rects), bst.last_whole_size,
+                     time.perf_counter() - t0)
+    (dk, rk, sk, tk), (dc, rc, sc, tc) = runs['cuda'], runs['cpu']
+    err = float(np.abs(dk - dc).max())
+    rng = float(dc.max() - dc.min())
+    print(f'[boost f32] LeReSBoost on {img.shape[0]}x{img.shape[1]}: R_x '
+          f'{sk} / {sc}, {len(rk)} / {len(rc)} patches (card / CPU), '
+          f'card {tk:.2f} s, cpu {tc:.2f} s; boosted depth '
+          f'{float(dc.min()):.4f}..{float(dc.max()):.4f}, max |diff| '
+          f'{err:.3g}, tolerance {BOOST_TOL:g} x range = {BOOST_TOL * rng:.3g}',
+          flush=True)
+    if rk != rc or sk != sc or not rk:
+        fail(f'boost: the card chose patches {rk} at R_x {sk}, the CPU {rc} '
+             f'at {sc}')
+    if not err <= BOOST_TOL * rng:
+        fail(f'boost: the boosted depth on the card differs from the CPU by '
+             f'{err}')
+
+
+class BoostTimes:
+    """Seconds in LeReSBoost's steps while the block runs, by name:
+    ``__call__`` (the whole boost), ``_double`` and ``_patches`` (the
+    nets; each ends in a copy to the host), ``calculateprocessingres``
+    and ``generatepatchs`` (the host's selection)."""
+
+    def __enter__(self):
+        from cartoonsegmentation_torch.pipeline import boost
+        self.spent = dict.fromkeys(('__call__', '_double', '_patches',
+                                    'calculateprocessingres',
+                                    'generatepatchs'), 0.0)
+        self.saved = []
+        for owner, name in ((boost.LeReSBoost, '__call__'),
+                            (boost.LeReSBoost, '_double'),
+                            (boost.LeReSBoost, '_patches'),
+                            (boost, 'calculateprocessingres'),
+                            (boost, 'generatepatchs')):
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(name, fn))
+        return self.spent
+
+    def _timed(self, name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.spent[name] += time.perf_counter() - t0
+        return run
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def depth_clip(det_net, isnet, img: np.ndarray, seed: int, est: str,
+               zoe=None) -> dict:
+    """The shipped default (the edged detector and refine) with
+    ``depth_est`` est at 576x1024, 75 frames: K1-K10 launched, the
+    instances, the disparity's range and the frames' hole share, the
+    frames against the CPU. Returns the launches."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline import boost
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    pipe = KenBurnsPipeline(KenBurnsConfig(depth_est=est), seed=seed,
+                            device='cuda')
+    pipe.ensure_detector()
+    pipe._detector.model = copy.deepcopy(det_net)
+    pipe._detector.refine.net = copy.deepcopy(isnet)
+    if zoe is not None:
+        pipe.zoe_net = copy.deepcopy(zoe)
+    with BoostTimes() as spent:
+        launches = run_clip(pipe, img, est)
+    require_launches(est, launches,
+                     [k for k in _cuda.KERNELS if k not in (
+                         'samattn', 'discfill_exact', 'roialign',
+                         'nms_large', 'kmeans', 'crf', 'swinattn',
+                         'pushpull', 'jitter')])
+    check_instances(pipe, est)
+    d = pipe.last_state.disparity
+    holes = fill_walks([x[1] for x in real_fill_inputs(pipe)])['hole_share']
+    extra = ''
+    if est == 'leres_boost':
+        bst = pipe.last_boost
+        host = spent['__call__'] - sum(v for k, v in spent.items()
+                                       if k != '__call__')
+        extra = (f'; R_x {bst.last_whole_size}, {len(bst.last_rects)} '
+                 f'patches; the boost {spent["__call__"]:.3f} s: R_x search '
+                 f'{spent["calculateprocessingres"]:.3f}, double estimate '
+                 f'{spent["_double"]:.3f}, patch selection '
+                 f'{spent["generatepatchs"]:.3f}, the patches\' nets '
+                 f'{spent["_patches"]:.3f} (batches of '
+                 f'{boost.PATCH_BATCH}), the '
+                 f'host\'s resizes, polyfits and blend {host:.3f}')
+    print(f'[{est}] disparity {float(d.min()):.3f}..{float(d.max()):.3f}, '
+          f'std / mean {float(d.std() / d.mean()):.4f}; {holes:.3%} of the '
+          f'frames\' pixels in holes before the fill{extra}', flush=True)
+    if holes <= 0.0:
+        fail(f'{est}: the frames have no holes: the fill did no work')
+    compare_frames(pipe, est)
+    return launches
+
+
+def zoe_boost_phase(det_net, isnet, img: np.ndarray, seed: int) -> dict:
+    """The depth estimators: ZoeDepth N and NK at full width and the
+    merge net and LeReSBoost card against CPU in f32, then the zoe,
+    zoe_nk and leres_boost clips. Returns their launches by name."""
+    from cartoonsegmentation_torch.device import resolve_device
+    resolve_device('cuda')              # TF32 off: the nets run in f32
+    zoe = {}
+    for nk in (False, True):
+        tag = 'ZoeDepthNK' if nk else 'ZoeDepth'
+        zoe[nk] = edged_zoe(seed, img, nk)
+        compare_zoe_card_cpu(zoe[nk], img, tag)
+    compare_boost_card_cpu(seed)
+    return {est: depth_clip(det_net, isnet, img, seed, est, z)
+            for est, z in (('zoe', zoe[False]), ('zoe_nk', zoe[True]),
+                           ('leres_boost', None))}
+
+
 def ldm_phase(root: str, det_net, sam_net, img: np.ndarray, seed: int
               ) -> dict:
     """configs/3dkenburns_sam.yaml as shipped (detector 'sam',
@@ -3692,6 +3990,10 @@ def main() -> None:
     # against CPU first --------------------------------------------------
     launches_opt, opt = options_phase(det_net, img, args.seed)
 
+    # 7c. the depth estimators ZoeDepth (N, NK) and LeReS boosting: the
+    # nets card against CPU, then a clip each ------------------------------
+    launches_depth = zoe_boost_phase(det_net, isnet, img, args.seed)
+
     # 8. the SAM path: 3dkenburns_sam.yaml, AnimeInsSeg boxes re-masked
     # by SAM ViT-B ------------------------------------------------------
     sp = KenBurnsPipeline(sam_config(root), seed=args.seed, device='cuda')
@@ -3898,7 +4200,8 @@ def main() -> None:
              'sam': launches_sam, 'maskrcnn': launches_mr,
              'crf': launches_crf, 'tagger': launches_tag,
              'style': launches_style, 'clip 683x1024': launches_odd,
-             'options': launches_opt, 'ldm': launches_ldm}
+             'options': launches_opt, 'ldm': launches_ldm,
+             **launches_depth}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,

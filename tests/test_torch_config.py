@@ -85,15 +85,55 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
 
 
 @pytest.mark.parametrize('kw', [
-    {'detector': 'none', 'depth_est': 'zoe'},
-    {'detector': 'none', 'depth_est': 'zoe_nk'},
-    {'detector': 'none', 'depth_est': 'leres_boost'},
     {'detector': 'none', 'depth_est': 'marigold'},
     {'detector': 'none', 'inpaint_type': 'ldm_native'},
 ], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match='not ported'):
         KenBurnsPipeline(tconfig.KenBurnsConfig(**kw), device='cpu')
+
+
+@pytest.mark.parametrize('kw', [
+    {'detector': 'none', 'depth_est': 'zoe'},
+    {'detector': 'none', 'depth_est': 'zoe_nk'},
+    {'detector': 'none', 'depth_est': 'leres_boost'},
+], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
+def test_ported_depth_estimators_run(kw, monkeypatch):
+    """The depth estimators this slice ports: the pipeline takes the
+    config, installs the estimator's nets (small ones here: ZoeDepth at
+    tests/test_torch_zoedepth.py's geometry for a 64x96 grid, a reduced
+    LeReS trunk and merge net with the boost's sizes cut) and returns a
+    finite disparity of the image's size."""
+    import numpy as np
+    from cartoonsegmentation_torch.models.leres import LeReS
+    from cartoonsegmentation_torch.models.pix2pix4depth import Pix2Pix4Depth
+    from cartoonsegmentation_torch.models.zoedepth import ZoeDepthNK
+    from cartoonsegmentation_torch.pipeline import boost
+    from test_torch_zoedepth import make_zoe
+    est = kw['depth_est']
+    pipe = KenBurnsPipeline(tconfig.KenBurnsConfig(dtype='float32', **kw),
+                            device='cpu')
+    torch.manual_seed(0)
+    if est == 'leres_boost':
+        for k, v in dict(RECEPTIVE_FIELD=64, PATCH_NETSIZE=128,
+                         PIX2PIX_SIZE=128, WHOLE_SIZE_THRESHOLD=400).items():
+            monkeypatch.setattr(boost, k, v)
+        pipe.leres_net = LeReS((1, 1, 1, 1))
+        pipe.p2p_net = Pix2Pix4Depth(num_downs=6, ngf=8)
+        h, w = 96, 128
+    else:
+        pipe.zoe_net = make_zoe(est == 'zoe_nk', (64, 96))
+        h, w = 40, 72
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([np.sin(xx / 5 + c) * np.cos(yy / 3) for c in range(3)],
+                   -1).astype(np.float32) * 0.4 + 0.5
+    disp = pipe._estimate_disparity(torch.from_numpy(img))
+    assert tuple(disp.shape) == (h, w, 1)
+    assert torch.isfinite(disp).all() and disp.max() > 0
+    if est == 'leres_boost':
+        assert pipe.last_boost.leres_net is pipe.leres_net
+    else:
+        assert isinstance(pipe.zoe_net, ZoeDepthNK) == (est == 'zoe_nk')
 
 
 def test_refine_crf_is_accepted():

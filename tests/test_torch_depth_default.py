@@ -195,8 +195,9 @@ def test_estimate_depth_cli(nets, jx, tmp_path, capsys, monkeypatch):
     """python -m cartoonsegmentation_torch.estimate_depth on the CPU:
     'default' writes the .npy depth and the .png preview at image size,
     equal to the JAX tool's chain on the same nets (the depth's
-    reciprocal, the disparity, within 1e-4 of its range); 'zoe' is not
-    ported."""
+    reciprocal, the disparity, within 1e-4 of its range); 'zoe' (a small
+    ZoeDepth installed for the image's 64x320 grid) writes a finite depth
+    map at image size; 'marigold' is not ported."""
     cv2 = pytest.importorskip('cv2')
     import importlib.util
     from pathlib import Path
@@ -230,8 +231,19 @@ def test_estimate_depth_cli(nets, jx, tmp_path, capsys, monkeypatch):
     _, want = jtool.depthestim(jp, _image())
     np.testing.assert_allclose(1.0 / depth, 1.0 / want, rtol=0,
                                atol=1e-4 * (1.0 / want).max())
+    from test_torch_zoedepth import make_zoe
+
+    def init_zoe(self, *a, **k):
+        init(self, *a, **k)
+        self.zoe_net = make_zoe(False, (64, 320))
+    monkeypatch.setattr(tkb.KenBurnsPipeline, '__init__', init_zoe)
+    estimate_depth.main(['--in', str(src), '--out', str(tmp_path / 'z.npy'),
+                         '--depth-est', 'zoe', '--device', 'cpu'])
+    zdepth = np.load(tmp_path / 'z.npy')
+    assert zdepth.shape == (H, W) and np.isfinite(zdepth).all()
+    assert cv2.imread(str(tmp_path / 'z.png')).shape[:2] == (H, W)
     with pytest.raises(NotImplementedError, match='not ported'):
-        estimate_depth.main(['--in', str(src), '--depth-est', 'zoe',
+        estimate_depth.main(['--in', str(src), '--depth-est', 'marigold',
                              '--device', 'cpu'])
 
 @pytest.fixture
