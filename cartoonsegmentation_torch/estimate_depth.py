@@ -2,18 +2,18 @@
 depth tool; port of the JAX package's ``scripts/estimate_depth.py``).
 
   python -m cartoonsegmentation_torch.estimate_depth --in photo.png \
-      --out depth.npy [--depth-est default|leres|leres_boost|zoe|zoe_nk]
+      --out depth.npy [--depth-est default|leres|leres_boost|zoe|zoe_nk|marigold]
 
 For 'default' the reference chain (depthestim.py:60-78): the disparity
 net at its grid, Refine guided by the image resized (no antialias) to 4x
 that grid, the disparity resized to the image and scaled by
 max(H, W) / 256, depth = focal · baseline / (disparity + 1e-7) with
 focal = max(H, W) / 2 and baseline 40. For 'leres', 'leres_boost',
-'zoe' and 'zoe_nk' the pipeline's conversion: the disparity normalised
-to the baseline, depth = focal · baseline / (disparity + 1e-5).
-``--zoe-ckpt`` loads ZoeD_M12_N.pt or ZoeD_M12_NK.pt. <out> gets the
-float32 depth (.npy) and the sibling .png the disparity / baseline · 255
-as uint8. 'marigold' is not ported and raises NotImplementedError.
+'zoe', 'zoe_nk' and 'marigold' the pipeline's conversion: the disparity
+normalised to the baseline, depth = focal · baseline / (disparity +
+1e-5). ``--zoe-ckpt`` loads ZoeD_M12_N.pt or ZoeD_M12_NK.pt. <out> gets
+the float32 depth (.npy) and the sibling .png the disparity / baseline ·
+255 as uint8.
 """
 from __future__ import annotations
 

@@ -3,11 +3,13 @@
 ``inpaint_from_flax``, ``disparity_from_flax``, ``refine_from_flax``,
 ``leres_from_flax``, ``rtmdet_from_flax``, ``isnet_from_flax``,
 ``u2net_from_flax``, ``isnet_gt_from_flax``, ``modnet_from_flax``,
-``sam_from_flax``, ``maskrcnn_from_flax`` and ``swinv2_from_flax`` turn
-a Flax tree (numpy arrays, or anything ``np.asarray`` takes) into a
-``state_dict`` of the port's ``Inpaint``, ``DisparityEstimator``,
-``Refine``, ``LeReS``, ``AnimeDetector``, ``ISNetDIS``, ``U2Net``,
-``ISNetGTEncoder``, ``MODNet``, ``SAM``, ``MaskRCNN`` and ``SwinV2``.
+``sam_from_flax``, ``maskrcnn_from_flax``, ``swinv2_from_flax``,
+``unet_from_flax`` and ``vae_from_flax`` turn a Flax tree (numpy
+arrays, or anything ``np.asarray`` takes) into a ``state_dict`` of the
+port's ``Inpaint``, ``DisparityEstimator``, ``Refine``, ``LeReS``,
+``AnimeDetector``, ``ISNetDIS``, ``U2Net``, ``ISNetGTEncoder``,
+``MODNet``, ``SAM``, ``MaskRCNN``, ``SwinV2``, ``UNet2DCondition`` and
+``AutoencoderKL``.
 Each walks the port module's own keys and looks up the Flax path that
 the JAX package's converters (``models/convert.py: convert_inpaint``,
 ``convert_disparity``, ``convert_semantics``, ``convert_refine``,
@@ -16,7 +18,8 @@ convert_rtmdet``, ``models/isnet.py:convert_isnet``,
 ``models/u2net.py:convert_u2net``, ``convert_isnet_gt``,
 ``models/modnet.py:convert_modnet``, ``models/sam.py:convert_sam``,
 ``models/maskrcnn.py:convert_maskrcnn``, ``models/swinv2.py:
-convert_swinv2``) write for that checkpoint key, so the two directions
+convert_swinv2``, ``models/marigold.py:convert_unet``, ``convert_vae``)
+write for that checkpoint key, so the two directions
 stay inverse to each other.
 
 Layouts: Flax conv kernel (kh, kw, in, out) → torch (out, in, kh, kw);
@@ -711,3 +714,100 @@ def swinv2_from_flax(variables: Mapping, module: Optional[nn.Module] = None
                              f'{tuple(v.shape)}')
         out[k] = t.to(v.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# latent diffusion: the SD UNet and VAE (Marigold, LDM inpainting)
+# ---------------------------------------------------------------------------
+
+def _ldm_modules(parts, up_level) -> list:
+    """diffusers module names → the JAX package's (``models/ldm.py``):
+    ``down_blocks.i.resnets.j`` → ``down_i_res_j``, ``.attentions.j`` →
+    ``down_i_attn_j``, ``.downsamplers.0`` → ``down_i_downsample``, up
+    blocks alike at level ``up_level(k)``, ``mid_block.resnets.j`` →
+    ``mid_res_j``, ``mid_block.attentions.0`` → ``mid_attn``,
+    ``transformer_blocks.b`` → ``blocks_b``, ``to_out.0`` → ``to_out``,
+    ``ff.net.0.proj`` → ``ff.proj``, ``ff.net.2`` → ``ff.out``."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in ('down_blocks', 'up_blocks'):
+            side, lvl = p[:-7], int(parts[i + 1])
+            if side == 'up':
+                lvl = up_level(lvl)
+            kind = parts[i + 2]
+            if kind in ('downsamplers', 'upsamplers'):
+                out.append(f'{side}_{lvl}_{side}sample')
+            else:
+                short = {'resnets': 'res', 'attentions': 'attn'}[kind]
+                out.append(f'{side}_{lvl}_{short}_{parts[i + 3]}')
+            i += 4
+        elif p == 'mid_block':
+            out.append(f'mid_res_{parts[i + 2]}' if parts[i + 1] == 'resnets'
+                       else 'mid_attn')
+            i += 3
+        elif p == 'transformer_blocks':
+            out.append(f'blocks_{parts[i + 1]}')
+            i += 2
+        elif p == 'to_out':
+            out.append('to_out')
+            i += 2
+        elif p == 'ff':
+            gate = parts[i + 2] == '0'
+            out += ['ff', 'proj' if gate else 'out']
+            i += 4 if gate else 3
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _ldm_leaf(leaf: str, like: torch.Tensor):
+    """(Flax leaf name, layout) of a weight or bias by the port tensor's
+    rank: a conv kernel, a Dense kernel or a norm's scale."""
+    if leaf == 'bias':
+        return 'bias', _same
+    return {4: ('kernel', _conv), 2: ('kernel', _lin),
+            1: ('scale', _same)}[like.ndim]
+
+
+def _ldm_from_flax(module: nn.Module, tree_of) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in module.state_dict().items():
+        parts = k.split('.')
+        tree, path = tree_of(parts[:-1])
+        name, fn = _ldm_leaf(parts[-1], v)
+        t = torch.from_numpy(np.ascontiguousarray(
+            fn(_fetch(tree, tuple(path) + (name,)))))
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f'{k}: shape {tuple(t.shape)} does not fit '
+                             f'{tuple(v.shape)}')
+        out[k] = t.to(v.dtype)
+    return out
+
+
+def unet_from_flax(variables: Mapping, module: nn.Module
+                   ) -> Dict[str, torch.Tensor]:
+    """Flax ``UNet2DCondition`` variables ({'params': ...}) → the port's
+    ``UNet2DCondition`` state_dict (diffusers' keys), the inverse of the
+    JAX ``models/marigold.py:convert_unet`` (up blocks deepest first)."""
+    n = len(module.block_out)
+    params = variables['params']
+    return _ldm_from_flax(module, lambda parts: (
+        params, _ldm_modules(parts, lambda k: n - 1 - k)))
+
+
+def vae_from_flax(encoder: Mapping, decoder: Mapping, module: nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """Flax ``AutoencoderEncoder`` and ``AutoencoderDecoder`` variables →
+    the port's ``AutoencoderKL`` state_dict, the inverse of the JAX
+    ``models/marigold.py:convert_vae`` (quant_conv sits in the encoder's
+    tree, post_quant_conv in the decoder's)."""
+    enc, dec = encoder['params'], decoder['params']
+
+    def tree_of(parts):
+        if parts[0] in ('encoder', 'decoder'):
+            return (enc if parts[0] == 'encoder' else dec), \
+                _ldm_modules(parts[1:], lambda k: k)
+        return (enc if parts[0] == 'quant_conv' else dec), parts
+    return _ldm_from_flax(module, tree_of)

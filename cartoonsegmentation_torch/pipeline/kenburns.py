@@ -21,14 +21,15 @@ takes every refiner of ``pipeline/refine.py`` (the animeseg nets too).
 ``depth_est: default`` runs the 3D-Ken-Burns disparity net at its coarse
 grid (the instance adjustment at image resolution and back), and
 ``default_depth_refine`` its Refine net up to image resolution.
-``inpaint_type`` 'patchmatch' (the host C++ PatchMatch) and 'ldm' (a
-stable-diffusion-webui server) fill each pass's image on the host
-before its holes join the cloud. ``depth_est`` 'zoe' and 'zoe_nk' run
-ZoeDepth (BEiT-L DPT, N or the NK router) with its flip average at the
-image fitted into 672, 'leres_boost' LeReS boosted by the pix2pix merge
-over gradient-dense patches (``pipeline/boost.py``). Still refused with
-NotImplementedError: ``depth_est: marigold`` and ``inpaint_type:
-ldm_native``.
+``inpaint_type`` 'patchmatch' (the host C++ PatchMatch), 'ldm' (a
+stable-diffusion-webui server) and 'ldm_native' (SD1.5-inpainting
+latent diffusion in the process, ``models/ldm_inpaint.py``) fill each
+pass's image before its holes join the cloud. ``depth_est`` 'zoe' and
+'zoe_nk' run ZoeDepth (BEiT-L DPT, N or the NK router) with its flip
+average at the image fitted into 672, 'leres_boost' LeReS boosted by
+the pix2pix merge over gradient-dense patches (``pipeline/boost.py``),
+'marigold' Marigold's latent diffusion (``models/marigold.py``). The
+two diffusion models run in f32 on the pipeline's device.
 
 Everything runs on the pipeline's device, CUDA unless the caller
 passes ``device='cpu'`` (where every kernel wrapper runs its plain
@@ -76,9 +77,9 @@ LOGGER = logging.getLogger('cartoonsegmentation_torch')
 
 
 # the depth estimators and inpaint types of the JAX package that the port
-# does not run yet
-UNPORTED_DEPTH = ('marigold',)
-UNPORTED_INPAINT = ('ldm_native',)
+# does not run yet: none
+UNPORTED_DEPTH = ()
+UNPORTED_INPAINT = ()
 _NETS = {'inpaint': Inpaint, 'leres': LeReS,
          'disparity': DisparityEstimator, 'refine': Refine,
          'p2p': Pix2Pix4Depth}
@@ -172,6 +173,11 @@ class KenBurnsPipeline:
         self.zoe_net = None
         self._zoe_ckpt_path: Optional[str] = None
         self._zoe_ckpt_is_nk = False
+        # the diffusion models (depth_est 'marigold', inpaint_type
+        # 'ldm_native'): made from the cfg at first use, their weights
+        # drawn on the device from the seed unless a checkpoint is loaded
+        self.marigold = None
+        self.ldm_inpainter = None
         # the last leres_boost run's LeReSBoost (its patches, R_x)
         self.last_boost = None
         # an AnimeInsSeg, any img → Instances callable, or None; run()
@@ -285,6 +291,14 @@ class KenBurnsPipeline:
             self.zoe_net = cls(img_size=size)
         load_zoe_state_dict(self.zoe_net, sd)
 
+    def load_marigold_checkpoint(self, unet_path: str, vae_path: str,
+                                 text_path: Optional[str] = None) -> None:
+        """A Marigold checkpoint directory's unet/, vae/ and (optionally)
+        text_encoder/ torch weight files, by diffusers' key names."""
+        self._ensure_marigold().load_weights(
+            _load_torch_ckpt(unet_path), _load_torch_ckpt(vae_path),
+            _load_torch_ckpt(text_path) if text_path else None)
+
     def load_detector_checkpoints(self, det: Optional[str] = None,
                                   sam: Optional[str] = None) -> None:
         """Route detector weights to the configured family: animeinsseg
@@ -390,8 +404,8 @@ class KenBurnsPipeline:
 
     def _estimate_disparity(self, image: torch.Tensor) -> torch.Tensor:
         """The configured estimator's disparity: 'default' at its coarse
-        grid, the others ('leres', 'leres_boost', 'zoe', 'zoe_nk') at
-        image resolution. Parity: the JAX package's
+        grid, the others ('leres', 'leres_boost', 'zoe', 'zoe_nk',
+        'marigold') at image resolution. Parity: the JAX package's
         ``_estimate_disparity`` (an unknown name runs LeReS with a
         warning)."""
         est = self.cfg.depth_est
@@ -401,6 +415,8 @@ class KenBurnsPipeline:
             return self._est_zoe(image, nk=est == 'zoe_nk')
         if est == 'leres_boost':
             return self._est_leres_boost(image)
+        if est == 'marigold':
+            return self._est_marigold(image)
         if est != 'leres':
             LOGGER.warning('unknown depth_est=%s; using leres', est)
         return self._est_leres(image)
@@ -486,6 +502,33 @@ class KenBurnsPipeline:
         pos_min = torch.where(disp > 0, disp, float('inf')).min()
         return torch.where((disp == 0) & torch.isfinite(pos_min), pos_min,
                            disp)[..., None]
+
+    def _ensure_marigold(self):
+        """The Marigold model, made at first use from the cfg's knobs
+        (one construction point for checkpoint loading and inference)."""
+        if self.marigold is None:
+            from ..models.marigold import MarigoldDepth
+            cfg = self.cfg
+            self.marigold = MarigoldDepth(
+                processing_res=cfg.marigold_res,
+                denoise_steps=cfg.marigold_steps,
+                ensemble_size=cfg.marigold_ensemble,
+                scheduler=cfg.marigold_scheduler, seed=self._seed)
+        return self.marigold
+
+    @torch.inference_mode()
+    def _est_marigold(self, image: torch.Tensor) -> torch.Tensor:
+        """Marigold's depth in [0, 1] on the image's RGB bytes (the cast
+        truncates, as numpy's astype), zeros to the smallest positive
+        value, as disparity (1 - depth) · 255. Parity: the JAX package's
+        ``_est_marigold``, kenburns_effect.py:554-561."""
+        net = self._ensure_marigold().ready(self.device)
+        img_u8 = (image.flip(-1).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        depth = net(img_u8)
+        pos_min = torch.where(depth > 0, depth, float('inf')).min()
+        depth = torch.where((depth == 0) & torch.isfinite(pos_min), pos_min,
+                            depth)
+        return ((1.0 - depth) * 255.0)[..., None]
 
     def _zoe(self, hw: Tuple[int, int], nk: bool) -> torch.nn.Module:
         """ZoeDepth (or NK) at the grid ``hw`` on the device, in the conv
@@ -658,8 +701,8 @@ class KenBurnsPipeline:
                       shift_v: float, depth_scale: float) -> tuple:
         """One inpainting pass at a camera extreme up to the entries it
         appends: the Inpaint net's forward, the stage preview, and for
-        inpaint_type 'patchmatch' or 'ldm' the net's image filled on the
-        host (``_host_fill``). Parity: kenburns_effect.py:441-514."""
+        inpaint_type 'patchmatch', 'ldm' or 'ldm_native' the net's image
+        filled again (``_host_fill``). Parity: kenburns_effect.py:441-514."""
         out, shift = self._inpaint_forward(state, shift_u, shift_v,
                                            depth_scale)
         if self.stage_previews:
@@ -673,11 +716,14 @@ class KenBurnsPipeline:
                                   shift)
 
     def _host_fill(self, out: dict) -> torch.Tensor:
-        """The hallucinated image filled on the host under the hole mask
-        (``existing`` == 0, OR-ed with the rendered instance masks):
-        'patchmatch' through the C++ PatchMatch on the BGR bytes, 'ldm'
-        through the sd-webui server on the RGB bytes with the mask
-        dilated by a 5-px ellipse; back on the device as f32."""
+        """The hallucinated image filled under the hole mask (``existing``
+        == 0, OR-ed with the rendered instance masks), the mask on the
+        host: 'patchmatch' through the C++ PatchMatch on the BGR bytes,
+        'ldm' through the sd-webui server on the RGB bytes, 'ldm_native'
+        through ``LDMInpainter`` on the pipeline's device on the BGR
+        bytes (it flips them itself), both with the mask dilated by a
+        5-px ellipse, at ldm_inpaint_size (else max_size); back on the
+        device as f32."""
         cfg = self.cfg
         mask = (out['existing'][..., 0] == 0.0).cpu().numpy().astype(
             np.uint8) * 255
@@ -692,24 +738,40 @@ class KenBurnsPipeline:
             filled = patchmatch_native.inpaint(img_u8, mask, patch_size=3)
         else:
             import cv2
-            from ..serving.sd_webui import ldm_inpaint_webui
             e = 5
             el = cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
                                            (2 * e + 1, 2 * e + 1))
-            opts = {k: getattr(cfg.ldm_inpaint_options, k)
-                    for k in ('steps', 'cfg_scale', 'sample_name',
-                              'denoising_strength', 'inpainting_fill',
-                              'seed', 'subseed')}
-            filled = ldm_inpaint_webui(
-                img_u8[..., ::-1], cv2.dilate(mask, el),
-                cfg.ldm_inpaint_size or cfg.max_size, cfg.sd_img2img_url,
-                'high quality, masterpiece, no_humans',
-                'cat, human, single, person, girl, 1girl, creature, '
-                'animal, alien, robot, body', **opts)[..., ::-1]
+            mask = cv2.dilate(mask, el)
+            res = cfg.ldm_inpaint_size or cfg.max_size
+            if cfg.inpaint_type == 'ldm_native':
+                filled = self._ldm_inpainter()(img_u8, mask, res=res)
+            else:
+                from ..serving.sd_webui import ldm_inpaint_webui
+                opts = {k: getattr(cfg.ldm_inpaint_options, k)
+                        for k in ('steps', 'cfg_scale', 'sample_name',
+                                  'denoising_strength', 'inpainting_fill',
+                                  'seed', 'subseed')}
+                filled = ldm_inpaint_webui(
+                    img_u8[..., ::-1], mask, res, cfg.sd_img2img_url,
+                    'high quality, masterpiece, no_humans',
+                    'cat, human, single, person, girl, 1girl, creature, '
+                    'animal, alien, robot, body', **opts)[..., ::-1]
         self.timer.add(f'inpaint_{cfg.inpaint_type}_host',
                        _time.perf_counter() - t0)
         return torch.from_numpy(np.ascontiguousarray(filled).astype(
             np.float32) / 255.0).to(self.device)
+
+    def _ldm_inpainter(self):
+        """``inpaint_type: ldm_native``'s LDMInpainter on the device, made
+        at first use from ldm_inpaint_options (steps, cfg_scale, seed);
+        load a checkpoint with ``pipe.ldm_inpainter.load_checkpoint``."""
+        if self.ldm_inpainter is None:
+            from ..models.ldm_inpaint import LDMInpainter
+            o = self.cfg.ldm_inpaint_options
+            self.ldm_inpainter = LDMInpainter(steps=o.steps,
+                                              guidance=o.cfg_scale,
+                                              seed=o.seed)
+        return self.ldm_inpainter.ready(self.device)
 
     def inpaint_pass(self, state: KenBurnsState, shift_u: float,
                      shift_v: float, depth_scale: float) -> KenBurnsState:

@@ -93,7 +93,21 @@
    with ``depth_est`` 'zoe', 'zoe_nk' and 'leres_boost' at 576x1024,
    75 frames each: K1-K10 launched, the instances, the disparity's
    range and the frames' hole share, the boost's steps in seconds,
-   the frames against the CPU;
+   the frames against the CPU; then the diffusion options
+   (``diffusion_phase``): Marigold (the SD2 UNet with 8 input channels,
+   the SD VAE) and the SD1.5-inpainting model (9 channels, 1x1-conv
+   projections) drawn on the card from the seed at full width, the
+   backend SDPA picks in f32 at their largest attentions (the VAE's
+   one head of width 512 at a 72x128 latent) with its time and memory,
+   both UNets at a 16x16 latent, the VAE at 128x128, both CLIP towers
+   and the ensemble merge at (5, 448, 768) card against CPU (within
+   ``DIFF_TOL`` of the output's range), MarigoldDepth (4 LCM steps,
+   ensemble 5) and LDMInpainter (32 DDIM steps, CFG 7) end to end on a
+   128x128 crop on the same host-drawn noise, then the shipped default
+   with ``depth_est: marigold`` and with ``inpaint_type: ldm_native``
+   at 576x1024, 75 frames each (the pipelines draw the same weights):
+   K1-K10, the instances, the disparity and hole share, each inpainting
+   pass's seconds and changed share, the frames against the CPU;
 8. runs the SAM path, ``configs/3dkenburns_sam.yaml`` with
    ``inpaint_type: default`` (AnimeInsSeg's boxes re-masked by SAM
    ViT-B at 1024, DoF off), with the same edged detector and a seeded
@@ -3648,22 +3662,24 @@ class BoostTimes:
 
 
 def depth_clip(det_net, isnet, img: np.ndarray, seed: int, est: str,
-               zoe=None) -> dict:
-    """The shipped default (the edged detector and refine) with
-    ``depth_est`` est at 576x1024, 75 frames: K1-K10 launched, the
-    instances, the disparity's range and the frames' hole share, the
-    frames against the CPU. Returns the launches."""
+               cfg: dict, nets: dict = None, after=None) -> dict:
+    """The shipped default (the edged detector and refine) with the
+    options ``cfg`` at 576x1024, 75 frames, its pipeline given the
+    ``nets`` (attributes by name): K1-K10 launched, the instances, the
+    disparity's range and the frames' hole share, the frames against the
+    CPU. ``after(pipe)`` may check and print more before the frames are
+    compared.
+    Returns the launches."""
     from cartoonsegmentation_torch.config import KenBurnsConfig
     from cartoonsegmentation_torch.ops import _cuda
     from cartoonsegmentation_torch.pipeline import boost
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
-    pipe = KenBurnsPipeline(KenBurnsConfig(depth_est=est), seed=seed,
-                            device='cuda')
+    pipe = KenBurnsPipeline(KenBurnsConfig(**cfg), seed=seed, device='cuda')
     pipe.ensure_detector()
     pipe._detector.model = copy.deepcopy(det_net)
     pipe._detector.refine.net = copy.deepcopy(isnet)
-    if zoe is not None:
-        pipe.zoe_net = copy.deepcopy(zoe)
+    for k, v in (nets or {}).items():
+        setattr(pipe, k, v)
     with BoostTimes() as spent:
         launches = run_clip(pipe, img, est)
     require_launches(est, launches,
@@ -3692,6 +3708,8 @@ def depth_clip(det_net, isnet, img: np.ndarray, seed: int, est: str,
           f'frames\' pixels in holes before the fill{extra}', flush=True)
     if holes <= 0.0:
         fail(f'{est}: the frames have no holes: the fill did no work')
+    if after is not None:
+        after(pipe)
     compare_frames(pipe, est)
     return launches
 
@@ -3708,9 +3726,296 @@ def zoe_boost_phase(det_net, isnet, img: np.ndarray, seed: int) -> dict:
         zoe[nk] = edged_zoe(seed, img, nk)
         compare_zoe_card_cpu(zoe[nk], img, tag)
     compare_boost_card_cpu(seed)
-    return {est: depth_clip(det_net, isnet, img, seed, est, z)
+    return {est: depth_clip(det_net, isnet, img, seed, est,
+                            {'depth_est': est},
+                            {'zoe_net': copy.deepcopy(z)} if z else None)
             for est, z in (('zoe', zoe[False]), ('zoe_nk', zoe[True]),
                            ('leres_boost', None))}
+
+
+# the diffusion models at full width, random from the seed: Marigold (the
+# SD2 UNet with 8 input channels, the SD VAE, LCM 4 steps, ensemble 5)
+# and SD1.5 inpainting (9 input channels, 1x1-conv projections, CLIP-L
+# context, DDIM 32 steps with CFG 7); card against CPU at small sizes
+DIFF_TOL = 1e-4         # one net's output, card vs CPU, share of its range
+MARIGOLD_TOL = 1e-3     # Marigold's depth after 4 steps and the merge
+DIFF_E2E = 128          # the end-to-end compares' image side (16x16 latent)
+
+
+def card_cpu(tag: str, got: torch.Tensor, want: torch.Tensor,
+             tol: float) -> None:
+    """Print the CPU output's range and the card's largest difference
+    beside tol x range; fail beyond it."""
+    got, want = got.float().cpu(), want.float()
+    err = float((got - want).abs().max())
+    lo, hi = float(want.min()), float(want.max())
+    print(f'[diffusion] {tag} card vs cpu: range {lo:.4g}..{hi:.4g}, max '
+          f'|diff| {err:.3g}, tolerance {tol:g} x range = '
+          f'{tol * (hi - lo):.3g}', flush=True)
+    if not hi > lo or not err <= tol * (hi - lo):
+        fail(f'diffusion: {tag} on the card differs from the CPU by {err} '
+             f'(range {hi - lo})')
+
+
+def seeded_clip_sd(cfg: dict, seed: int) -> dict:
+    """A CLIP text tower of the setting ``cfg`` drawn on the card from
+    ``seed`` (``init_random_``): its state dict, on the card."""
+    from cartoonsegmentation_torch.models.clip import ClipTextModel
+    from cartoonsegmentation_torch.models.ldm import init_random_
+    with torch.device('meta'):
+        m = ClipTextModel(**cfg)
+    m.to_empty(device='cuda')
+    init_random_(m, torch.Generator('cuda').manual_seed(seed))
+    return m.state_dict()
+
+
+def sdpa_backends() -> None:
+    """The backend PyTorch's SDPA picks in f32 (TF32 off) for the
+    diffusion models' largest attentions, with its time and the memory
+    the call holds above its inputs: the VAE mid block's one head of
+    width 512 at a 72x128 latent (the inpainter's), the inpainting
+    UNet's level 0 and Marigold's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    names = {int(v): k for k, v in SDPBackend.__members__.items()}
+    gen = torch.Generator('cuda').manual_seed(0)
+    for tag, shape in (
+            ('VAE mid attention, 72x128 latent', (1, 1, 9216, 512)),
+            ('inpainting UNet level 0, 72x128, CFG pair', (2, 8, 9216, 40)),
+            ("Marigold's UNet level 0, 56x96, ensemble 5",
+             (5, 5, 5376, 64))):
+        q, k, v = (torch.randn(shape, device='cuda', generator=gen)
+                   for _ in range(3))
+        choice = names.get(int(torch._fused_sdp_choice(q, k, v)), '?')
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        held = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda x: F.scaled_dot_product_attention(*x),
+                     [(q, k, v)] * 5)
+        B, Hh, N, d = shape
+        flops = 4.0 * B * Hh * N * N * d
+        print(f'[diffusion] SDPA {tag} {shape} f32: backend {choice}, '
+              f'{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), '
+              f'{held / 2 ** 20:.1f} MiB held above the inputs (the '
+              f'{N}x{N} f32 scores of one head: '
+              f'{N * N * 4 / 2 ** 20:.0f} MiB)', flush=True)
+        del q, k, v
+
+
+def compare_diffusion_nets(mg, li, seed: int) -> None:
+    """Each net at full width in f32, card against CPU (the card's
+    weights copied to the host), within DIFF_TOL of its output's range:
+    both UNets at a 16x16 latent (Marigold's on its text embedding at
+    t 999, the inpainter's on the CFG pair at t 962), Marigold's VAE
+    encoder (mean and logvar) at 128x128 and decoder from 16x16, both
+    CLIP towers (SD2 on the empty prompt, SD1.5 on 77 ids), and
+    ``ensemble_depths`` at (5, 448, 768), timed on the card."""
+    from cartoonsegmentation_torch.models.clip import (SD2_TEXT, SD15_TEXT,
+                                                       clip_text_embed)
+    from cartoonsegmentation_torch.models.marigold import (EMPTY_PROMPT_IDS,
+                                                           ensemble_depths)
+    g = torch.Generator().manual_seed(seed)
+    x8 = torch.randn(1, 8, 16, 16, generator=g)
+    x9 = torch.randn(2, 9, 16, 16, generator=g)
+    img = torch.rand(1, 3, 128, 128, generator=g) * 2 - 1
+    z = torch.randn(1, 4, 16, 16, generator=g)
+    ctx9 = torch.cat([li.uncond, li.cond], 0)
+    with torch.inference_mode():
+        cases = (
+            ("Marigold's UNet (SD2, 8 channels) at 16x16",
+             mg.unet, lambda n, dv: n(x8.to(dv), torch.tensor([999], device=dv),
+                                      mg.text_embed.to(dv))),
+            ("the inpainter's UNet (SD1.5, 9 channels) at 16x16",
+             li.unet, lambda n, dv: n(x9.to(dv), torch.tensor([962, 962],
+                                                              device=dv),
+                                      ctx9.to(dv))),
+            ("Marigold's VAE encoder (mean) at 128x128",
+             mg.vae, lambda n, dv: n.encode(img.to(dv))[0]),
+            ("Marigold's VAE encoder (logvar) at 128x128",
+             mg.vae, lambda n, dv: n.encode(img.to(dv))[1]),
+            ("Marigold's VAE decoder from 16x16",
+             mg.vae, lambda n, dv: n.decode(z.to(dv))))
+        for tag, net, fn in cases:
+            got = fn(net, 'cuda').cpu()
+            twin = copy.deepcopy(net).cpu()
+            t0 = time.perf_counter()
+            want = fn(twin, 'cpu')
+            tc = time.perf_counter() - t0
+            del twin
+            card_cpu(f'{tag} ({tc:.1f} s on the CPU)', got, want, DIFF_TOL)
+        ids15 = [49406] + [320 + 7 * i for i in range(20)] + [49407] * 56
+        for tag, cfg, ids in (('the SD2 CLIP tower (23 layers, 1024) on '
+                               'the empty prompt', SD2_TEXT,
+                               EMPTY_PROMPT_IDS),
+                              ('the SD1.5 CLIP tower (12 layers, 768) on '
+                               '77 ids', SD15_TEXT, ids15)):
+            sd = seeded_clip_sd(cfg, seed)
+            got = clip_text_embed(sd, ids, device='cuda', **cfg)
+            want = clip_text_embed({k: v.cpu() for k, v in sd.items()}, ids,
+                                   device='cpu', **cfg)
+            card_cpu(tag, got, want, DIFF_TOL)
+            del sd
+        # five members of one depth, each under its own scale and shift,
+        # with noise (a trained model's members agree up to those)
+        smooth = torch.nn.functional.interpolate(
+            torch.rand(1, 1, 28, 48, generator=g), size=(448, 768),
+            mode='bicubic')[0]
+        preds = smooth * torch.tensor([1.0, 3.0, 0.5, 2.0, 1.5])[:, None, None] \
+            + torch.tensor([0.0, -1.0, 7.0, 2.0, -0.5])[:, None, None] \
+            + torch.randn(5, 448, 768, generator=g) * 0.01
+        pc = preds.cuda()
+        got = ensemble_depths(pc)
+        ms = time_ms(ensemble_depths, [pc] * 5)
+        card_cpu(f'ensemble_depths at (5, 448, 768) ({ms:.3f} ms on the '
+                 f'card)', got, ensemble_depths(preds), DIFF_TOL)
+
+
+def compare_diffusion_models(mg, li, img: np.ndarray) -> None:
+    """MarigoldDepth and LDMInpainter end to end at full width, card
+    against CPU on the same host-drawn noise, on a DIFF_E2E-square crop of
+    the image (a 16x16 latent): Marigold's 4 LCM steps at ensemble 5 and
+    its merge, the depth within MARIGOLD_TOL of its range; the
+    inpainter's 32 DDIM steps with CFG on a hole of a third of the crop,
+    >= 99.5% of its bytes within 1 level."""
+    s = DIFF_E2E
+    crop = np.ascontiguousarray(img[200:200 + s, 400:400 + s])
+    rgb = np.ascontiguousarray(crop[..., ::-1])
+    ph, pw, lh, lw = mg.latent_hw(s, s)
+    noise = mg.draw_noise(lh, lw)
+    t0 = time.perf_counter()
+    got = mg(rgb, noise=noise)
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - t0
+    twin = copy.deepcopy(mg).cpu()
+    t0 = time.perf_counter()
+    want = twin(rgb, noise=noise)
+    tc = time.perf_counter() - t0
+    del twin
+    card_cpu(f'MarigoldDepth end to end at {s}x{s} ({ph}x{pw}, latent '
+             f'{lh}x{lw}; card {tk:.2f} s, CPU {tc:.1f} s)', got, want,
+             MARIGOLD_TOL)
+    mask = np.zeros((s, s), np.uint8)
+    yy, xx = np.mgrid[0:s, 0:s]
+    mask[(xx - s / 2) ** 2 + (yy - s / 2) ** 2 < (s * 0.33) ** 2] = 255
+    rh, rw, lh, lw = li.size_for(s, s, s)
+    noise = li.draw_noise(lh, lw)
+    t0 = time.perf_counter()
+    got = li(crop, mask, noise=noise)
+    tk = time.perf_counter() - t0
+    twin = copy.deepcopy(li).cpu()
+    t0 = time.perf_counter()
+    want = twin(crop, mask, noise=noise)
+    tc = time.perf_counter() - t0
+    del twin
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    hole = mask > 0
+    close = float((d <= 1).mean())
+    changed = float((want != crop).any(-1)[hole].mean())
+    print(f'[diffusion] LDMInpainter end to end at {s}x{s} (latent '
+          f'{lh}x{lw}, {li.steps} steps, CFG {li.guidance}; card {tk:.2f} s, '
+          f'CPU {tc:.1f} s) card vs cpu: {close:.5f} of bytes within 1 '
+          f'level, max diff {int(d.max())}; the hole {hole.mean():.3f} of '
+          f'the crop, {changed:.3f} of its pixels changed', flush=True)
+    if close < 0.995:
+        fail(f'diffusion: only {close} of the inpainter\'s bytes within 1 '
+             f'level of the CPU\'s')
+    if changed < 0.5 or (got[~hole] != crop[~hole]).any():
+        fail('diffusion: the inpainter left the hole as it was or changed '
+             'pixels outside it')
+
+
+class NativePasses:
+    """LDMInpainter's calls while the block runs: each call's seconds,
+    the hole mask's share of the frame and the share of its pixels the
+    call changed."""
+
+    def __enter__(self):
+        from cartoonsegmentation_torch.models.ldm_inpaint import LDMInpainter
+        self.cls, self.real = LDMInpainter, LDMInpainter.forward
+        self.calls = []
+        real = self.real
+
+        def rec(m, img, mask, **k):
+            t0 = time.perf_counter()
+            out = real(m, img, mask, **k)
+            hole = np.asarray(mask) > 0
+            self.calls.append((time.perf_counter() - t0, float(hole.mean()),
+                               float((out != img).any(-1)[hole].mean())))
+            return out
+        LDMInpainter.forward = rec
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.real
+
+
+def diffusion_phase(det_net, isnet, img: np.ndarray, seed: int) -> dict:
+    """The two diffusion options: Marigold and the SD1.5 inpainter drawn
+    on the card as the pipeline draws them, SDPA's backends at their attentions, each
+    net and both models card against CPU, then the shipped default with
+    ``depth_est: marigold`` and with ``inpaint_type: ldm_native`` at
+    576x1024, 75 frames each, the pipelines drawing their models
+    themselves (the same weights: checked). Returns their launches."""
+    from cartoonsegmentation_torch.config import KenBurnsConfig
+    from cartoonsegmentation_torch.device import resolve_device
+    from cartoonsegmentation_torch.models.ldm_inpaint import LDMInpainter
+    from cartoonsegmentation_torch.models.marigold import MarigoldDepth
+    resolve_device('cuda')              # TF32 off: the nets run in f32
+    t0 = time.perf_counter()
+    # as the pipeline makes them: Marigold from its seed, the inpainter
+    # from ldm_inpaint_options (steps, cfg_scale, seed)
+    mg = MarigoldDepth(seed=seed).init_random('cuda')
+    o = KenBurnsConfig().ldm_inpaint_options
+    li = LDMInpainter(steps=o.steps, guidance=o.cfg_scale,
+                      seed=o.seed).init_random('cuda')
+    torch.cuda.synchronize()
+
+    def params(m):
+        return sum(p.numel() for p in m.parameters()) / 1e6
+    print(f'[diffusion] Marigold (UNet {params(mg.unet):.1f}M, VAE '
+          f'{params(mg.vae):.1f}M parameters) and the inpainter (UNet '
+          f'{params(li.unet):.1f}M, VAE {params(li.vae):.1f}M) drawn on the '
+          f'card in {time.perf_counter() - t0:.2f} s', flush=True)
+    sdpa_backends()
+    compare_diffusion_nets(mg, li, seed)
+    compare_diffusion_models(mg, li, img)
+    probe = {'marigold': mg.unet.conv_in.weight[:2].clone(),
+             'ldm_native': li.unet.conv_in.weight[:2].clone()}
+    del mg, li
+    torch.cuda.empty_cache()
+
+    def same_weights(attr, tag):
+        def check(pipe):
+            w = getattr(pipe, attr).unet.conv_in.weight[:2]
+            if not torch.equal(w, probe[tag]):
+                fail(f'{tag}: the pipeline drew other weights from the seed')
+        return check
+
+    def marigold_after(pipe):
+        same_weights('marigold', 'marigold')(pipe)
+        print(f'[marigold] depth_estimate {pipe.timer.seconds["depth_estimate"]:.3f} '
+              f's (the model drawn on the card at first use included)',
+              flush=True)
+    launches = {'marigold': depth_clip(
+        det_net, isnet, img, seed, 'marigold', {'depth_est': 'marigold'},
+        after=marigold_after)}
+    with NativePasses() as calls:
+        launches['ldm_native'] = depth_clip(
+            det_net, isnet, img, seed, 'ldm_native',
+            {'inpaint_type': 'ldm_native'},
+            after=same_weights('ldm_inpainter', 'ldm_native'))
+    for i, (sec, share, changed) in enumerate(calls):
+        print(f'[ldm_native] pass {i}: {sec:.3f} s, the dilated hole mask '
+              f'{share:.4f} of the frame, {changed:.4f} of its pixels '
+              f'changed', flush=True)
+    if len(calls) != 2 or min(c[2] for c in calls) <= 0.0:
+        fail(f'ldm_native: {len(calls)} inpainter calls, expected 2, each '
+             f'changing pixels of its hole')
+    torch.cuda.empty_cache()
+    return launches
 
 
 def ldm_phase(root: str, det_net, sam_net, img: np.ndarray, seed: int
@@ -3994,6 +4299,10 @@ def main() -> None:
     # nets card against CPU, then a clip each ------------------------------
     launches_depth = zoe_boost_phase(det_net, isnet, img, args.seed)
 
+    # 7d. the diffusion options: Marigold depth and latent-diffusion
+    # inpainting, the nets card against CPU, then a clip each -----------
+    launches_diff = diffusion_phase(det_net, isnet, img, args.seed)
+
     # 8. the SAM path: 3dkenburns_sam.yaml, AnimeInsSeg boxes re-masked
     # by SAM ViT-B ------------------------------------------------------
     sp = KenBurnsPipeline(sam_config(root), seed=args.seed, device='cuda')
@@ -4201,7 +4510,7 @@ def main() -> None:
              'crf': launches_crf, 'tagger': launches_tag,
              'style': launches_style, 'clip 683x1024': launches_odd,
              'options': launches_opt, 'ldm': launches_ldm,
-             **launches_depth}
+             **launches_depth, **launches_diff}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,

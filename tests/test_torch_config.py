@@ -15,7 +15,8 @@ from torch_cpu import torch_threads  # noqa: F401  (autouse)
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / 'cartoonsegmentation_torch'
 YAMLS = sorted(str(p) for p in (ROOT / 'configs').glob('*.yaml'))
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'cartoonsegmentation_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'cartoonsegmentation_tpu',
+             'transformers', 'diffusers')
 
 
 def _as_dict(cfg):
@@ -85,12 +86,46 @@ def test_default_device_is_cuda_and_never_a_quiet_cpu():
 
 
 @pytest.mark.parametrize('kw', [
+    {'detector': 'yolo'},
+], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
+def test_unported_paths_raise(kw):
+    """Every depth estimator and inpaint type of the JAX package runs in
+    the port; a detector it does not know is refused."""
+    from cartoonsegmentation_torch.pipeline import kenburns
+    assert kenburns.UNPORTED_DEPTH == () and kenburns.UNPORTED_INPAINT == ()
+    with pytest.raises(NotImplementedError, match='not ported'):
+        KenBurnsPipeline(tconfig.KenBurnsConfig(**kw), device='cpu')
+
+
+@pytest.mark.parametrize('kw', [
     {'detector': 'none', 'depth_est': 'marigold'},
     {'detector': 'none', 'inpaint_type': 'ldm_native'},
 ], ids=lambda kw: ','.join(f'{k}={v}' for k, v in kw.items()))
-def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        KenBurnsPipeline(tconfig.KenBurnsConfig(**kw), device='cpu')
+def test_diffusion_paths_install(kw, monkeypatch):
+    """``depth_est: marigold`` and ``inpaint_type: ldm_native`` run: the
+    pipeline takes the config and installs, once and from the cfg's
+    knobs, the full-size Marigold model or LDMInpainter, its weights not
+    yet drawn (that happens on the device at first use, ``ready``, here
+    left out; tests/test_torch_marigold.py and
+    tests/test_torch_ldm_inpaint.py run small ones)."""
+    from cartoonsegmentation_torch.models.ldm_inpaint import LDMInpainter
+    from cartoonsegmentation_torch.models.marigold import MarigoldDepth
+    cfg = tconfig.KenBurnsConfig(**kw)
+    pipe = KenBurnsPipeline(cfg, device='cpu')
+    if cfg.depth_est == 'marigold':
+        m = pipe._ensure_marigold()
+        assert isinstance(m, MarigoldDepth) and m is pipe._ensure_marigold()
+        assert (m.processing_res, m.denoise_steps, m.ensemble_size,
+                m.scheduler_kind) == (768, 4, 5, 'lcm')
+        assert m.unet.conv_in.in_channels == 8 and m.text_embed.is_meta
+    else:
+        monkeypatch.setattr(LDMInpainter, 'ready', lambda self, dev: self)
+        m = pipe._ldm_inpainter()
+        assert isinstance(m, LDMInpainter) and m is pipe._ldm_inpainter()
+        assert (m.steps, m.guidance, m.seed) == (32, 7, 0)
+        assert m.unet.conv_in.in_channels == 9 and m.cond.is_meta
+        assert tuple(m.cond.shape) == (1, 77, 768)
+    assert m.unet.block_out == (320, 640, 1280, 1280)
 
 
 @pytest.mark.parametrize('kw', [

@@ -197,7 +197,8 @@ def test_estimate_depth_cli(nets, jx, tmp_path, capsys, monkeypatch):
     equal to the JAX tool's chain on the same nets (the depth's
     reciprocal, the disparity, within 1e-4 of its range); 'zoe' (a small
     ZoeDepth installed for the image's 64x320 grid) writes a finite depth
-    map at image size; 'marigold' is not ported."""
+    map at image size; 'marigold' (a small Marigold model installed)
+    writes a finite depth map at image size too."""
     cv2 = pytest.importorskip('cv2')
     import importlib.util
     from pathlib import Path
@@ -242,9 +243,18 @@ def test_estimate_depth_cli(nets, jx, tmp_path, capsys, monkeypatch):
     zdepth = np.load(tmp_path / 'z.npy')
     assert zdepth.shape == (H, W) and np.isfinite(zdepth).all()
     assert cv2.imread(str(tmp_path / 'z.png')).shape[:2] == (H, W)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        estimate_depth.main(['--in', str(src), '--depth-est', 'marigold',
-                             '--device', 'cpu'])
+    from test_torch_marigold import tiny_marigold
+
+    def init_marigold(self, *a, **k):
+        init(self, *a, **k)
+        self.marigold = tiny_marigold()
+    monkeypatch.setattr(tkb.KenBurnsPipeline, '__init__', init_marigold)
+    estimate_depth.main(['--in', str(src), '--out', str(tmp_path / 'm.npy'),
+                         '--depth-est', 'marigold', '--device', 'cpu'])
+    mdepth = np.load(tmp_path / 'm.npy')
+    assert mdepth.shape == (H, W) and np.isfinite(mdepth).all()
+    assert mdepth.std() > 0
+    assert cv2.imread(str(tmp_path / 'm.png')).shape[:2] == (H, W)
 
 @pytest.fixture
 def cuda():

@@ -278,9 +278,9 @@ def test_sam_detector_vs_jax(models, rng):
 
 def test_pipeline_sam_wiring():
     """configs/3dkenburns_sam.yaml as shipped (its sd-webui 'ldm'
-    inpainting runs; 'ldm_native' is not ported and is named): the
-    pipeline builds a SamDetector over an AnimeInsSeg without refine, at
-    capacity max_instances, and routes checkpoints to it."""
+    inpainting runs; so does 'ldm_native' in its place): the pipeline
+    builds a SamDetector over an AnimeInsSeg without refine, at capacity
+    max_instances, and routes checkpoints to it."""
     from pathlib import Path
     from cartoonsegmentation_torch.config import build_kenburns_cfg
     from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
@@ -289,9 +289,10 @@ def test_pipeline_sam_wiring():
         '3dkenburns_sam.yaml'
     cfg = build_kenburns_cfg(str(path))
     assert (cfg.detector, cfg.inpaint_type) == ('sam', 'ldm')
-    with pytest.raises(NotImplementedError, match='inpaint_type'):
-        KenBurnsPipeline(cfg.replace(inpaint_type='ldm_native'),
-                         device='cpu')
+    native = KenBurnsPipeline(cfg.replace(inpaint_type='ldm_native'),
+                              device='cpu')
+    assert native.cfg.inpaint_type == 'ldm_native'
+    assert native.ldm_inpainter is None
     pipe = KenBurnsPipeline(cfg, device='cpu')
     pipe.ensure_detector()
     det = pipe._detector
