@@ -473,7 +473,8 @@ cudaError_t allow_smem() {
 
 }  // namespace
 
-// points (P,3), data (P,C) f32; chunk: the channels a block sums
+// points (P,3), data (P,C) f32 (C >= 0; data is not read at C = 0);
+// chunk: the channels a block sums
 // (ops/pointcloud.py:splat_plan); scratch: int32 of H*W + 2*n_tiles +
 // 4*P, n_tiles the 16x16 tiles that cover the frame (keys, tile
 // counts, tile offsets, the tiles' point lists); zee (H*W), render
@@ -484,7 +485,10 @@ extern "C" int kb_splat(const float* points, const float* data, int P,
                         float* render, float* weight, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_pix = H * W;
-  if (n_pix <= 0 || C <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  // C = 0 splats the weight alone (render_coverage's covered-pixel
+  // count): the narrow kernel reads no payload then and writes no render
+  if (n_pix <= 0 || C < 0 || (C > 0 && chunk <= 0))
+    return (int)cudaErrorInvalidValue;
   const int tiles_x = (W + SIDE - 1) / SIDE;
   const int n_tiles = tiles_x * ((H + SIDE - 1) / SIDE);
   int* keys = scratch;

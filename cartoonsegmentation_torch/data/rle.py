@@ -81,3 +81,20 @@ def decode(rle: Dict) -> np.ndarray:
     if isinstance(counts, str):
         counts = _decode_counts(counts)
     return _mask_from_counts(counts, h, w)
+
+
+def area(rle: Dict) -> int:
+    """The mask's pixel count, from its run lengths."""
+    counts = rle['counts']
+    if isinstance(counts, (str, bytes)):
+        counts = _decode_counts(counts if isinstance(counts, str)
+                                else counts.decode('ascii'))
+    return int(sum(counts[1::2]))
+
+
+def iou(rle_a: Dict, rle_b: Dict) -> float:
+    """Intersection over union of two masks (0 for two empty ones)."""
+    a, b = decode(rle_a), decode(rle_b)
+    inter = np.logical_and(a, b).sum()
+    union = np.logical_or(a, b).sum()
+    return float(inter) / max(float(union), 1.0)

@@ -18,7 +18,6 @@ and can be handed in instead. Checkpoint layout: a diffusers directory
 """
 from __future__ import annotations
 
-import logging
 import os.path as osp
 from typing import Optional
 
@@ -33,7 +32,7 @@ from .clip import SD15_TEXT, ClipTokenizer, clip_text_embed
 from .ldm import DDIMScheduler, UNet2DCondition, init_random_
 from .marigold import VAE_SCALE, load_nets, vae_from_cfg
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 SD15_UNET = dict(out_ch=4, block_out=(320, 640, 1280, 1280),
                  layers_per_block=2, heads=(8, 8, 8, 8),

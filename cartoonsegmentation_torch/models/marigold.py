@@ -20,7 +20,6 @@ use, drawn from the seed on their device (``ready``).
 """
 from __future__ import annotations
 
-import logging
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +33,7 @@ from .ldm import (AutoencoderKL, DDIMScheduler, LCMScheduler,
                   UNet2DCondition, fit_proj_weights, init_random_,
                   vae_state_dict)
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 VAE_SCALE = 0.18215
 # CLIP BPE ids of the empty prompt: [startoftext, endoftext]

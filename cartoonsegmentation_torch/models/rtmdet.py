@@ -336,15 +336,11 @@ def dynamic_masks(mask_feat: torch.Tensor, kernels: torch.Tensor,
     return masks, probs
 
 
-def postprocess(cls_out, reg_out, krn_out, mask_feat,
-                score_thr: float = 0.3, iou_thr: float = 0.6,
-                mask_thr: float = 0.3, pre_topk: int = 512,
-                max_det: int = 16, input_h: int = 640,
-                input_w: int = 640) -> dict:
-    """Head maps (channel-last, batch 1) → padded instances with masks
-    at the input size: dict(bboxes (D, 4) xyxy, scores (D,), valid (D,),
-    masks (D, input_h, input_w) bool), D = min(max_det, candidates)."""
-    dev = mask_feat.device
+def candidates(cls_out, reg_out, krn_out):
+    """Every level's prior as a candidate (batch 1): (scores (K,) the
+    sigmoid of its best class, dists (K, 4), kernels (K, 169), priors
+    (K, 2), strides (K,)), level by level."""
+    dev = cls_out[0].device
     scores, dists, kernels, priors, strides = [], [], [], [], []
     for lv, (c, r, k) in enumerate(zip(cls_out, reg_out, krn_out)):
         h, w = c.shape[-3], c.shape[-2]
@@ -355,10 +351,20 @@ def postprocess(cls_out, reg_out, krn_out, mask_feat,
         priors.append(pr)
         strides.append(torch.full((pr.shape[0],), float(STRIDES[lv]),
                                   device=dev))
-    scores = torch.cat(scores)
-    dists, kernels = torch.cat(dists), torch.cat(kernels)
-    priors, strides = torch.cat(priors), torch.cat(strides)
+    return (torch.cat(scores), torch.cat(dists), torch.cat(kernels),
+            torch.cat(priors), torch.cat(strides))
 
+
+def postprocess(cls_out, reg_out, krn_out, mask_feat,
+                score_thr: float = 0.3, iou_thr: float = 0.6,
+                mask_thr: float = 0.3, pre_topk: int = 512,
+                max_det: int = 16, input_h: int = 640,
+                input_w: int = 640) -> dict:
+    """Head maps (channel-last, batch 1) → padded instances with masks
+    at the input size: dict(bboxes (D, 4) xyxy, scores (D,), valid (D,),
+    masks (D, input_h, input_w) bool), D = min(max_det, candidates)."""
+    scores, dists, kernels, priors, strides = candidates(cls_out, reg_out,
+                                                         krn_out)
     k = min(pre_topk, scores.shape[0])
     top_idx = _top_k_order(scores)[:k]
     top_scores = scores[top_idx]

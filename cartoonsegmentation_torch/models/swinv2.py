@@ -28,7 +28,7 @@ CUDA tensors. The model runs in f32 (TF32 off on CUDA,
 from __future__ import annotations
 
 import functools
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -359,12 +359,16 @@ class SwinV2(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.head = _Head(dim, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                return_features: bool = False) -> torch.Tensor:
+        """Logits, or with ``return_features`` the pooled (B, dim)
+        features before the head."""
         x = self.patch_embed.proj(x.permute(0, 3, 1, 2))
         x = self.patch_embed.norm(x.permute(0, 2, 3, 1))
         for stage in self.layers:
             x = stage(x)
-        return self.head.fc(self.norm(x).mean((1, 2)))
+        feats = self.norm(x).mean((1, 2))
+        return feats if return_features else self.head.fc(feats)
 
 
 def wd_tagger_swinv2(num_classes: int = 9083) -> SwinV2:
@@ -380,19 +384,25 @@ _DERIVED = ('relative_coords_table', 'relative_position_index', 'attn_mask',
             'k_bias')
 
 
-def load_swinv2_state_dict(module: SwinV2, sd: Mapping) -> None:
-    """Load a timm swinv2 checkpoint (a state dict, or one under
-    'state_dict') into ``module``, strictly: ``model.`` prefixes
-    stripped, a bare ``head`` taken as ``head.fc``, timm's derived
-    buffers dropped."""
+def convert_swinv2(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A timm swinv2 checkpoint (a state dict, or one under
+    'state_dict') → the state dict ``SwinV2`` loads: ``model.``
+    prefixes stripped, a bare ``head`` taken as ``head.fc``, timm's
+    derived buffers dropped (the JAX package's name for its converter
+    to Flax variables)."""
     sd = sd.get('state_dict', sd)
     sd = {k[6:] if k.startswith('model.') else k: torch.as_tensor(v)
           for k, v in sd.items() if hasattr(v, 'shape')}
     if 'head.weight' in sd:
         sd['head.fc.weight'] = sd.pop('head.weight')
         sd['head.fc.bias'] = sd.pop('head.bias')
-    module.load_state_dict({k: v for k, v in sd.items()
-                            if k.split('.')[-1] not in _DERIVED})
+    return {k: v for k, v in sd.items() if k.split('.')[-1] not in _DERIVED}
+
+
+def load_swinv2_state_dict(module: SwinV2, sd: Mapping) -> None:
+    """Load a timm swinv2 checkpoint into ``module``, strictly, through
+    ``convert_swinv2``."""
+    module.load_state_dict(convert_swinv2(sd))
 
 
 def init_swinv2_(module: SwinV2, generator: torch.Generator) -> SwinV2:

@@ -29,7 +29,6 @@ general / 4 character / 9 rating)."""
 from __future__ import annotations
 
 import csv
-import logging
 import os.path as osp
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,7 +37,7 @@ import torch
 
 from ..device import resolve_device
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 def _load_tags(csv_path: str) -> Tuple[List[str], List[int]]:

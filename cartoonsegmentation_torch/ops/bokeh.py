@@ -31,22 +31,28 @@ _DIRS = ((0.0, 1.0),
          (math.cos(-math.pi * 5 / 6), math.sin(-math.pi * 5 / 6)))
 
 
-@functools.lru_cache(maxsize=16)
-def _coefs(H: int, W: int, num_samples: int) -> np.ndarray:
-    """(3, 2, S) f32 per-sample offset coefficients of the three passes:
-    f32(double(d)·m·min(H, W)) for m = s − S//2, as the JAX package's
-    _pass_table builds them (negative m is the exact negation)."""
+def _dir_coefs(dx: float, dy: float, H: int, W: int,
+               num_samples: int) -> np.ndarray:
+    """(2, S) f32 per-sample offset coefficients of a pass in direction
+    (dx, dy): f32(double(d)·m·min(H, W)) for m = s − S//2, as the JAX
+    package's _pass_table builds them (negative m is the exact
+    negation)."""
     im_size = min(H, W)
     offset = num_samples // 2
-    out = np.zeros((3, 2, num_samples), np.float32)
-    for p, (dx, dy) in enumerate(_DIRS):
-        for s in range(num_samples):
-            m = s - offset
-            out[p, 0, s] = np.sign(m) * np.float32(np.float64(dx)
-                                                   * (abs(m) * im_size))
-            out[p, 1, s] = np.sign(m) * np.float32(np.float64(dy)
-                                                   * (abs(m) * im_size))
+    out = np.zeros((2, num_samples), np.float32)
+    for s in range(num_samples):
+        m = s - offset
+        for a, d in enumerate((dx, dy)):
+            out[a, s] = np.sign(m) * np.float32(np.float64(d)
+                                                * (abs(m) * im_size))
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _coefs(H: int, W: int, num_samples: int) -> np.ndarray:
+    """(3, 2, S) f32 coefficients of the three passes (``_dir_coefs``)."""
+    return np.stack([_dir_coefs(dx, dy, H, W, num_samples)
+                     for dx, dy in _DIRS])
 
 
 _TILE_W, _TILE_H = 32, 16  # the kernel's tile (csrc/bokeh.cu)
@@ -98,6 +104,24 @@ def _pass_gather(src: torch.Tensor, weight: torch.Tensor, cx: torch.Tensor,
     color = (w[..., None] * src.reshape(-1, src.shape[-1])[q]).sum(0)
     out = color / wsum.clamp(min=1e-30)[..., None]
     return torch.where((wsum != 0.0)[..., None], out, src)
+
+
+def bokeh_pass(img: torch.Tensor, depth: torch.Tensor, dx: float, dy: float,
+               num_samples: int = 32, max_weight: float = _SCALE
+               ) -> torch.Tensor:
+    """One directional pass of the JAX package's ``bokeh_pass``: img
+    (H, W, C), depth (H, W) the blur weight, clipped to [0,
+    max_weight]. K4 runs the three passes of ``bokeh_core`` in one
+    launch and takes no lone pass, so this is plain PyTorch on the CPU,
+    and a CUDA tensor raises."""
+    if img.device.type != 'cpu':
+        raise NotImplementedError(
+            'bokeh_pass has no CUDA kernel of its own: bokeh_core (K4) '
+            'runs the three passes of the bokeh in one launch')
+    H, W = depth.shape
+    co = torch.from_numpy(_dir_coefs(float(dx), float(dy), H, W,
+                                     num_samples))
+    return _pass_gather(img, depth.clamp(0.0, max_weight), co[0], co[1])
 
 
 def bokeh_core_plain(img01: torch.Tensor, weight: torch.Tensor,

@@ -171,3 +171,93 @@ def fill_disocclusion(img: torch.Tensor, depth: torch.Tensor,
                  img.data_ptr(), depth.data_ptr(), _tables[key].data_ptr(), K,
                  H, W, C, out.data_ptr(), _cuda.stream_ptr(img))
     return out
+
+
+def _shear_tables(H: int, W: int, dx: float, dy: float):
+    """A direction with |dy| >= |dx| as a shear: off[y] = round(y·dx/dy),
+    pixel (y, x) at sheared column x - off[y] + base."""
+    off = _c_round(np.arange(H, dtype=np.float64) * (dx / dy)).astype(
+        np.int64)
+    base = int(off.max())
+    return off, base, W + base - int(off.min())
+
+
+def _fill_one_direction(depth: torch.Tensor, dx: float, dy: float):
+    """(found, dist, fy, fx) of one direction by a shear and column
+    scans, in image space (the JAX package's ``_fill_one_direction``:
+    the Bresenham line x(y) = round(y·dx/dy), one cell a row)."""
+    H, W = depth.shape
+    dev = depth.device
+    off_np, base, Wp = _shear_tables(H, W, dx, dy)
+    off = torch.from_numpy(off_np).to(dev)
+    xps = torch.arange(Wp, device=dev)[None, :]
+    xs = xps - base + off[:, None]
+    inframe = (xs >= 0) & (xs < W)
+    d_s = torch.where(inframe, depth[torch.arange(H, device=dev)[:, None],
+                                     xs.clamp(0, W - 1)], 0.0)
+    valid = inframe & (d_s > 0.0)
+    yrow = torch.arange(H, device=dev)[:, None].expand(H, Wp)
+    neg = torch.full((1, Wp), -1, dtype=torch.long, device=dev)
+    pos = torch.full((1, Wp), H, dtype=torch.long, device=dev)
+
+    def last_before(m):       # the nearest event strictly above a row
+        c = torch.where(m, yrow, -1).cummax(0).values
+        return torch.cat([neg, c[:-1]], 0)
+
+    def first_after(m):       # ... strictly below
+        c = torch.where(m, yrow, H).flip(0).cummin(0).values.flip(0)
+        return torch.cat([c[1:], pos], 0)
+
+    lv, lo = last_before(valid), last_before(~inframe)
+    fv, fo = first_after(valid), first_after(~inframe)
+    up = (lv > lo, lv.clamp(0, H - 1))
+    down = (fv < fo, fv.clamp(0, H - 1))
+    (f_from, r_from), (f_to, r_to) = (up, down) if dy > 0 else (down, up)
+
+    def endpoint(rows):
+        return off[rows] + (xps - base), rows, d_s.gather(0, rows)
+
+    ex_f, ey_f, ed_f = endpoint(r_from)
+    ex_t, ey_t, ed_t = endpoint(r_to)
+    found = f_from & f_to
+    dist = torch.sqrt((ex_t - ex_f).to(depth.dtype) ** 2
+                      + (ey_t - ey_f).to(depth.dtype) ** 2)
+    use_to = ed_f < ed_t
+    fy = torch.where(use_to, ey_t, ey_f)
+    fx = torch.where(use_to, ex_t, ex_f)
+    col = (torch.arange(W, device=dev)[None, :] - off[:, None] + base)
+    return tuple(a.gather(1, col) for a in (found, dist, fy, fx))
+
+
+def fill_disocclusion_fast(img: torch.Tensor, depth: torch.Tensor
+                           ) -> torch.Tensor:
+    """The JAX package's shear-scan fill: K11's policy (the shortest
+    valid-to-valid gap over the 16 directions, the farther endpoint
+    wins) over the whole frame, each direction's line in Bresenham form.
+    No path of either package runs it; here it is plain PyTorch on the
+    CPU, and a CUDA tensor raises (the paths fill with K3 or K11).
+    img (H, W, C), depth (H, W)."""
+    if img.device.type != 'cpu':
+        raise NotImplementedError(
+            'fill_disocclusion_fast has no CUDA kernel; the render paths '
+            'fill with discfill3.fill_disocclusion (K3) or '
+            'discfill.fill_disocclusion (K11)')
+    H, W = depth.shape
+    best_d = torch.full((H, W), BIG, dtype=depth.dtype)
+    py, px = torch.meshgrid(torch.arange(H), torch.arange(W), indexing='ij')
+    by, bx = py, px
+    bfound = torch.zeros((H, W), dtype=torch.bool)
+    for dx, dy in zip(_DIR_X, _DIR_Y):
+        if abs(dy) >= abs(dx):
+            found, dist, fy, fx = _fill_one_direction(depth, float(dx),
+                                                      float(dy))
+        else:     # transposed, so the line's parameter is the row
+            found, dist, fx, fy = (a.T for a in _fill_one_direction(
+                depth.T.contiguous(), float(dy), float(dx)))
+        better = found & (best_d > dist)
+        best_d = torch.where(better, dist, best_d)
+        by = torch.where(better, fy, by)
+        bx = torch.where(better, fx, bx)
+        bfound = bfound | better
+    take = (depth <= 0.0) & bfound
+    return img[torch.where(take, by, py), torch.where(take, bx, px)]

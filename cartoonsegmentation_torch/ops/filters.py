@@ -1,17 +1,20 @@
 """Spatial filters (port of ``cartoonsegmentation_tpu/ops/filters.py``):
-the asymmetric laplacian validity filter and the 5x5 median (K7).
+the asymmetric laplacian validity filter and the 5x5 and 3x3 medians
+(K7), and ``spatial_filter``, the reference's string dispatch.
 
 Layout (..., H, W, C), channel-last as in the JAX package.
 
 - ``laplacian_filter_plain`` / ``median_filter_plain``: the JAX
   versions' formulation in plain PyTorch (shifted copies; a sort over
-  the 25 taps, NaN last as in JAX's order).
+  the 25 or 9 taps, NaN last as in JAX's order).
 - ``csrc/laplacian.cu``: a shared-memory tile with its halo and one
   thread a pixel. ``csrc/median5.cu``: the tile as order keys (NaN
   above +inf), a thread 8 outputs down a column, each window row
-  sorted once and shared rows merged once for two outputs. The
+  sorted once and shared rows merged once for two outputs.
+  ``csrc/median3.cu``: a thread an output, its 9 taps as the same order
+  keys through a median-of-9 network. The
   wrappers ``laplacian_filter`` and ``median_filter`` pick by device;
-  both results are exact against the plain versions (the median's
+  the results are exact against the plain versions (the medians'
   NaNs where the plain version's are; the sign of a zero output may
   differ).
 """
@@ -88,14 +91,25 @@ def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
 
 
 def median_filter(x: torch.Tensor, size: int) -> torch.Tensor:
-    """K7 wrapper: the plain version on the CPU, csrc/median5.cu on
-    CUDA, which takes size 5 only (the size the Inpaint net uses).
-    x (..., H, W, C) f32."""
+    """K7 wrapper: the plain version on the CPU; on CUDA csrc/median5.cu
+    at size 5 (the Inpaint net's) and csrc/median3.cu at size 3, the
+    sizes the reference's ``spatial_filter`` takes. x (..., H, W, C)
+    f32."""
     if x.device.type == 'cpu':
         return median_filter_plain(x, size)
-    if size != 5:
-        raise ValueError(f'the CUDA median takes size 5, got {size}')
-    return _launch_stencil('median5', x)
+    if size not in (3, 5):
+        raise ValueError(f'the CUDA median takes size 3 or 5, got {size}')
+    return _launch_stencil(f'median{size}', x)
+
+
+def spatial_filter(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """'laplacian', 'median-3' or 'median-5' on (..., H, W, C) (the
+    reference's string API)."""
+    if kind == 'laplacian':
+        return laplacian_filter(x)
+    if kind in ('median-3', 'median-5'):
+        return median_filter(x, int(kind[-1]))
+    raise ValueError(f'unknown spatial filter: {kind}')
 
 
 def valid_depth_mask(disparity: torch.Tensor,

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import logging
 import os
 import subprocess
 import threading
@@ -23,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 SRC = Path(__file__).resolve().parent.parent.parent / 'csrc' / 'patchmatch.cpp'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'

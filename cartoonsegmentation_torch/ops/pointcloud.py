@@ -133,7 +133,7 @@ def splat_plain(points: torch.Tensor, data: torch.Tensor, H: int, W: int,
     zee = degrid(zee[:H * W].reshape(H, W)).reshape(-1)
 
     idx, inb, w = _corners(u, v, H, W)
-    data1 = torch.cat([data, torch.ones_like(data[:, :1])], 1)
+    data1 = torch.cat([data, data.new_ones((data.shape[0], 1))], 1)
     acc = torch.zeros((H * W + 1, C + 1), dtype=data.dtype,
                       device=data.device)
     zref = torch.cat([zee, zee.new_full((1,), BIG)])
@@ -199,6 +199,18 @@ def render_pointcloud(points: torch.Tensor, data: torch.Tensor, H: int,
                               data.float().contiguous(), H, W, float(focal),
                               float(baseline))
     return render, weight
+
+
+def render_coverage(points: torch.Tensor, H: int, W: int, focal,
+                    baseline) -> torch.Tensor:
+    """The number of pixels a full render of ``points`` covers (weight >
+    0): K1 with an empty payload (C = 0), which splats the z-buffer and
+    the weight alone, so the count equals the full render's exactly.
+    Parity: the JAX package's ``render_coverage``."""
+    pts = points.float().contiguous()
+    _, weight, _ = splat(pts, pts.new_zeros((pts.shape[0], 0)), H, W,
+                         float(focal), float(baseline))
+    return (weight > 0.0).sum()
 
 
 def shift_points(points: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -284,6 +296,11 @@ def coverage(points: torch.Tensor, shifts: torch.Tensor, H: int, W: int,
     return counts
 
 
+# the JAX package's name of the coverage search's objective (K2; the
+# port's takes the K shifts and counts each)
+render_coverage_fast = coverage
+
 __all__ = ['BIG', 'coverage', 'coverage_plain', 'coverage_plan', 'degrid',
-           'depth_to_points', 'render_pointcloud', 'shift_points', 'splat',
-           'splat_plain', 'splat_plan', 'true_div']
+           'depth_to_points', 'render_coverage', 'render_coverage_fast',
+           'render_pointcloud', 'shift_points', 'splat', 'splat_plain',
+           'splat_plan', 'true_div']

@@ -42,7 +42,6 @@ copy to the host), ``stages`` collects the verbose stage images that
 """
 from __future__ import annotations
 
-import logging
 import math
 import os
 import queue
@@ -73,7 +72,7 @@ from .depth import (adjust_disparity_by_instances, colorize_gray_r,
                     masked_median_u8)
 from .state import KenBurnsState, PointCloud
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 # the depth estimators and inpaint types of the JAX package that the port

@@ -16,7 +16,6 @@ not RGB (kenburns_effect.py:877).
 """
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,7 +29,7 @@ from ..ops.pointcloud import true_div
 from ..utils.image import resize_linear_u8
 from ..utils.profiling import StageTimer
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 def normalize_pad(canvas_u8: torch.Tensor, image_hw: Sequence[int]

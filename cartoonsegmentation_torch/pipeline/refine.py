@@ -8,7 +8,6 @@ name the JAX package's does.
 """
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 import numpy as np
@@ -22,7 +21,7 @@ from ..models.u2net import ISNetGTEncoder, U2Net
 from ..utils.image import resize_bilinear_aa, resize_bilinear_ac, \
     scaledown_size
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 class ISNetRefiner:

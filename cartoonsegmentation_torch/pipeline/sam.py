@@ -14,7 +14,6 @@ antialias: cv2's float INTER_LINEAR), then thresholded at 0.
 from __future__ import annotations
 
 import hashlib
-import logging
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,7 +27,7 @@ from ..models.sam import (SAM, SAM_MEAN, SAM_STD, init_sam_,
 from ..utils.image import resize_linear_u8
 from ..utils.profiling import StageTimer
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 _BUILDERS = {'vit_b': sam_vit_b, 'vit_l': sam_vit_l, 'vit_h': sam_vit_h}
 

@@ -1,7 +1,9 @@
 """AnimeInsSeg — anime instance segmentation (port of
-``cartoonsegmentation_tpu/pipeline/segment.py``: the single-image
-``infer`` path with its refine step, and the per-instance Danbooru
-tags, ``init_tagger`` / ``infer_tags``).
+``cartoonsegmentation_tpu/pipeline/segment.py``: ``infer`` with its
+refine step, the batch ``infer_batch``, the candidate embeddings
+``infer_embeddings`` and ``segment_with_bboxes``, which decodes masks
+for given boxes, and the per-instance Danbooru tags, ``init_tagger`` /
+``infer_tags``).
 
 detect → score filter → (optional) mask refinement → Instances. The
 mmdet test pipeline is reproduced on the host: keep-ratio resize to
@@ -13,19 +15,21 @@ f32.
 """
 from __future__ import annotations
 
-import logging
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
 from ..instances import Instances
-from ..models.rtmdet import AnimeDetector, postprocess
+from ..models.rtmdet import (AnimeDetector, _top_k_order, box_iou,
+                             candidates, distance2bbox, dynamic_masks,
+                             postprocess)
+from ..ops.pointcloud import true_div
 from ..utils.image import resize_bilinear, resize_linear_u8
 from ..utils.profiling import StageTimer
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 # RTMDet data_preprocessor constants (BGR order, bgr_to_rgb=False)
 _MEAN = (103.53, 116.28, 123.675)
@@ -84,10 +88,15 @@ class AnimeInsSeg:
         if any(k.startswith('model.') for k in sd):
             sd = {k[len('model.'):]: v for k, v in sd.items()
                   if k.startswith('model.')}
-        sd = {k: v for k, v in sd.items()
-              if k.split('.')[0] in ('backbone', 'neck', 'bbox_head')}
+        self.load_variables({k: v for k, v in sd.items() if k.split('.')[0]
+                             in ('backbone', 'neck', 'bbox_head')})
+
+    def load_variables(self, variables) -> None:
+        """Install weights: a state dict of ``AnimeDetector`` (its
+        backbone.*, neck.* and bbox_head.* keys, the mmdet names), loaded
+        strictly into a net of this detector's shape."""
         net = AnimeDetector(*self._shape)
-        net.load_state_dict(sd)
+        net.load_state_dict(variables)
         self.model = net
 
     def _preprocess(self, img_bgr: np.ndarray):
@@ -109,18 +118,23 @@ class AnimeInsSeg:
         canvas[:nh, :nw] = resized.astype(dt)
         return canvas[None], scale, (nh, nw)
 
-    @torch.inference_mode()
-    def _run_device(self, x: np.ndarray) -> dict:
-        """Forward + fixed-shape postprocess at det_size (score_thr 0;
-        _rescale applies the score filter)."""
-        net = self._net()
+    def _forward(self, x: np.ndarray):
+        """The net's head maps of the (B, S, S, 3) canvases."""
         canvas = torch.from_numpy(x).to(self.device)
         inp = normalize_canvas(canvas).permute(0, 3, 1, 2).to(self.dtype)
-        cls_out, reg_out, krn_out, mask_feat = net(inp.contiguous())
-        return postprocess(cls_out, reg_out, krn_out, mask_feat,
-                           score_thr=0.0, mask_thr=self.mask_thr,
+        return self._net()(inp.contiguous())
+
+    def _postprocess(self, maps) -> dict:
+        """Fixed-shape postprocess (K8, K9) of one image's head maps at
+        det_size (score_thr 0; _rescale applies the score filter)."""
+        return postprocess(*maps, score_thr=0.0, mask_thr=self.mask_thr,
                            pre_topk=512, max_det=self.max_instances,
                            input_h=self.det_size, input_w=self.det_size)
+
+    @torch.inference_mode()
+    def _run_device(self, x: np.ndarray) -> dict:
+        """Forward + fixed-shape postprocess of one canvas."""
+        return self._postprocess(self._forward(x))
 
     @staticmethod
     def _rescale(out: dict, h: int, w: int, nh: int, nw: int,
@@ -167,6 +181,108 @@ class AnimeInsSeg:
         if self.refine is not None:
             with self.timer.time('detector_refine', self.device):
                 ins = self.refine(ins, img)
+        return ins
+
+    @torch.inference_mode()
+    def infer_batch(self, imgs: Sequence[Union[str, np.ndarray]],
+                    pred_score_thr: float = 0.3, mesh=None
+                    ) -> List[Instances]:
+        """Detect on several BGR images (or paths) at once: one batched
+        forward, then each image's postprocess (K8, K9) and its rescale
+        as ``infer``'s, refined when a refine method is set. The JAX
+        package's ``mesh`` (images sharded over devices) is not ported:
+        only ``mesh=None`` is taken."""
+        if mesh is not None:
+            raise NotImplementedError(
+                'infer_batch: a device mesh is not ported to '
+                'cartoonsegmentation_torch yet (mesh=None only)')
+        if not len(imgs):
+            return []
+        import cv2
+        imgs = [cv2.imread(p) if isinstance(p, str) else p for p in imgs]
+        out = []
+        with self.timer.time('detector_forward', self.device):
+            pre = [self._preprocess(im) for im in imgs]
+            maps = self._forward(np.concatenate([p[0] for p in pre], 0))
+            for i, (im, (_, scale, (nh, nw))) in enumerate(zip(imgs, pre)):
+                cls_out, reg_out, krn_out, feat = maps
+                one = self._postprocess(
+                    (tuple(t[i:i + 1] for t in cls_out),
+                     tuple(t[i:i + 1] for t in reg_out),
+                     tuple(t[i:i + 1] for t in krn_out), feat[i:i + 1]))
+                h, w = im.shape[:2]
+                masks, xywh, scores, valid = self._rescale(
+                    one, h, w, nh, nw, scale, pred_score_thr)
+                out.append(Instances(masks=masks, bboxes=xywh,
+                                     scores=scores, valid=valid))
+        if self.refine is not None:
+            with self.timer.time('detector_refine', self.device):
+                out = [self.refine(ins, im) for ins, im in zip(out, imgs)]
+        return out
+
+    @torch.inference_mode()
+    def infer_embeddings(self, img: Union[str, np.ndarray],
+                         pre_topk: int = 512):
+        """The top ``pre_topk`` candidates before NMS, by score (ties
+        to the lower index, as lax.top_k): dict(scores, bboxes (xyxy at
+        det_size), kernels (K, 169), priors (K, 2), strides (K,),
+        mask_feat (h, w, 8)), and the image, scale and (nh, nw). Parity:
+        animeinsseg/__init__.py:262-337."""
+        if isinstance(img, str):
+            import cv2
+            img = cv2.imread(img)
+        x, scale, (nh, nw) = self._preprocess(img)
+        cls_out, reg_out, krn_out, mask_feat = self._forward(x)
+        scores, dists, kernels, priors, strides = candidates(
+            cls_out, reg_out, krn_out)
+        top = _top_k_order(scores)[:min(pre_topk, scores.shape[0])]
+        emb = {'scores': scores[top],
+               'bboxes': distance2bbox(priors[top], dists[top]),
+               'kernels': kernels[top], 'priors': priors[top],
+               'strides': strides[top], 'mask_feat': mask_feat[0]}
+        return emb, img, scale, (nh, nw)
+
+    @torch.inference_mode()
+    def segment_with_bboxes(self, img: Union[str, np.ndarray],
+                            bboxes_xyxy: np.ndarray,
+                            min_iou: float = 0.05) -> Instances:
+        """Masks for given xyxy boxes: each box takes the candidate of
+        ``infer_embeddings`` it overlaps most (the first on ties), whose
+        dynamic mask head (K9) gives its probabilities; those are
+        resized to det_size, cropped to the letterboxed image and
+        resized to it (antialiased where it shrinks), > 0.5. A box whose
+        best IoU is under ``min_iou`` comes back invalid. Parity:
+        animeinsseg/__init__.py:339-393."""
+        emb, img, scale, (nh, nw) = self.infer_embeddings(img)
+        h, w = img.shape[:2]
+        dev = emb['scores'].device
+        boxes = torch.from_numpy(np.asarray(bboxes_xyxy, np.float32).reshape(
+            -1, 4)).to(dev) * scale
+        iou = box_iou(boxes, emb['bboxes'])                   # (Q, K)
+        match = iou.argmax(1)
+        ok = iou.amax(1) >= min_iou
+        feat = emb['mask_feat']
+        fh, fw = feat.shape[:2]
+        # K9's probabilities alone: no instance valid, so it writes zero
+        # masks and does not resize
+        _, probs = dynamic_masks(
+            feat, emb['kernels'][match], emb['priors'][match],
+            emb['strides'][match], torch.zeros_like(ok), self.det_size,
+            self.det_size, self.mask_thr)
+        probs = probs.reshape(1, -1, fh, fw)
+        probs = torch.nn.functional.interpolate(
+            probs, size=(self.det_size, self.det_size), mode='bilinear',
+            align_corners=False)[..., :nh, :nw]
+        masks = torch.nn.functional.interpolate(
+            probs, size=(h, w), mode='bilinear', align_corners=False,
+            antialias=True)[0] > 0.5
+        matched = true_div(emb['bboxes'][match], float(scale))
+        xywh = torch.cat([matched[:, :2], matched[:, 2:] - matched[:, :2]], 1)
+        ins = Instances(masks=masks & ok[:, None, None],
+                        bboxes=torch.round(xywh) * ok[:, None],
+                        scores=emb['scores'][match] * ok, valid=ok)
+        if self.refine is not None:
+            ins = self.refine(ins, img)
         return ins
 
     def set_refine_method(self, refine_method: str = 'none',

@@ -13,7 +13,6 @@ package serves the other.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import os.path as osp
 from dataclasses import dataclass, field
@@ -27,7 +26,7 @@ from ..ops.inpaint_fill import inpaint as fill_inpaint
 from ..serving.sd_webui import (b64_2img, img2b64, run_img2img,
                                 run_sdinpaint_all)
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 def long_side_to(h: int, w: int, long_side: int):

@@ -1,2 +1,3 @@
-"""Out-of-process service seams of the port: the stable-diffusion-webui
-HTTP client (``sd_webui.py``)."""
+"""Service seams of the port: the interactive Ken Burns server and its
+browser UI (``interface.py``, ``webui.py``) and the
+stable-diffusion-webui HTTP client (``sd_webui.py``)."""

@@ -13,7 +13,6 @@ from __future__ import annotations
 import base64
 import copy
 import json
-import logging
 import time
 import urllib.request
 from typing import Dict, Optional, Tuple
@@ -22,7 +21,7 @@ import numpy as np
 
 from ..utils.io import b64_2img, img2b64  # noqa: F401 — re-exported seam
 
-LOGGER = logging.getLogger('cartoonsegmentation_torch')
+from ..utils.logger import LOGGER
 
 
 def _request(url: str, data: Optional[str], auth: Optional[Tuple[str, str]],

@@ -1,6 +1,6 @@
-"""Category list and colour palette (the port's own copy of
-``cartoonsegmentation_tpu/utils/constants.py``): the palette colours
-the drawn instances, the categories the COCO export."""
+"""Category list, colour palette, tags and checkpoint paths (the port's
+own copy of ``cartoonsegmentation_tpu/utils/constants.py``): the
+palette colours the drawn instances, the categories the COCO export."""
 from __future__ import annotations
 
 CATEGORIES = [
@@ -29,3 +29,18 @@ def get_color(idx: int, bgr: bool = True):
         return (255, 255, 255)
     c = PALETTE[int(idx) % len(PALETTE)]
     return (c[2], c[1], c[0]) if bgr else c
+
+
+MULTIPLE_TAGS = {
+    '2girls', '3girls', '4girls', '5girls', '6+girls', 'multiple_girls',
+    '2boys', '3boys', '4boys', '5boys', '6+boys', 'multiple_boys',
+    '2others', '3others', '4others', '5others', '6+others', 'multiple_others',
+}
+
+# default checkpoint locations (the published torch checkpoints)
+DEFAULT_DETECTOR_CKPT = 'models/AnimeInstanceSegmentation/rtmdetl_e60.ckpt'
+DEFAULT_DEPTHREFINE_CKPT = \
+    'models/AnimeInstanceSegmentation/kenburns_depth_refinenet.ckpt'
+DEFAULT_INPAINTNET_CKPT = \
+    'models/AnimeInstanceSegmentation/kenburns_inpaintnet.ckpt'
+DEPTH_ZOE_CKPT = 'models/AnimeInstanceSegmentation/ZoeD_M12_N.pt'

@@ -71,6 +71,70 @@ def scaledown_maxsize(img: np.ndarray, max_size: int,
     return out.numpy().astype(img.dtype)
 
 
+def resize_pad(img: np.ndarray, tgt_size: int, pad_value=0):
+    """Scale the long side down to tgt_size, pad bottom/right to a
+    square. Returns (img, (pad_top, pad_bottom, pad_left, pad_right))."""
+    img = scaledown_maxsize(img, tgt_size)
+    h, w = img.shape[:2]
+    padb, padr = tgt_size - h, tgt_size - w
+    if padb > 0 or padr > 0:
+        pad_width = [(0, padb), (0, padr)] + [(0, 0)] * (img.ndim - 2)
+        img = np.pad(img, pad_width, constant_values=pad_value)
+    return img, (0, padb, 0, padr)
+
+
+def square_pad_resize(img: np.ndarray, tgt_size: int, pad_value: int = 114):
+    """Pad bottom/right to a square (at least tgt_size), then shrink to
+    (tgt_size, tgt_size) with cv2's INTER_AREA (a bilinear resize with
+    antialias without cv2). Returns (img, scale, pad_h, pad_w)."""
+    h, w = img.shape[:2]
+    pad_h, pad_w = 0, 0
+    if w < h:
+        pad_w = h - w
+        w += pad_w
+    elif h < w:
+        pad_h = w - h
+        h += pad_h
+    pad_size = tgt_size - h
+    if pad_size > 0:
+        pad_h += pad_size
+        pad_w += pad_size
+    if pad_h > 0 or pad_w > 0:
+        pad_width = [(0, pad_h), (0, pad_w)] + [(0, 0)] * (img.ndim - 2)
+        img = np.pad(img, pad_width, constant_values=pad_value)
+    scale = tgt_size / img.shape[0]
+    if scale < 1:
+        cv2 = _cv2()
+        if cv2 is not None:
+            img = cv2.resize(img, (tgt_size, tgt_size),
+                             interpolation=cv2.INTER_AREA)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(img)).float()
+            x = x if x.ndim == 3 else x[..., None]
+            out = resize_bilinear_aa(x, tgt_size, tgt_size)
+            out = out if img.ndim == 3 else out[..., 0]
+            img = out.numpy().astype(img.dtype)
+    return img, scale, pad_h, pad_w
+
+
+def pad2divisor(img: np.ndarray, divisor: int, value=0):
+    """Pad bottom/right up to multiples of ``divisor``. Returns (img,
+    (pad_h, pad_w))."""
+    h, w = img.shape[:2]
+    pad_h = int(np.ceil(h / divisor)) * divisor - h
+    pad_w = int(np.ceil(w / divisor)) * divisor - w
+    if pad_h or pad_w:
+        pad_width = [(0, pad_h), (0, pad_w)] + [(0, 0)] * (img.ndim - 2)
+        img = np.pad(img, pad_width, constant_values=value)
+    return img, (pad_h, pad_w)
+
+
+def to_float_chw(img: np.ndarray) -> np.ndarray:
+    """uint8 HWC → float32 HWC in [0, 1] (the layout stays channel-last,
+    as in the JAX package, despite the name)."""
+    return img.astype(np.float32) / 255.0
+
+
 # OpenCV's fixed-point linear resize of 8-bit images (imgproc/resize.cpp)
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS

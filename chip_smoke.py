@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the 21 CUDA
+1. prints the card, torch and CUDA versions, and builds the 22 CUDA
    kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
    once;
 2. takes the host's cost of one kernel call apart (``host_phase``:
@@ -14,10 +14,11 @@
    the main paths' shapes (576x1024; K1 with C = 4, C = 68 and C = 4
    with 4,096 copies of one point, as the main path's cloud has; K6 over
    100 instance slots, also on a map with NaN and +-inf values, its
-   scratch left zero; K7's median-5 also on taps of NaN, +-inf and
-   +-0 (NaN outputs where the plain version has them); K8 over the top
+   scratch left zero; K7's median-5 and 3x3 median also on taps of NaN,
+   +-inf and +-0 (NaN outputs where the plain version has them; the
+   3x3 median bit for bit where no tap is zero); K8 over the top
    512 boxes, and K8 and K14b on scores with +-0.0 and NaNs; K9 at 100
-   x 640x640; K6, the median-5, K8 and K9 each one kernel a call,
+   x 640x640; K6, both medians, K8 and K9 each one kernel a call,
    counted as the nodes of a captured CUDA graph;
    K5a at the path's crop and at a crop kept at its size, on the
    filled view and on contiguous frames, through ``frame_epilogue``
@@ -72,6 +73,16 @@
    row of the last output, the valid instances);
 7. runs the main path again warm, and profiles 16 frames of the render
    loop (host enqueue time, device busy share, device time by kernel);
+   then ``[serve]`` (``serve_phase``: that pipeline behind the port's
+   server on 127.0.0.1, every request over HTTP: /health, /load_image,
+   /get_live at t = 0, 0.5, 1, /update_to, /step_inpaint, /get_result
+   decoded with cv2, /segment, three MJPEG parts; any status but 200
+   fails; the t = 0.5 frame against the card's and the CPU's renders;
+   K1-K10 launched; the routes' seconds) and ``[segment_api]``
+   (``segment_api_phase``: infer_batch against infer, segment_with_bboxes
+   at Q = 5 with K9's probabilities against its plain version,
+   render_coverage as K1 at C = 0 against the plain version and K2 at
+   zero shift, timed; spatial_filter('median-3'));
    then the options clip (``options_phase``): the shipped default with
    ``refine_method: animeseg`` (ISNet-IS at 1024, its logits centred on
    the image, ``edged_animeseg``), ``depth_est: default`` with
@@ -1474,6 +1485,7 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
           f'ms', flush=True)
     res['median5']['one_launch'] = one_launch(
         lambda: filters.median_filter(existing[0], 5), 'median5')
+    res['median3'] = check_median3(gen, x, existing, disp)
     # the laplacian as one library call: a cuDNN convolution with
     # replicate padding, f32 without TF32
     conv = torch.nn.Conv2d(1, 1, 3, padding=1, padding_mode='replicate',
@@ -1524,6 +1536,49 @@ def check_detector_kernels(dev, gen, depth_maps, existing) -> dict:
     res['maskhead']['one_launch'] = one_launch(
         lambda: rtmdet.dynamic_masks(*heads[0]), 'maskhead')
     return res
+
+
+def check_median3(gen, taps, existing, disp) -> dict:
+    """K7's 3x3 median (``spatial_filter('median-3')``) against its plain
+    version: exact on the Inpaint net's `existing` maps and on
+    disparities; on the median-5 check's taps (NaN of both signs, ±inf,
+    ±0) NaN where the plain version has NaN and the rest equal (the sign
+    of a zero free, as the median-5's); on the same taps with the zeros
+    replaced by 1 every non-NaN output bit for bit. Timed as the
+    median-5; the bound counts the bytes (each value read and written
+    once) against 19 compare-exchanges (38 integer min/max) a pixel."""
+    from cartoonsegmentation_torch.ops import filters
+    for x in existing[:2] + disp[:2]:
+        if not torch.equal(filters.median_filter(x, 3),
+                           filters.median_filter_plain(x, 3)):
+            fail('median-3 differs from the plain version')
+    for tag, x in (('NaN (both signs), +-inf and +-0 taps', taps),
+                   ('the same taps without zeros',
+                    torch.where(taps == 0, torch.ones_like(taps), taps))):
+        got = filters.median_filter(x, 3)
+        want = filters.median_filter_plain(x, 3)
+        nan = torch.isnan(want)
+        same = torch.equal(torch.isnan(got), nan) and (
+            torch.equal(got[~nan].view(torch.int32),
+                        want[~nan].view(torch.int32)) if tag.endswith(
+                            'zeros') else torch.equal(got[~nan], want[~nan]))
+        if not same:
+            fail(f'median-3 differs from the plain version on {tag}')
+        print(f'[kernel] median3 on {tag}: {int(nan.sum())} NaN outputs '
+              f'where the plain version has them, the rest '
+              f'{"bit for bit" if tag.endswith("zeros") else "equal"}',
+              flush=True)
+    b, by = bound(H * W * 8, H * W * 38)
+    ms = time_ms(lambda x: filters.median_filter(x, 3), existing)
+    plain_ms = time_ms(lambda x: filters.median_filter_plain(x, 3), existing)
+    dev_ms = graph_ms(lambda x: filters.median_filter(x, 3), existing[0])
+    print(f'[kernel] median3 {H}x{W}: kernel {ms:.4f} ms (device '
+          f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b:.4f} ms '
+          f'({by}), exact', flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, device_ms=dev_ms, one_launch=one_launch(
+                    lambda: filters.median_filter(existing[0], 3),
+                    'median3'))
 
 
 def signed_scores(gen: torch.Generator, K: int) -> torch.Tensor:
@@ -3686,7 +3741,7 @@ def depth_clip(det_net, isnet, img: np.ndarray, seed: int, est: str,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
                          'nms_large', 'kmeans', 'crf', 'swinattn',
-                         'pushpull', 'jitter')])
+                         'pushpull', 'jitter', 'median3')])
     check_instances(pipe, est)
     d = pipe.last_state.disparity
     holes = fill_walks([x[1] for x in real_fill_inputs(pipe)])['hole_share']
@@ -4183,6 +4238,287 @@ def cli_phase(root: str, seed: int, pipe) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _http(base: str, route: str, data: bytes = None, timeout: int = 600):
+    """(content type, body, seconds) of a GET (a POST with data) to the
+    server; any status but 200 fails the run."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                base + route, data=data), timeout=timeout) as r:
+            ctype, body = r.headers['Content-Type'], r.read()
+    except urllib.error.HTTPError as e:
+        fail(f'serve: {route} answered {e.code}: {e.read()[:300]!r}')
+    return ctype, body, time.perf_counter() - t0
+
+
+def serve_phase(pipe, img: np.ndarray) -> dict:
+    """[serve]: the shipped default pipeline of the main path (edged
+    nets) behind the port's server (``serve(..., block=False,
+    segmentor=...)`` on 127.0.0.1:0), driven over HTTP with urllib:
+    /health, POST /load_image, /get_live at t = 0, 0.5 (again, cached)
+    and 1, POST /update_to, /step_inpaint, /get_result (its mp4 decoded
+    with cv2), /segment without tags, three parts of the MJPEG stream.
+    The t = 0.5 frame, decoded, against the card's render of the
+    service's state, JPEG-coded the same way, and that render against
+    the plain versions on the CPU (each >= 99.5% of values within 1 LSB:
+    the splat's sums are summed in an order its atomics pick);
+    /segment's instances are ``infer``'s on the same image. Returns the
+    launches of the requests."""
+    import cv2
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.pipeline.kenburns import KenBurnsPipeline
+    from cartoonsegmentation_torch.serving.interface import serve
+    srv = serve(pipe, '127.0.0.1', 0, block=False, segmentor=pipe._detector)
+    svc = srv.service
+    base = f'http://127.0.0.1:{srv.server_address[1]}'
+    png = cv2.imencode('.png', img)[1].tobytes()
+    T = pipe.cfg.num_frame
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        health = json.loads(_http(base, '/health')[1])
+        if not health['ok'] or health['loaded']:
+            fail(f'serve: /health {health}')
+        _, body, load_s = _http(base, '/load_image', png)
+        meta = json.loads(body)
+        if (meta['height'], meta['width']) != img.shape[:2]:
+            fail(f'serve: /load_image meta {meta}')
+        live = {}
+        for t in (0.0, 0.5, 1.0):
+            ctype, body, sec = _http(base, f'/get_live?fltTime={t}')
+            if ctype != 'image/jpeg':
+                fail(f'serve: /get_live answered {ctype}')
+            live[t] = (body, 1e3 * sec)
+        _, cached, sec = _http(base, '/get_live?fltTime=0.5')
+        cached_ms = 1e3 * sec
+        if cached != live[0.5][0]:
+            fail('serve: the cached /get_live frame differs')
+        # the route's frame against the card's render of the state, and
+        # that render against the plain versions on the CPU
+        steps = np.asarray([0.5], np.float32)
+        with torch.inference_mode():
+            fk = pipe.render_frames(svc.state, svc.obj_from, svc.obj_to,
+                                    steps, depth_field=False)
+        cpu = KenBurnsPipeline(pipe.cfg, device='cpu')
+        fp = cpu.render_frames(svc.state.to('cpu'), svc.obj_from, svc.obj_to,
+                               steps, depth_field=False)
+
+        def jpeg(f):
+            return cv2.imdecode(cv2.imencode(
+                '.jpg', f, [cv2.IMWRITE_JPEG_QUALITY, 80])[1],
+                cv2.IMREAD_COLOR)
+        route = cv2.imdecode(np.frombuffer(live[0.5][0], np.uint8),
+                             cv2.IMREAD_COLOR)
+        for tag, a, b in (('the card\'s render, JPEG-coded', route,
+                           jpeg(fk[0])),
+                          ('the plain versions (CPU), raw', fk, fp)):
+            diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            close = float((diff <= 1).mean())
+            print(f'[serve] /get_live t=0.5 vs {tag}: {close:.5f} of values '
+                  f'within 1 LSB, max diff {int(diff.max())}', flush=True)
+            if close < 0.995:
+                fail(f'serve: the live frame against {tag}: only '
+                     f'{close:.4f} of values within 1 LSB')
+        box = dict(meta['objTo'], center_u=meta['objTo']['center_u'] + 8.0)
+        if json.loads(_http(base, '/update_to',
+                            json.dumps(box).encode())[1]) != {'ok': True}:
+            fail('serve: /update_to')
+        st = json.loads(_http(base, '/step_inpaint', b'{}')[1])
+        if not st['ok'] or not svc.inpainted:
+            fail(f'serve: /step_inpaint {st}')
+        ctype, clip, result_s = _http(base, '/get_result')
+        tmp = tempfile.mkdtemp(prefix='serve_', dir=str(_cuda.BUILD_DIR))
+        try:
+            path = os.path.join(tmp, 'result.mp4')
+            with open(path, 'wb') as f:
+                f.write(clip)
+            frames = decode_video(path)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        want = T + (T - 2 if pipe.cfg.playback else 0)
+        if ctype != 'video/mp4' or len(frames) != want or \
+                frames[0].shape != img.shape:
+            fail(f'serve: /get_result {ctype}, {len(frames)} frames, '
+                 f'expected {want} ({T} and the palindrome tail)')
+        seg = json.loads(_http(base, '/segment', png)[1])
+        if 'note' in seg:
+            fail(f'serve: /segment noted {seg["note"]}')
+        with torch.inference_mode():
+            ins = pipe._detector.infer(img)
+        valid = ins.valid.cpu().numpy()
+        want_boxes = [[float(v) for v in b]
+                      for b in ins.bboxes.cpu().numpy()[valid]]
+        got_boxes = [r['bbox'] for r in seg['instances']]
+        if got_boxes != want_boxes or not got_boxes:
+            fail(f'serve: /segment boxes {got_boxes} are not infer\'s '
+                 f'{want_boxes}')
+        import urllib.request
+        with urllib.request.urlopen(base + '/get_live', timeout=600) as r:
+            buf = b''
+            while buf.count(b'--frame') < 4:
+                chunk = r.read1(1 << 16)
+                if not chunk:
+                    fail('serve: the MJPEG stream ended')
+                buf += chunk
+        for part in buf.split(b'--frame')[1:4]:
+            f = cv2.imdecode(np.frombuffer(
+                part.split(b'\r\n\r\n', 1)[1].rstrip(b'\r\n'), np.uint8),
+                cv2.IMREAD_COLOR)
+            if f is None or f.shape != img.shape:
+                fail('serve: an MJPEG part does not decode to a frame')
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f'[serve] {card_line()}: /load_image {load_s:.3f} s, /get_live '
+          f'first {live[0.0][1]:.1f} ms (t=0), t=0.5 first '
+          f'{live[0.5][1]:.1f} ms, cached {cached_ms:.1f} ms, /get_result '
+          f'{result_s:.3f} s ({len(frames)} frames), /segment '
+          f'{len(got_boxes)} instances = infer\'s; 3 MJPEG parts; launches '
+          f'{launches}', flush=True)
+    return launches
+
+
+def segment_api_phase(det_net, img: np.ndarray, state, cfg, seed: int
+                      ) -> tuple:
+    """[segment_api]: the detector's API on the card with the edged
+    detector in f32 (no refine; its boxes given an area): ``infer_batch`` on 3 images against 3
+    ``infer`` calls (validity exact, boxes within 1e-3 px, masks >=
+    99.9%); ``segment_with_bboxes`` with Q = 5 boxes (K9's probabilities
+    at the matched candidates within 1e-5 of its plain version, one K9
+    launch, valid and masks against the CPU's); ``render_coverage`` (K1
+    at C = 0) on the main clip's cloud unshifted, its count equal to
+    the plain version's and at most K2's at zero shift, timed; and
+    ``spatial_filter('median-3')`` once. Returns (the launches of the
+    API calls, K1 at C = 0's timings)."""
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.ops import _cuda, filters, pointcloud
+    from cartoonsegmentation_torch.pipeline.segment import AnimeInsSeg
+
+    def seg(dev):
+        s = AnimeInsSeg(dtype='float32', device=dev, seed=seed)
+        s.model = copy.deepcopy(det_net).float()
+        # a random trunk's box distances sit near relu(0) = 0, so every
+        # candidate's box is empty and no given box matches one: the
+        # reg convs' bias puts each prior's box ~8 strides wide
+        with torch.no_grad():
+            for conv in s.model.bbox_head.rtm_reg:
+                conv.bias.fill_(4.0)
+        return s
+    det, cpu_det = seg('cuda'), seg('cpu')
+    imgs = [img, make_image(seed + 1), make_image(seed + 2, 480, 360)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    batch = det.infer_batch(imgs)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    for i, (im, got) in enumerate(zip(imgs, batch)):
+        want = det.infer(im)
+        if not torch.equal(got.valid, want.valid):
+            fail(f'segment_api: infer_batch image {i} validity differs '
+                 f'from infer')
+        v = want.valid
+        err = float((got.bboxes[v] - want.bboxes[v]).abs().max()) \
+            if bool(v.any()) else 0.0
+        share = float((got.masks == want.masks).float().mean())
+        print(f'[segment_api] infer_batch image {i} {im.shape[:2]}: '
+              f'{int(v.sum())} valid = infer\'s, boxes within {err:.3g} px, '
+              f'masks {share:.5f} equal', flush=True)
+        if err > 1e-3 or share < 0.999:
+            fail(f'segment_api: infer_batch image {i} against infer: boxes '
+                 f'{err}, masks {share}')
+    # the image boxes of the 4 best candidates with an area (a random
+    # net's boxes are often empty) and one far outside the image
+    emb, _, scale, _ = det.infer_embeddings(img)
+    cand = emb['bboxes']
+    wide = ((cand[:, 2] - cand[:, 0] > 2) & (cand[:, 3] - cand[:, 1] > 2))
+    boxes = np.concatenate([
+        (cand[wide][:4] / scale).cpu().numpy(),
+        [[-900.0, -900.0, -800.0, -800.0]]]).astype(np.float32)
+    if len(boxes) != 5:
+        fail(f'segment_api: {len(boxes) - 1} candidates with an area')
+    match = rtmdet.box_iou(torch.from_numpy(boxes).cuda() * scale,
+                           emb['bboxes']).argmax(1)
+    args = [emb['mask_feat'], emb['kernels'][match], emb['priors'][match],
+            emb['strides'][match], torch.zeros(5, dtype=torch.bool,
+                                               device='cuda'),
+            det.det_size, det.det_size, det.mask_thr]
+    pk = rtmdet.dynamic_masks(*args)[1]
+    pp = rtmdet.dynamic_masks_plain(*args)[1]
+    perr = float((pk - pp).abs().max())
+    before = _cuda.LAUNCHES['maskhead']
+    got = det.segment_with_bboxes(img, boxes)
+    torch.cuda.synchronize()
+    n_k9 = _cuda.LAUNCHES['maskhead'] - before
+    launches['maskhead'] += n_k9
+    want = cpu_det.segment_with_bboxes(img, boxes)
+    share = float((got.masks.cpu() == want.masks).float().mean())
+    print(f'[segment_api] segment_with_bboxes Q=5: K9 probabilities within '
+          f'{perr:.3g} of the plain version, {n_k9} K9 launch, valid '
+          f'{got.valid.cpu().tolist()}, masks {share:.5f} equal to the '
+          f'CPU\'s', flush=True)
+    if perr > 1e-5 or n_k9 != 1 or share < 0.999 or not torch.equal(
+            got.valid.cpu(), want.valid) or got.valid.cpu().tolist() != [
+                True] * 4 + [False]:
+        fail('segment_api: segment_with_bboxes against its plain version '
+             'and the CPU')
+
+    # K1 at C = 0 on the clip's cloud at zero shift
+    pts = pointcloud.shift_points(state.raw_points,
+                                  torch.zeros(3, device='cuda')).contiguous()
+    f, b = cfg.focal, cfg.baseline
+    before = _cuda.LAUNCHES['splat']
+    count = int(pointcloud.render_coverage(pts, H, W, f, b))
+    launches['splat'] += _cuda.LAUNCHES['splat'] - before
+    _, wp, _ = pointcloud.splat_plain(pts, pts.new_zeros((len(pts), 0)), H,
+                                      W, f, b)
+    plain = int((wp > 0).sum())
+    k2 = int(pointcloud.coverage(pts, torch.zeros((1, 3), device='cuda'), H,
+                                 W, f, b)[0])
+    # K2 counts without the z-test, so it covers a superset: the pixels
+    # whose every contributor the degrid-lowered z-buffer rejects are
+    # its alone (JAX's render_coverage_fast docstring)
+    print(f'[segment_api] render_coverage (K1 at C = 0) on the main clip\'s '
+          f'{len(pts)} points: {count} pixels, plain {plain}, K2 at zero '
+          f'shift {k2} ({k2 - count} pixels without the z-test)',
+          flush=True)
+    if count != plain or k2 < count:
+        fail('segment_api: render_coverage differs from the plain version '
+             'or counts more than K2 at zero shift')
+    shifted = [pointcloud.shift_points(pts, torch.tensor(
+        [0.3 * i, -0.2 * i, 0.5 * i], device='cuda')).contiguous()
+        for i in range(RUNS)]
+    zero = pts.new_zeros((len(pts), 0))
+    nv = int((pts[:, 2] >= 0.001).sum())
+    bnd, by = bound(nv * 12 + (len(pts) - nv) * 4 + H * W * 8,
+                    nv * (22 + 4 * 2))
+    c0 = dict(
+        max_abs_err=0.0, bound_ms=bnd, bound_by=by,
+        ms=time_ms(lambda x: pointcloud.render_coverage(x, H, W, f, b),
+                   shifted),
+        plain_ms=time_ms(lambda x: (pointcloud.splat_plain(
+            x, zero, H, W, f, b)[1] > 0).sum(), shifted),
+        device_ms=graph_ms(lambda x: pointcloud.splat(x, zero, H, W, f, b),
+                           shifted[0]))
+    print(f'[kernel] splat c0 (render_coverage) P={len(pts)}: kernel '
+          f'{c0["ms"]:.4f} ms (device {c0["device_ms"]:.4f} ms), plain '
+          f'{c0["plain_ms"]:.4f} ms, bound {bnd:.4f} ms ({by})', flush=True)
+
+    before = _cuda.LAUNCHES['median3']
+    filters.spatial_filter((state.disparity / 40.0).contiguous(), 'median-3')
+    launches['median3'] += _cuda.LAUNCHES['median3'] - before
+    return launches, c0
+
+
+# K1-K10: the kernels of the shipped default's clip and of the server's
+# routes on it
+K1_K10 = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
+          'laplacian', 'nms', 'maskhead', 'epilogue', 'colorize', 'compact')
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description='GPU smoke run of the port')
     ap.add_argument('--seed', type=int, default=0)
@@ -4261,7 +4597,7 @@ def main() -> None:
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
                          'nms_large', 'kmeans', 'crf', 'swinattn',
-                         'pushpull', 'jitter')])
+                         'pushpull', 'jitter', 'median3')])
     check_instances(pipe, 'main')
     cloud_copies(pipe, 'main')
     res['discfill_real'] = check_fill_real(real_fill_inputs(pipe))
@@ -4288,6 +4624,16 @@ def main() -> None:
     pipe.timer.reset()
     run_clip(pipe, img, 'warm')
     profile_frame_loop(pipe, state, obj_from, obj_to)
+
+    # 7a. [serve]: the port's server on the main path's pipeline, over
+    # HTTP; [segment_api]: the rest of the detector's API, K1 at C = 0
+    # and the 3x3 median ------------------------------------------------
+    launches_serve = serve_phase(pipe, img)
+    require_launches('serve', launches_serve, K1_K10)
+    launches_seg, res['splat_c0'] = segment_api_phase(det_net, img, state,
+                                                      pipe.cfg, args.seed)
+    require_launches('segment_api', launches_seg,
+                     ('splat', 'nms', 'maskhead', 'median3'))
     del pipe, state
 
     # 7b. the options clip: the animeseg refine, the 3D-Ken-Burns depth
@@ -4373,7 +4719,8 @@ def main() -> None:
     require_launches('crf', launches_crf,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
-                         'nms_large', 'swinattn', 'pushpull', 'jitter')])
+                         'nms_large', 'swinattn', 'pushpull', 'jitter',
+                         'median3')])
     print(f'[crf] depth_refine {cp.timer.seconds["depth_refine"]:.3f} s: '
           f'{launches_crf["kmeans"]} segments reached the CRF, '
           f'{launches_crf["kmeans"]} kmeans and {launches_crf["crf"]} crf '
@@ -4427,9 +4774,10 @@ def main() -> None:
     rows = [
         # the frame loop's C = 4; the Inpaint net's C = 68 and C = 4 with
         # the copies of one point beside it
+        # render_coverage's C = 0 beside them
         ('splat', res['splat_c4'], 'ops/pointcloud.py:121',
          {f'{k}_{tag}': res[f'splat_{tag}'][k]
-          for tag in ('c68', 'c4_copies')
+          for tag in ('c68', 'c4_copies', 'c0')
           for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                     'device_ms')}),
         # the synthetic miniature; the shipped default clip's own beside
@@ -4441,6 +4789,8 @@ def main() -> None:
         ('bokeh', res['bokeh'], 'ops/bokeh.py:253', {}),
         ('insmedian', res['insmedian'], 'pipeline/depth.py:67', {}),
         ('median5', res['median5'], 'ops/filters.py:42', {}),
+        # the same function at size 3 (spatial_filter('median-3'))
+        ('median3', res['median3'], 'ops/filters.py:42', {}),
         ('laplacian', res['laplacian'], 'ops/filters.py:26', {}),
         # the synthetic cases; the shipped default's own calls beside
         ('nms', res['nms'], 'models/rtmdet.py:194',
@@ -4510,12 +4860,13 @@ def main() -> None:
              'crf': launches_crf, 'tagger': launches_tag,
              'style': launches_style, 'clip 683x1024': launches_odd,
              'options': launches_opt, 'ldm': launches_ldm,
+             'serve': launches_serve, 'segment_api': launches_seg,
              **launches_depth, **launches_diff}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,
                 'swinattn': launches_tag, 'pushpull': launches_style,
-                'jitter': launches_style}
+                'jitter': launches_style, 'median3': launches_seg}
     kernels = []
     for name, r, where, extra in rows:
         # one PyTorch call computes the laplacian (a convolution) and

@@ -153,10 +153,11 @@ def _case(name, rng, dev):
         x = _t(rng.rand(2, 37, 53, 3).astype(np.float32), dev)
         return (lambda: tfilters.laplacian_filter(x),
                 lambda: tfilters.laplacian_filter_plain(x), _exact)
-    if name == 'median5':
+    if name in ('median5', 'median3'):
+        size = int(name[-1])
         x = _t((rng.rand(1, 37, 53, 1) > 0.5).astype(np.float32), dev)
-        return (lambda: tfilters.median_filter(x, 5),
-                lambda: tfilters.median_filter_plain(x, 5), _exact)
+        return (lambda: tfilters.median_filter(x, size),
+                lambda: tfilters.median_filter_plain(x, size), _exact)
     if name in ('splat', 'coverage'):
         pts = _cloud(rng, 5000).to(dev)
         if name == 'coverage':
