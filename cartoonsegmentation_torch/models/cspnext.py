@@ -5,7 +5,8 @@ Modules keep mmdet's checkpoint key names (``backbone.stem.0.conv``,
 ``stage1.1.blocks.0.conv2.depthwise_conv``, ``neck.reduce_layers.0``
 …), so ``rtmdetl_e60.ckpt`` loads with ``load_state_dict``. Every conv
 is bias-free + BatchNorm + SiLU; ``deepen`` and ``widen`` scale depth
-and width (L = 1.0 / 1.0) so that tests can run narrow.
+and width (L = 1.0 / 1.0) so that tests can run narrow. In train mode
+the BatchNorms follow flax's rule (``BatchNorm2d``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,34 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (its keys and its eval mode) whose train mode is
+    the JAX package's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` under
+    flax's defaults: batch statistics in f32 with the fast variance
+    E[x²] − E[x]² clipped at 0, which normalises the batch and, biased as
+    it is, also updates ``running_var`` (torch's own train mode stores
+    the unbiased variance); running = 0.9 · running + 0.1 · batch."""
+
+    MOMENTUM = 0.9
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class ConvBNAct(nn.Module):
     """conv → BN → SiLU (mmcv ConvModule)."""
 
@@ -24,7 +53,7 @@ class ConvBNAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm2d(cout, eps=1e-5)
         self.act = act
 
     def forward(self, x):

@@ -15,6 +15,16 @@ Two kernels run in ``postprocess``:
   1x1 convs summed in input order, sigmoid, bilinear x8 upsample,
   threshold) for CPU tensors, ``csrc/maskhead.cu`` (one launch) for
   CUDA ones.
+
+One runs in training (``parallel/train.py:detector_loss``):
+- K9t ``dynamic_mask_heads_train``: the heads' logits of a batch under
+  autograd; ``dynamic_mask_heads_plain`` for CPU tensors,
+  ``csrc/dynhead_fwd.cu`` and ``csrc/dynhead_bwd.cu`` (a
+  ``torch.autograd.Function``) for CUDA ones.
+
+In train mode the BatchNorms follow flax's rule
+(``cspnext.BatchNorm2d``); ``init_flax_`` draws Flax's default
+initialisers from a generator.
 """
 from __future__ import annotations
 
@@ -36,6 +46,10 @@ WEIGHT_NUMS = ((NUM_PROTOTYPES + 2) * DYCONV_CHANNELS,
                DYCONV_CHANNELS * DYCONV_CHANNELS, DYCONV_CHANNELS * 1)
 BIAS_NUMS = (DYCONV_CHANNELS, DYCONV_CHANNELS, 1)
 NUM_GEN_PARAMS = sum(WEIGHT_NUMS) + sum(BIAS_NUMS)  # 169
+# pixels a block of K9t's kernels takes (csrc/dynhead_common.cuh:
+# kDynTile); its backward sums each tile's parameter partials in pixel
+# order, then the tiles in order
+DYNHEAD_TILE = 256
 
 
 class MaskFeatModule(nn.Module):
@@ -283,6 +297,124 @@ def dynamic_mask_heads(mask_feat: torch.Tensor, kernels: torch.Tensor,
         if li < len(layers) - 1:
             x = torch.relu(x)
     return x[..., 0]
+
+
+def dynamic_mask_heads_plain(mask_feat: torch.Tensor, kernels: torch.Tensor,
+                             priors_xy: torch.Tensor, strides: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain version of K9t: ``dynamic_mask_heads`` of each image of a
+    batch, differentiable by autograd. mask_feat (B, h, w, 8), kernels
+    (B, K, 169), priors_xy (B, K, 2), strides (B, K) → logits (B, K, h,
+    w)."""
+    return torch.stack([dynamic_mask_heads(*a) for a in zip(
+        mask_feat, kernels, priors_xy, strides)])
+
+
+def _dynhead_args(mask_feat, kernels, priors_xy, strides):
+    dev = mask_feat.device
+    args = [t.contiguous() for t in (mask_feat, kernels, priors_xy, strides)]
+    for t, name, nd in zip(args, ('mask_feat', 'kernels', 'priors_xy',
+                                  'strides'), (4, 3, 3, 2)):
+        _cuda.check(t, name, torch.float32, nd, dev)
+    B, h, w, C = args[0].shape
+    K = args[1].shape[1]
+    if C != NUM_PROTOTYPES or tuple(args[1].shape) != (B, K, NUM_GEN_PARAMS) \
+            or tuple(args[2].shape) != (B, K, 2) \
+            or tuple(args[3].shape) != (B, K):
+        raise ValueError('dynamic heads: shapes do not match (B, h, w, 8), '
+                         '(B, K, 169), (B, K, 2), (B, K)')
+    return args, (B, K, h, w)
+
+
+def dynhead_forward(mask_feat, kernels, priors_xy, strides) -> torch.Tensor:
+    """K9t's forward on CUDA tensors (csrc/dynhead_fwd.cu, one launch):
+    (B, h, w, 8), (B, K, 169), (B, K, 2), (B, K) f32 → logits (B, K, h,
+    w) f32."""
+    (feat, kern, pri, st), (B, K, h, w) = _dynhead_args(
+        mask_feat, kernels, priors_xy, strides)
+    logits = torch.empty((B, K, h, w), dtype=torch.float32,
+                         device=feat.device)
+    _cuda.launch('dynhead_fwd', feat.data_ptr(), kern.data_ptr(),
+                 pri.data_ptr(), st.data_ptr(), B, K, h, w,
+                 logits.data_ptr(), _cuda.stream_ptr(feat))
+    return logits
+
+
+def dynhead_backward(mask_feat, kernels, priors_xy, strides, dlogits):
+    """K9t's backward on CUDA tensors (csrc/dynhead_bwd.cu: one call, a
+    tile kernel and a fixed-order sum over the tiles): the gradients of
+    the logits' cotangent ``dlogits`` (B, K, h, w) → (d mask_feat (B, h,
+    w, 8), d kernels (B, K, 169)), the same bits from run to run."""
+    (feat, kern, pri, st), (B, K, h, w) = _dynhead_args(
+        mask_feat, kernels, priors_xy, strides)
+    dlogits = dlogits.contiguous()
+    _cuda.check(dlogits, 'dlogits', torch.float32, 4, feat.device)
+    if tuple(dlogits.shape) != (B, K, h, w):
+        raise ValueError(f'dlogits {tuple(dlogits.shape)}, expected '
+                         f'{(B, K, h, w)}')
+    tiles = -(-h * w // DYNHEAD_TILE)
+    partials = torch.empty((B, K, tiles, NUM_GEN_PARAMS), dtype=torch.float32,
+                           device=feat.device)
+    dfeat = torch.empty_like(feat)
+    dkern = torch.empty_like(kern)
+    _cuda.launch('dynhead_bwd', feat.data_ptr(), kern.data_ptr(),
+                 pri.data_ptr(), st.data_ptr(), dlogits.data_ptr(), B, K, h,
+                 w, partials.data_ptr(), dfeat.data_ptr(), dkern.data_ptr(),
+                 _cuda.stream_ptr(feat))
+    return dfeat, dkern
+
+
+class _DynamicHeads(torch.autograd.Function):
+    """K9t under autograd: the forward and backward kernels; the priors
+    and strides take no gradient."""
+
+    @staticmethod
+    def forward(ctx, mask_feat, kernels, priors_xy, strides):
+        ctx.save_for_backward(mask_feat, kernels, priors_xy, strides)
+        return dynhead_forward(mask_feat, kernels, priors_xy, strides)
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        dfeat, dkern = dynhead_backward(*ctx.saved_tensors, dlogits)
+        return dfeat, dkern, None, None
+
+
+def dynamic_mask_heads_train(mask_feat: torch.Tensor, kernels: torch.Tensor,
+                             priors_xy: torch.Tensor, strides: torch.Tensor
+                             ) -> torch.Tensor:
+    """K9t wrapper: the dynamic heads' logits of a batch, differentiable
+    with respect to mask_feat and kernels. The plain version under
+    autograd for CPU tensors; csrc/dynhead_fwd.cu and dynhead_bwd.cu for
+    CUDA ones (one launch each a forward and a backward). mask_feat (B,
+    h, w, 8), kernels (B, K, 169), priors_xy (B, K, 2), strides (B, K)
+    f32 → logits (B, K, h, w) f32."""
+    if mask_feat.device.type == 'cpu':
+        return dynamic_mask_heads_plain(mask_feat, kernels, priors_xy,
+                                        strides)
+    return _DynamicHeads.apply(mask_feat, kernels, priors_xy, strides)
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw a detector's weights in place from ``gen`` with Flax's
+    default initialisers, the JAX package's random init (its draw
+    itself needs JAX): conv kernels lecun-normal (a normal truncated at
+    2 std, scaled to variance 1/fan-in), conv biases 0, BatchNorm scales
+    1 and biases 0, running statistics 0 and 1. Modules in ``modules()``
+    order; a conv shared across levels is drawn once."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            w = m.weight
+            std = (1.0 / w[0].numel()) ** 0.5 / .87962566103423978
+            cpu = torch.empty(w.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(cpu, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gen)
+            w.copy_(cpu)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return module
 
 
 def dynamic_masks_plain(mask_feat, kernels, priors_xy, strides, valid,

@@ -42,7 +42,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 KERNELS = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
            'laplacian', 'nms', 'maskhead', 'epilogue', 'colorize', 'compact',
            'samattn', 'discfill_exact', 'roialign', 'nms_large', 'kmeans',
-           'crf', 'swinattn', 'pushpull', 'jitter', 'median3')
+           'crf', 'swinattn', 'pushpull', 'jitter', 'median3', 'dynhead_fwd',
+           'dynhead_bwd')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC']
 
@@ -72,6 +73,8 @@ SIGNATURES = {
     'pushpull': ('kb_pushpull', 'ppiiippp'),
     'jitter': ('kb_jitter', 'pppiiippp'),
     'median3': ('kb_median3', 'piiiipp'),
+    'dynhead_fwd': ('kb_dynhead_fwd', 'ppppiiiipp'),
+    'dynhead_bwd': ('kb_dynhead_bwd', 'pppppiiiipppp'),
 }
 CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'q': ctypes.c_longlong,
           'f': ctypes.c_float}

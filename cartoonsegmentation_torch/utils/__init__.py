@@ -1,7 +1,8 @@
 """Host helpers of the port (its own copies of
 ``cartoonsegmentation_tpu/utils``: logger, constants, image and I/O
-helpers). ``set_multi_processing``, ``save_params`` and ``load_params``
-of the JAX package are not ported yet (ROADMAP.md)."""
+helpers, the trainers' checkpoints and tracking).
+``set_multi_processing`` of the JAX package is not ported yet
+(ROADMAP.md)."""
 from .logger import LOGGER, set_logging  # noqa: F401
 from .constants import (  # noqa: F401
     CATEGORIES, PALETTE, get_color, MULTIPLE_TAGS,
@@ -17,3 +18,4 @@ from .io import (  # noqa: F401
     b64_2img, imglist2grid, save_encoded_image,
 )
 from .profiling import StageTimer, trace  # noqa: F401
+from .checkpoint import save_params, load_params  # noqa: F401

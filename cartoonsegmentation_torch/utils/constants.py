@@ -7,6 +7,9 @@ CATEGORIES = [
     {"id": 0, "name": "object", "isthing": 1},
 ]
 
+# zero-padded width of a synthetic image's file name (its COCO id)
+IMAGE_ID_ZFILL = 12
+
 # Ultralytics-style palette for per-instance colours when drawing
 _HEXS = (
     'FF1010', '10FF10', 'FFF010', '100FFF', '0018EC', 'FF3838', 'FF9D97',

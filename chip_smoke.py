@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. prints the card, torch and CUDA versions, and builds the 22 CUDA
+1. prints the card, torch and CUDA versions, and builds the 24 CUDA
    kernel libraries (csrc/*.cu, one entry point each) with nvcc, all at
    once;
 2. takes the host's cost of one kernel call apart (``host_phase``:
@@ -179,7 +179,20 @@
    then ``run_kenburns --verbose --trace-dir`` in a subprocess (the
    stage images, CUDA kernel events in the trace) and ``stream_video``
    of frames on the card against ``write_video`` (``cli_phase``);
-17. prints one {"kernels": [...]} line, then the card line and the
+17. trains the detector (``train_phase``, ``[train]``): a synthetic
+   COCO set of 16 images at 640 drawn from the seed through the port's
+   ``syn_animecoco_dataset``, ``train_detector.main`` at RTMDet-Ins-L,
+   640, batch 8, 4 steps, EMA on, validation (COCO mAP) on 4 of its
+   images, then ``--resume`` for 1 step: each step's seconds and four
+   losses (finite), img/s, the peak memory, the mAP lines,
+   metrics.jsonl's rows, K9t launched once each way a step and the
+   plain heads never, K8 and K9 once a validation image; two warm steps
+   profiled (``[train profile]``: the host's batch, the device's busy
+   share and time by kernel); the same step at 256 px, batch 2, card
+   against CPU (``[train card vs CPU]``: f32 printed, the net in
+   float64 held to the tolerances); K9t against its plain version at
+   B = 8, K = 8, 80x80, timed;
+18. prints one {"kernels": [...]} line, then the card line and the
    {"ok": true, ...} line last.
 
 Any failed check exits non-zero before the last line. Without CUDA it
@@ -3741,7 +3754,8 @@ def depth_clip(det_net, isnet, img: np.ndarray, seed: int, est: str,
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
                          'nms_large', 'kmeans', 'crf', 'swinattn',
-                         'pushpull', 'jitter', 'median3')])
+                         'pushpull', 'jitter', 'median3', 'dynhead_fwd',
+                         'dynhead_bwd')])
     check_instances(pipe, est)
     d = pipe.last_state.disparity
     holes = fill_walks([x[1] for x in real_fill_inputs(pipe)])['hole_share']
@@ -4513,6 +4527,403 @@ def segment_api_phase(det_net, img: np.ndarray, state, cfg, seed: int
     return launches, c0
 
 
+class CallCounts:
+    """Counts the calls of a module's functions while installed: each
+    name is replaced by a counting wrapper (calls made through the
+    module's globals, as the port's own calls are); ``close`` puts the
+    functions back."""
+
+    def __init__(self, module, names):
+        self.module = module
+        self.counts = {n: 0 for n in names}
+        self.saved = {n: getattr(module, n) for n in names}
+        for n, fn in self.saved.items():
+            def wrap(*a, _n=n, _fn=fn, **kw):
+                self.counts[_n] += 1
+                return _fn(*a, **kw)
+            setattr(module, n, wrap)
+
+    def close(self) -> None:
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def synthetic_coco(root: str, seed: int, size: int = 640,
+                   n_images: int = 16, n_fg: int = 8, n_bg: int = 6):
+    """[train]'s data, drawn from the seed: RGBA foregrounds (two or
+    three ellipses of random colours, the alpha their soft-edged union)
+    and backgrounds (``make_image`` at 480x720) written as PNGs, then
+    composed by the port's ``syn_animecoco_dataset`` into a COCO set of
+    ``n_images`` images at ``size`` (quantize off: its numpy k-means
+    takes host seconds an image). Returns (annotation json, image
+    root)."""
+    import cv2
+    from cartoonsegmentation_torch.data.syndataset import \
+        syn_animecoco_dataset
+    rng = np.random.RandomState(seed)
+    src = os.path.join(root, 'sources')
+    os.makedirs(src, exist_ok=True)
+    fgs, bgs = [], []
+    for i in range(n_fg):
+        h, w = int(rng.randint(280, 420)), int(rng.randint(180, 300))
+        fg = np.zeros((h, w, 4), np.uint8)
+        for _ in range(rng.randint(2, 4)):
+            centre = (int(rng.randint(w // 4, 3 * w // 4)),
+                      int(rng.randint(h // 4, 3 * h // 4)))
+            axes = (int(rng.randint(w // 8, w // 3)),
+                    int(rng.randint(h // 8, h // 3)))
+            col = tuple(int(v) for v in rng.randint(0, 255, 3)) + (255,)
+            cv2.ellipse(fg, centre, axes, float(rng.uniform(0, 180)), 0,
+                        360, col, -1)
+        fg[..., 3] = cv2.GaussianBlur(fg[..., 3], (9, 9), 3)
+        fgs.append({'path': os.path.join(src, f'fg{i}.png')})
+        cv2.imwrite(fgs[-1]['path'], fg)
+    for i in range(n_bg):
+        bgs.append(os.path.join(src, f'bg{i}.png'))
+        cv2.imwrite(bgs[-1], make_image(seed + 100 + i, 480, 720))
+    out = os.path.join(root, 'coco')
+    ann = syn_animecoco_dataset(bgs, fgs, out, policy='train',
+                                tgt_size=size, max_syn_num=n_images,
+                                syn_num_multiplier=n_images / n_fg + 1,
+                                quantize_prob=0.0, seed=seed)
+    return ann, os.path.join(out, 'train')
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's largest magnitude (on the CPU)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def train_card_cpu(ann: str, img_root: str, seed: int) -> dict:
+    """[train card vs CPU]: one training step of RTMDet-Ins-L at 256 px,
+    batch 2, on the same Flax-init weights from the seed and the same
+    batch, on the card (cuDNN and matmul TF32 off: resolve_device) and
+    on the CPU. The assigner's (pos, gt_idx) from the CPU's head outputs
+    must be exact on both devices. Then the step twice:
+    - the f32 step (what training runs): each loss term's, gradient's
+      and BatchNorm statistic's difference printed, not gated. At this
+      depth f32 rounding alone moves a BatchNorm weight's gradient sum
+      by ~1% of its largest magnitude between two CPU thread counts (the
+      sums cancel), so f32 cannot hold card and CPU to 1e-3;
+    - the net in float64, its heads' outputs, the assignment, the loss
+      and K9t in f32 as on the f32 path (the detector casts its outputs):
+      each loss term within 1e-4 relative, each parameter's gradient
+      within 1e-3 of its tensor's largest magnitude, the BatchNorm
+      running statistics within 1e-5, K9t launched once each way."""
+    import random
+    from cartoonsegmentation_torch.data.dataset import (CocoSource,
+                                                        MixedDetDataset)
+    from cartoonsegmentation_torch.device import resolve_device
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.ops import _cuda
+    from cartoonsegmentation_torch.parallel import (
+        detector_loss, dynamic_soft_label_assign)
+    from cartoonsegmentation_torch.parallel.train import _flatten_levels
+    resolve_device('cuda')
+    random.seed(seed)
+    np.random.seed(seed)
+    ds = MixedDetDataset([CocoSource(ann, img_root)], img_size=256,
+                         mosaic_prob=0.0, mixup_prob=0.0, max_instances=16)
+    batch = {k: torch.from_numpy(v) for k, v in next(ds.batches(2, 1)).items()}
+    net = rtmdet.AnimeDetector()
+    rtmdet.init_flax_(net, torch.Generator().manual_seed(seed))
+    net.train()
+    with torch.no_grad():
+        heads = copy.deepcopy(net)(batch['images'].permute(0, 3, 1, 2)
+                                   .contiguous())
+    scores, dists, _, priors, strides = _flatten_levels(*heads[:3])
+    n_pos = []
+    for b in range(2):
+        args = (priors, strides, scores[b],
+                rtmdet.distance2bbox(priors, dists[b]), batch['gt_boxes'][b],
+                batch['gt_valid'][b])
+        pc, ic, _ = dynamic_soft_label_assign(*args)
+        pg, ig, _ = dynamic_soft_label_assign(*[a.cuda() for a in args])
+        if not (torch.equal(pc, pg.cpu()) and torch.equal(ic, ig.cpu())):
+            fail(f'train: the card\'s assignment of image {b} differs from '
+                 f'the CPU\'s on the same head outputs')
+        n_pos.append(int(pc.sum()))
+
+    def step(dtype):
+        """(loss terms, worst gradient, worst BN statistic, the card's
+        and the CPU's positives equal, K9t launches, CPU seconds)."""
+        cpu_net = copy.deepcopy(net).to(dtype)
+        card_net = copy.deepcopy(cpu_net).cuda()
+        cpu_batch = dict(batch, images=batch['images'].to(dtype))
+        t0 = time.perf_counter()
+        loss_c, m_c, ex_c = detector_loss(cpu_net, cpu_batch)
+        loss_c.backward()
+        cpu_s = time.perf_counter() - t0
+        before = dict(_cuda.LAUNCHES)
+        loss_g, m_g, ex_g = detector_loss(
+            card_net, {k: v.cuda() for k, v in cpu_batch.items()})
+        loss_g.backward()
+        torch.cuda.synchronize()
+        k9t = [_cuda.LAUNCHES[k] - before[k] for k in ('dynhead_fwd',
+                                                       'dynhead_bwd')]
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(
+            ex_c['pos'] + ex_c['gt_idx'], ex_g['pos'] + ex_g['gt_idx']))
+        terms = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
+                 for k in m_c}
+        grad = max((rel_err(pg.grad, pc.grad), n) for (n, pc), pg in zip(
+            cpu_net.named_parameters(), card_net.parameters()))
+        sd_c, sd_g = cpu_net.state_dict(), card_net.state_dict()
+        stats = max((float((sd_g[k].cpu() - v).abs().max())
+                     / max(1.0, float(v.abs().max())), k)
+                    for k, v in sd_c.items()
+                    if k.endswith(('running_mean', 'running_var')))
+        print(f'[train card vs CPU] {card_line()}: RTMDet-Ins-L 256 px, '
+              f'batch 2, net in {str(dtype)[6:]}: own assignments equal '
+              f'{same}; loss terms '
+              + ', '.join(f'{k} {float(m_g[k]):.6f} ({v:.2e})'
+                          for k, v in terms.items())
+              + f'; gradients within {grad[0]:.3e} of a tensor\'s largest '
+              f'magnitude ({grad[1]}); BN statistics within {stats[0]:.3e} '
+              f'({stats[1]}); K9t launches {k9t}; CPU step {cpu_s:.2f} s',
+              flush=True)
+        return terms, grad[0], stats[0], same, k9t
+    f32 = step(torch.float32)
+    f64 = step(torch.float64)
+    print(f'[train card vs CPU] assignment exact on the CPU\'s head outputs '
+          f'({n_pos} positives)', flush=True)
+    terms, grad, stats, same, k9t = f64
+    if max(terms.values()) > 1e-4 or grad > 1e-3 or stats > 1e-5 \
+            or not same or k9t != [1, 1] or f32[4] != [1, 1]:
+        fail('train: the card\'s step (net in float64) differs from the '
+             'CPU\'s beyond the tolerances, or K9t did not run once each '
+             'way')
+    return {'f32': f32[:3], 'f64': f64[:3]}
+
+
+def profile_train_step(ann: str, img_root: str, seed: int,
+                       n: int = 2) -> None:
+    """[train profile]: where a warm training step's time goes at
+    RTMDet-Ins-L, 640, batch 8 (the CLI's defaults otherwise): the host's
+    batch (mosaic/mixup on 8 images) timed alone, then n steps after two
+    warm ones under torch.profiler, the device's busy share and its time
+    by kernel."""
+    import random
+    from torch.profiler import ProfilerActivity, profile
+    from cartoonsegmentation_torch.data.dataset import MixedDetDataset
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.parallel import (
+        create_train_state, make_optimizer, make_train_step)
+    from cartoonsegmentation_torch.train_detector import parse_sources
+    random.seed(seed)
+    np.random.seed(seed)
+    ds = MixedDetDataset(parse_sources([f'{ann}={img_root}']), img_size=640,
+                         mosaic_prob=0.5, mixup_prob=0.3, max_instances=16)
+    t0 = time.perf_counter()
+    batches = list(ds.batches(8, n + 2))
+    host = (time.perf_counter() - t0) / (n + 2)
+    net = rtmdet.AnimeDetector()
+    rtmdet.init_flax_(net, torch.Generator().manual_seed(seed))
+    tx = make_optimizer(4e-3, 0.05, 100, 1000, 10.0)
+    state = create_train_state(net.cuda(), tx)
+    step = make_train_step(tx)
+
+    def run(b):
+        m = step(state, {k: torch.from_numpy(v).cuda()
+                         for k, v in b.items()})
+        return float(m['loss'])
+    for b in batches[:2]:
+        run(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            run(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f'[train profile] {card_line()}: the host\'s batch of 8 at 640 '
+          f'(mosaic 0.5, mixup 0.3) {host:.3f} s (not in the steps below)',
+          flush=True)
+    device_time_report(prof, wall, n, 'step', '[train profile]', top=12)
+    del state, net
+    torch.cuda.empty_cache()
+
+
+def dynhead_cost(B: int, K: int, h: int, w: int) -> tuple:
+    """(forward, backward) as (bytes, f32 operations) of K9t: each input
+    read once, each output written once (the backward's tile partials
+    are scratch); the forward's 152 multiply-adds and 4 coordinate
+    operations a (pixel, instance), the backward's recomputed forward,
+    its 8 + 64 + 64 multiply-adds, 8 feature adds and the 152
+    multiply-adds + 17 adds of the parameter partials."""
+    n = B * K * h * w
+    small = B * K * (169 + 3) * 4
+    feat = B * h * w * 8 * 4
+    fwd = (feat + small + n * 4, n * (2 * 152 + 4))
+    bwd = (2 * feat + small + n * 4 + B * K * 169 * 4,
+           n * (2 * 152 + 4 + 2 * (8 + 64 + 64) + 8 + 2 * 152 + 17))
+    return fwd, bwd
+
+
+def check_dynhead(gen: torch.Generator) -> dict:
+    """[kernel] K9t at the training shapes (B = 8, K = 8, 80x80): the
+    forward's logits within 1e-5 of their range, the backward's
+    gradients within 1e-4 of their largest magnitude against the plain
+    version under autograd on the card, two backward calls bit-equal;
+    times (``time_ms``, ``graph_ms``) and bounds of both."""
+    from cartoonsegmentation_torch.models import rtmdet
+    B, K, h, w = 8, 8, 80, 80
+
+    def case():
+        feat = torch.randn(B, h, w, 8, generator=gen)
+        kern = torch.randn(B, K, 169, generator=gen) * 0.4
+        pri = torch.randint(0, 80, (B, K, 2), generator=gen).float() * 8
+        st = torch.tensor([8.0, 16.0, 32.0])[
+            torch.randint(0, 3, (B, K), generator=gen)]
+        dlog = torch.randn(B, K, h, w, generator=gen)
+        return [t.cuda() for t in (feat, kern, pri, st, dlog)]
+    inputs = [case() for _ in range(RUNS)]
+    feat, kern, pri, st, dlog = inputs[0]
+    logits = rtmdet.dynhead_forward(feat, kern, pri, st)
+    plain = rtmdet.dynamic_mask_heads_plain(feat, kern, pri, st)
+    f_err = float((logits - plain).abs().max()) / float(plain.max()
+                                                        - plain.min())
+    f, k = feat.clone().requires_grad_(), kern.clone().requires_grad_()
+    out = rtmdet.dynamic_mask_heads_plain(f, k, pri, st)
+    gf, gk = torch.autograd.grad(out, (f, k), dlog)
+    d1 = rtmdet.dynhead_backward(feat, kern, pri, st, dlog)
+    d2 = rtmdet.dynhead_backward(feat, kern, pri, st, dlog)
+    b_err = max(rel_err(d1[0], gf), rel_err(d1[1], gk))
+    same = torch.equal(d1[0], d2[0]) and torch.equal(d1[1], d2[1])
+
+    def plain_bwd(x):
+        f, k = x[0].clone().requires_grad_(), x[1].clone().requires_grad_()
+        o = rtmdet.dynamic_mask_heads_plain(f, k, x[2], x[3])
+        return torch.autograd.grad(o, (f, k), x[4])
+    (fb, ff), (bb, bf) = dynhead_cost(B, K, h, w)
+    res = {}
+    for name, err, kernel, plain_fn, (nb, nf) in (
+            ('dynhead_fwd', f_err,
+             lambda x: rtmdet.dynhead_forward(*x[:4]),
+             lambda x: rtmdet.dynamic_mask_heads_plain(*x[:4]), (fb, ff)),
+            ('dynhead_bwd', b_err,
+             lambda x: rtmdet.dynhead_backward(*x),
+             plain_bwd, (bb, bf))):
+        bnd, by = bound(nb, nf)
+        res[name] = dict(max_abs_err=err, ms=time_ms(kernel, inputs),
+                         plain_ms=time_ms(plain_fn, inputs), bound_ms=bnd,
+                         bound_by=by, device_ms=graph_ms(kernel, inputs[0]))
+        r = res[name]
+        print(f'[kernel] {name} (K9t) B={B} K={K} {h}x{w}: kernel '
+              f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f} ms), plain '
+              f'{r["plain_ms"]:.4f} ms, bound {bnd:.4f} ms ({by}), error '
+              f'{err:.3g}', flush=True)
+    res['dynhead_bwd']['repeat_bit_equal'] = same
+    if f_err > 1e-5 or b_err > 1e-4 or not same:
+        fail(f'K9t against its plain version: forward {f_err}, backward '
+             f'{b_err}, repeat bit-equal {same}')
+    return res
+
+
+def train_phase(seed: int) -> tuple:
+    """[train]: the port's detector training end to end on the card at
+    full width. A synthetic COCO set from the seed (``synthetic_coco``,
+    16 images at 640); ``train_detector.main`` with ``--size l
+    --img-size 640 --batch 8 --steps 4``, EMA on, validation on the same
+    set (4 images, COCO mAP through ``AnimeInsSeg.infer``: K8, K9), each
+    step's seconds, losses (finite) and the peak memory printed;
+    metrics.jsonl's 4 train rows and its val rows; K9t launched once each
+    way a step and the plain heads never called; then ``--resume`` for
+    one step. Then ``profile_train_step``, ``train_card_cpu`` and
+    ``check_dynhead``. Returns
+    (the 4-step run's launches, K9t's rows)."""
+    from cartoonsegmentation_torch import train_detector
+    from cartoonsegmentation_torch.models import rtmdet
+    from cartoonsegmentation_torch.ops import _cuda
+    tmp = tempfile.mkdtemp(prefix='train_smoke_')
+    try:
+        t0 = time.perf_counter()
+        ann, img_root = synthetic_coco(tmp, seed)
+        with open(ann) as f:
+            coco = json.load(f)
+        print(f'[train] synthetic COCO: {len(coco["images"])} images, '
+              f'{len(coco["annotations"])} instances at 640 in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        spec = f'{ann}={img_root}'
+        ckpt = os.path.join(tmp, 'det.pt')
+        common = ['--ann', spec, '--size', 'l', '--img-size', '640',
+                  '--batch', '8', '--log-every', '1', '--device', 'cuda',
+                  '--seed', str(seed)]
+        plain = CallCounts(rtmdet, ('dynamic_mask_heads_plain',
+                                    'dynamic_mask_heads'))
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            s = train_detector.main(common + [
+                '--steps', '4', '--val-ann', spec, '--val-max-images', '4',
+                '--ckpt-out', ckpt])
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+            _cuda.reset_launches()
+            s2 = train_detector.main(common + [
+                '--steps', '1', '--resume', ckpt,
+                '--ckpt-out', os.path.join(tmp, 'det2.pt'),
+                '--run-dir', os.path.join(tmp, 'run2')])
+            resumed = dict(_cuda.LAUNCHES)
+        finally:
+            plain.close()
+        steps = s['steps']
+        for r in steps + s2['steps']:
+            bad = [k for k in ('loss', 'loss_cls', 'loss_bbox', 'loss_mask')
+                   if not np.isfinite(r[k])]
+            if bad:
+                fail(f'train: step {r["step"]} has non-finite {bad}')
+        for r in steps:
+            print(f'[train] step {r["step"]}/4: {r["seconds"]:.3f} s, loss '
+                  f'{r["loss"]:.4f} (cls {r["loss_cls"]:.4f}, bbox '
+                  f'{r["loss_bbox"]:.4f}, mask {r["loss_mask"]:.4f})',
+                  flush=True)
+        warm = statistics.mean(r['seconds'] for r in steps[1:])
+        print(f'[train] {card_line()}: RTMDet-Ins-L 640 batch 8: first step '
+              f'{steps[0]["seconds"]:.3f} s, warm {warm:.3f} s a step '
+              f'({8 / warm:.1f} img/s), max_memory_allocated '
+              f'{s["max_memory_allocated"] / 2**30:.2f} GiB; the run '
+              f'(data, 4 steps, save, validation) {wall:.1f} s', flush=True)
+        for key, v in s['val'][4].items():
+            print(f'[train] val {key} (4 images): mAP={v["mAP"]:.4f} '
+                  f'mAP50={v["mAP_50"]:.4f} mAP75={v["mAP_75"]:.4f}',
+                  flush=True)
+        print(f'[train] resumed 1 step: loss {s2["steps"][0]["loss"]:.4f}, '
+              f'K9t launches {resumed["dynhead_fwd"]} / '
+              f'{resumed["dynhead_bwd"]}', flush=True)
+        with open(os.path.join(tmp, 'run', 'metrics.jsonl')) as f:
+            rows = [json.loads(ln) for ln in f]
+        n_train = sum('Train/loss' in r for r in rows)
+        n_val = sum(any(k.startswith('Metrics/') for k in r) for r in rows)
+        print(f'[train] metrics.jsonl: {n_train} train rows, {n_val} val '
+              f'rows; launches {launches["dynhead_fwd"]} dynhead_fwd, '
+              f'{launches["dynhead_bwd"]} dynhead_bwd (per step '
+              f'{launches["dynhead_fwd"] / 4:g}, {launches["dynhead_bwd"] / 4:g}'
+              f'), validation {launches["nms"]} nms, {launches["maskhead"]} '
+              f'maskhead; plain heads called {plain.counts}', flush=True)
+        if n_train != 4 or n_val < 1:
+            fail(f'train: metrics.jsonl holds {n_train} train rows and '
+                 f'{n_val} val rows')
+        if launches['dynhead_fwd'] != 4 or launches['dynhead_bwd'] != 4 \
+                or resumed['dynhead_fwd'] != 1 or resumed['dynhead_bwd'] != 1:
+            fail('train: K9t did not launch once each way a step')
+        if launches['nms'] != 4 or launches['maskhead'] != 4:
+            fail('train: the validation did not launch K8 and K9 once an '
+                 'image')
+        if any(plain.counts.values()):
+            fail(f'train: the plain dynamic heads ran on the card: '
+                 f'{plain.counts}')
+        profile_train_step(ann, img_root, seed)
+        train_card_cpu(ann, img_root, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, check_dynhead(torch.Generator().manual_seed(seed))
+
+
 # K1-K10: the kernels of the shipped default's clip and of the server's
 # routes on it
 K1_K10 = ('splat', 'coverage', 'discfill', 'bokeh', 'insmedian', 'median5',
@@ -4597,7 +5008,8 @@ def main() -> None:
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
                          'nms_large', 'kmeans', 'crf', 'swinattn',
-                         'pushpull', 'jitter', 'median3')])
+                         'pushpull', 'jitter', 'median3', 'dynhead_fwd',
+                         'dynhead_bwd')])
     check_instances(pipe, 'main')
     cloud_copies(pipe, 'main')
     res['discfill_real'] = check_fill_real(real_fill_inputs(pipe))
@@ -4720,7 +5132,7 @@ def main() -> None:
                      [k for k in _cuda.KERNELS if k not in (
                          'samattn', 'discfill_exact', 'roialign',
                          'nms_large', 'swinattn', 'pushpull', 'jitter',
-                         'median3')])
+                         'median3', 'dynhead_fwd', 'dynhead_bwd')])
     print(f'[crf] depth_refine {cp.timer.seconds["depth_refine"]:.3f} s: '
           f'{launches_crf["kmeans"]} segments reached the CRF, '
           f'{launches_crf["kmeans"]} kmeans and {launches_crf["crf"]} crf '
@@ -4766,6 +5178,11 @@ def main() -> None:
     # 16b. the CLI with --verbose and --trace-dir; stream_video ----------
     cli_phase(root, args.seed, opt)
     del opt
+
+    # 16c. [train]: detector training end to end at full width, the step
+    # card against CPU, K9t against its plain version ---------------------
+    launches_train, k9t = train_phase(args.seed)
+    res.update(k9t)
 
     # 17. report --------------------------------------------------------
     src = 'cartoonsegmentation_torch/csrc/'
@@ -4849,6 +5266,9 @@ def main() -> None:
           'device_ms_style': style_dev['pushpull'],
           'inpaint_ms_style': style_dev['fill_ms'],
           'offsets_draw_ms_style': style_dev['draw_ms']}),
+        # K9t: the training loss's dynamic heads, forward and backward
+        ('dynhead_fwd', res['dynhead_fwd'], 'models/rtmdet.py:222', {}),
+        ('dynhead_bwd', res['dynhead_bwd'], 'models/rtmdet.py:222', {}),
         ('jitter', res['jitter_448x768'], 'ops/inpaint_fill.py:70',
          {**{f'{k}_768x768': res['jitter_768x768'][k] for k in (
              'max_abs_err', 'equal_share', 'ms', 'plain_ms', 'bound_ms',
@@ -4861,12 +5281,14 @@ def main() -> None:
              'style': launches_style, 'clip 683x1024': launches_odd,
              'options': launches_opt, 'ldm': launches_ldm,
              'serve': launches_serve, 'segment_api': launches_seg,
+             'train': launches_train,
              **launches_depth, **launches_diff}
     own_path = {'samattn': launches_sam, 'discfill_exact': launches_mr,
                 'roialign': launches_mr, 'nms_large': launches_mr,
                 'kmeans': launches_crf, 'crf': launches_crf,
                 'swinattn': launches_tag, 'pushpull': launches_style,
-                'jitter': launches_style, 'median3': launches_seg}
+                'jitter': launches_style, 'median3': launches_seg,
+                'dynhead_fwd': launches_train, 'dynhead_bwd': launches_train}
     kernels = []
     for name, r, where, extra in rows:
         # one PyTorch call computes the laplacian (a convolution) and

@@ -308,6 +308,30 @@ def _case(name, rng, dev):
             assert float(same.float().mean()) >= 0.9999
         return (lambda: tfill.jitter_refine(img, hole, off),
                 lambda: tfill.jitter_refine_plain(img, hole, off), check)
+    if name in ('dynhead_fwd', 'dynhead_bwd'):
+        B, K, h, w = 2, 3, 13, 29
+        feat = _t(rng.randn(B, h, w, 8).astype(np.float32), dev)
+        kern = _t((rng.randn(B, K, 169) * 0.4).astype(np.float32), dev)
+        pri = _t(rng.randint(0, 13, (B, K, 2)).astype(np.float32) * 8, dev)
+        st = _t(rng.choice([8.0, 16.0, 32.0], (B, K)).astype(np.float32),
+                dev)
+        if name == 'dynhead_fwd':
+            return (lambda: trtmdet.dynhead_forward(feat, kern, pri, st),
+                    lambda: trtmdet.dynamic_mask_heads_plain(feat, kern, pri,
+                                                             st),
+                    _within(1e-5))
+        dlog = _t(rng.randn(B, K, h, w).astype(np.float32), dev)
+
+        def plain():
+            f, k = feat.clone().requires_grad_(), kern.clone().requires_grad_()
+            trtmdet.dynamic_mask_heads_plain(f, k, pri, st).backward(dlog)
+            return f.grad, k.grad
+
+        def check(got, want):
+            for g, wt in zip(got, want):
+                _within(1e-4)(g, wt)
+        return (lambda: trtmdet.dynhead_backward(feat, kern, pri, st, dlog),
+                plain, check)
     raise AssertionError(f'no case for {name}')
 
 
