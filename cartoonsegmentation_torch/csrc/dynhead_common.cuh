@@ -1,60 +1,59 @@
-// K9t's shared device code: the dynamic mask heads of one pixel and
-// one instance, forward (dynhead_fwd.cu) and recomputed for the
-// backward (dynhead_bwd.cu). The sums run in the plain version's order
-// (cartoonsegmentation_torch/models/rtmdet.py:dynamic_mask_heads), and
-// the sources are built with -fmad=false, so no product is contracted
-// into an FMA.
+// K9t's shared device code: the dynamic mask heads' generated
+// parameters and relative coordinates, for the forward (dynhead_fwd.cu)
+// and the backward (dynhead_bwd.cu).
+//
+// The relative coordinates are a true f32 division, taken as a multiply
+// by the exact reciprocal when stride * 8 is a power of two (the
+// training strides 8, 16 and 32): both round the same real quotient
+// once, so the bits are the division's.
 #pragma once
 
 #include "kb_common.cuh"
 
 constexpr int kDynProtos = 8;
 constexpr int kDynParams = 169;
-// offsets of the weights and biases in the 169 generated parameters
+// offsets of the weights and biases in the 169 generated parameters:
+// w1 (8, 10), w2 (8, 8), w3 (1, 8) row-major (cout, cin), then b1 (8),
+// b2 (8), b3 (1)
 constexpr int kDynW1 = 0, kDynW2 = 80, kDynW3 = 144;
 constexpr int kDynB1 = 152, kDynB2 = 160, kDynB3 = 168;
-// pixels a block, a thread a pixel (models/rtmdet.py:DYNHEAD_TILE)
-constexpr int kDynTile = 256;
 
-// one pixel's inputs and its pre-activations and activations under
-// one instance
-struct DynAct {
-  float in[kDynProtos + 2];
-  float a1[8], h1[8], a2[8], h2[8];
+// an instance's prior and stride
+struct DynPrior {
+  float px, py, s8, inv;
+  bool exact;  // s8 a power of two: inv = 1 / s8 exactly
 };
 
-// rel = (prior - coord) / (stride * 8), then the pixel's features
-__device__ __forceinline__ void dyn_inputs(DynAct& a, float px, float py,
-                                           float stride, float cx, float cy,
-                                           const float* f) {
-  const float s8 = stride * 8.0f;
-  a.in[0] = (px - cx) / s8;
-  a.in[1] = (py - cy) / s8;
-#pragma unroll
-  for (int c = 0; c < kDynProtos; ++c) a.in[2 + c] = f[c];
+__device__ __forceinline__ DynPrior dyn_prior(const float* __restrict__ priors,
+                                              const float* __restrict__ strides,
+                                              size_t bn) {
+  DynPrior d;
+  d.px = priors[2 * bn];
+  d.py = priors[2 * bn + 1];
+  d.s8 = strides[bn] * 8.0f;
+  const unsigned bits = __float_as_uint(d.s8);
+  const unsigned e = (bits >> 23) & 0xffu;
+  d.exact = (bits & 0x7fffffu) == 0u && e >= 1u && e <= 254u;
+  d.inv = d.exact ? 1.0f / d.s8 : 0.0f;
+  return d;
 }
 
-// the three layers on instance parameters k (shared memory); returns
-// the logit and keeps the layers' values in a
-__device__ __forceinline__ float dyn_forward(const float* k, DynAct& a) {
-#pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    float acc = a.in[0] * k[kDynW1 + o * 10];
-#pragma unroll
-    for (int c = 1; c < 10; ++c) acc = acc + a.in[c] * k[kDynW1 + o * 10 + c];
-    a.a1[o] = acc + k[kDynB1 + o];
-    a.h1[o] = a.a1[o] > 0.0f ? a.a1[o] : 0.0f;
+// (prior - coord) / (stride * 8)
+__device__ __forceinline__ float dyn_rel(float prior, float coord,
+                                         const DynPrior& d) {
+  const float num = prior - coord;
+  return d.exact ? num * d.inv : num / d.s8;
+}
+
+__device__ __forceinline__ float dyn_relu(float a) {
+  return a > 0.0f ? a : 0.0f;
+}
+
+// column x, row y moved `step` pixels on along rows w wide
+__device__ __forceinline__ void dyn_advance(int& x, int& y, int step, int w) {
+  x += step;
+  while (x >= w) {
+    x -= w;
+    ++y;
   }
-#pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    float acc = a.h1[0] * k[kDynW2 + o * 8];
-#pragma unroll
-    for (int c = 1; c < 8; ++c) acc = acc + a.h1[c] * k[kDynW2 + o * 8 + c];
-    a.a2[o] = acc + k[kDynB2 + o];
-    a.h2[o] = a.a2[o] > 0.0f ? a.a2[o] : 0.0f;
-  }
-  float out = a.h2[0] * k[kDynW3];
-#pragma unroll
-  for (int c = 1; c < 8; ++c) out = out + a.h2[c] * k[kDynW3 + c];
-  return out + k[kDynB3];
 }

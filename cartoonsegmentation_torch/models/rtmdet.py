@@ -46,10 +46,12 @@ WEIGHT_NUMS = ((NUM_PROTOTYPES + 2) * DYCONV_CHANNELS,
                DYCONV_CHANNELS * DYCONV_CHANNELS, DYCONV_CHANNELS * 1)
 BIAS_NUMS = (DYCONV_CHANNELS, DYCONV_CHANNELS, 1)
 NUM_GEN_PARAMS = sum(WEIGHT_NUMS) + sum(BIAS_NUMS)  # 169
-# pixels a block of K9t's kernels takes (csrc/dynhead_common.cuh:
-# kDynTile); its backward sums each tile's parameter partials in pixel
-# order, then the tiles in order
-DYNHEAD_TILE = 256
+# K9t's launch plans (csrc/dynhead_fwd.cu, csrc/dynhead_bwd.cu): warps
+# of the forward an SM holds (~220 registers a thread); the backward's
+# warps a block and pixels a block at most
+DYNHEAD_FWD_WARPS_PER_SM = 8
+DYNHEAD_BWD_WARPS = 4
+DYNHEAD_BWD_MAX_TILE = 256
 
 
 class MaskFeatModule(nn.Module):
@@ -310,9 +312,37 @@ def dynamic_mask_heads_plain(mask_feat: torch.Tensor, kernels: torch.Tensor,
         mask_feat, kernels, priors_xy, strides)])
 
 
+def dynhead_fwd_plan(B: int, K: int, hw: int, sms: int) -> Tuple[int, int]:
+    """(chunk, chunks): the pixels a warp of K9t's forward takes and its
+    warps an instance. A warp holds its instance's 169 parameters in
+    registers, so an SM runs ~8 warps; an image's h·w pixels are cut
+    into whole rounds of 32 so that the B · K · chunks warps fill the
+    card's ``sms`` SMs about once. The logits' bits do not depend on
+    it."""
+    want = max(1, sms * DYNHEAD_FWD_WARPS_PER_SM // max(B * K, 1))
+    chunk = 32 * -(-hw // (32 * want))
+    return chunk, -(-hw // chunk)
+
+
+def dynhead_bwd_plan(B: int, K: int, hw: int, sms: int) -> Tuple[int, int]:
+    """(tile, tiles): the pixels a block of K9t's backward takes and its
+    blocks an image. A block is min(K, 4) warps of at most 168 registers
+    a thread, so an SM holds 12 // warps of them; an image's h·w pixels
+    are cut into whole steps of 8 so that the B · tiles blocks fill the
+    card's ``sms`` SMs about once, at most 256 pixels a block. The
+    tiles set the order of the parameter sums, so the gradients' bits
+    follow the SM count (the same on one card)."""
+    warps = max(1, min(K, DYNHEAD_BWD_WARPS))
+    want = max(1, sms * (12 // warps) // max(B, 1))
+    tile = min(DYNHEAD_BWD_MAX_TILE, 8 * -(-hw // (8 * want)))
+    return tile, -(-hw // tile)
+
+
 def _dynhead_args(mask_feat, kernels, priors_xy, strides):
     dev = mask_feat.device
     args = [t.contiguous() for t in (mask_feat, kernels, priors_xy, strides)]
+    if args[0].data_ptr() % 16:  # the kernels read a pixel as 2 float4s
+        args[0] = args[0].clone()
     for t, name, nd in zip(args, ('mask_feat', 'kernels', 'priors_xy',
                                   'strides'), (4, 3, 3, 2)):
         _cuda.check(t, name, torch.float32, nd, dev)
@@ -327,24 +357,27 @@ def _dynhead_args(mask_feat, kernels, priors_xy, strides):
 
 
 def dynhead_forward(mask_feat, kernels, priors_xy, strides) -> torch.Tensor:
-    """K9t's forward on CUDA tensors (csrc/dynhead_fwd.cu, one launch):
-    (B, h, w, 8), (B, K, 169), (B, K, 2), (B, K) f32 → logits (B, K, h,
-    w) f32."""
+    """K9t's forward on CUDA tensors (csrc/dynhead_fwd.cu, one launch: a
+    warp an instance over a chunk of ``dynhead_fwd_plan``): (B, h, w,
+    8), (B, K, 169), (B, K, 2), (B, K) f32 → logits (B, K, h, w) f32."""
     (feat, kern, pri, st), (B, K, h, w) = _dynhead_args(
         mask_feat, kernels, priors_xy, strides)
     logits = torch.empty((B, K, h, w), dtype=torch.float32,
                          device=feat.device)
+    chunk, _ = dynhead_fwd_plan(B, K, h * w, _cuda.sm_count(feat))
     _cuda.launch('dynhead_fwd', feat.data_ptr(), kern.data_ptr(),
-                 pri.data_ptr(), st.data_ptr(), B, K, h, w,
+                 pri.data_ptr(), st.data_ptr(), B, K, h, w, chunk,
                  logits.data_ptr(), _cuda.stream_ptr(feat))
     return logits
 
 
 def dynhead_backward(mask_feat, kernels, priors_xy, strides, dlogits):
-    """K9t's backward on CUDA tensors (csrc/dynhead_bwd.cu: one call, a
-    tile kernel and a fixed-order sum over the tiles): the gradients of
-    the logits' cotangent ``dlogits`` (B, K, h, w) → (d mask_feat (B, h,
-    w, 8), d kernels (B, K, 169)), the same bits from run to run."""
+    """K9t's backward on CUDA tensors (csrc/dynhead_bwd.cu, one launch
+    call of two kernels: a block a tile of ``dynhead_bwd_plan`` under
+    its image's instances, a lane two units of a pixel, fixed-order
+    sums; then the tiles added in order): the gradients of the logits'
+    cotangent ``dlogits`` (B, K, h, w) → (d mask_feat (B, h, w, 8), d
+    kernels (B, K, 169)), the same bits from run to run."""
     (feat, kern, pri, st), (B, K, h, w) = _dynhead_args(
         mask_feat, kernels, priors_xy, strides)
     dlogits = dlogits.contiguous()
@@ -352,15 +385,15 @@ def dynhead_backward(mask_feat, kernels, priors_xy, strides, dlogits):
     if tuple(dlogits.shape) != (B, K, h, w):
         raise ValueError(f'dlogits {tuple(dlogits.shape)}, expected '
                          f'{(B, K, h, w)}')
-    tiles = -(-h * w // DYNHEAD_TILE)
+    tile, tiles = dynhead_bwd_plan(B, K, h * w, _cuda.sm_count(feat))
     partials = torch.empty((B, K, tiles, NUM_GEN_PARAMS), dtype=torch.float32,
                            device=feat.device)
     dfeat = torch.empty_like(feat)
     dkern = torch.empty_like(kern)
     _cuda.launch('dynhead_bwd', feat.data_ptr(), kern.data_ptr(),
                  pri.data_ptr(), st.data_ptr(), dlogits.data_ptr(), B, K, h,
-                 w, partials.data_ptr(), dfeat.data_ptr(), dkern.data_ptr(),
-                 _cuda.stream_ptr(feat))
+                 w, tile, partials.data_ptr(), dfeat.data_ptr(),
+                 dkern.data_ptr(), _cuda.stream_ptr(feat))
     return dfeat, dkern
 
 

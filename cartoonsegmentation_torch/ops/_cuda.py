@@ -73,8 +73,8 @@ SIGNATURES = {
     'pushpull': ('kb_pushpull', 'ppiiippp'),
     'jitter': ('kb_jitter', 'pppiiippp'),
     'median3': ('kb_median3', 'piiiipp'),
-    'dynhead_fwd': ('kb_dynhead_fwd', 'ppppiiiipp'),
-    'dynhead_bwd': ('kb_dynhead_bwd', 'pppppiiiipppp'),
+    'dynhead_fwd': ('kb_dynhead_fwd', 'ppppiiiiipp'),
+    'dynhead_bwd': ('kb_dynhead_bwd', 'pppppiiiiipppp'),
 }
 CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'q': ctypes.c_longlong,
           'f': ctypes.c_float}

@@ -4762,6 +4762,19 @@ def dynhead_cost(B: int, K: int, h: int, w: int) -> tuple:
     return fwd, bwd
 
 
+def dynhead_case(gen: torch.Generator, B: int, K: int, h: int, w: int
+                 ) -> list:
+    """K9t's inputs on the card from ``gen``: features, parameters (std
+    0.4), priors on the stride-8 grid, strides 8/16/32, a cotangent."""
+    feat = torch.randn(B, h, w, 8, generator=gen)
+    kern = torch.randn(B, K, 169, generator=gen) * 0.4
+    pri = torch.randint(0, 80, (B, K, 2), generator=gen).float() * 8
+    st = torch.tensor([8.0, 16.0, 32.0])[
+        torch.randint(0, 3, (B, K), generator=gen)]
+    dlog = torch.randn(B, K, h, w, generator=gen)
+    return [t.cuda() for t in (feat, kern, pri, st, dlog)]
+
+
 def check_dynhead(gen: torch.Generator) -> dict:
     """[kernel] K9t at the training shapes (B = 8, K = 8, 80x80): the
     forward's logits within 1e-5 of their range, the backward's
@@ -4770,16 +4783,7 @@ def check_dynhead(gen: torch.Generator) -> dict:
     times (``time_ms``, ``graph_ms``) and bounds of both."""
     from cartoonsegmentation_torch.models import rtmdet
     B, K, h, w = 8, 8, 80, 80
-
-    def case():
-        feat = torch.randn(B, h, w, 8, generator=gen)
-        kern = torch.randn(B, K, 169, generator=gen) * 0.4
-        pri = torch.randint(0, 80, (B, K, 2), generator=gen).float() * 8
-        st = torch.tensor([8.0, 16.0, 32.0])[
-            torch.randint(0, 3, (B, K), generator=gen)]
-        dlog = torch.randn(B, K, h, w, generator=gen)
-        return [t.cuda() for t in (feat, kern, pri, st, dlog)]
-    inputs = [case() for _ in range(RUNS)]
+    inputs = [dynhead_case(gen, B, K, h, w) for _ in range(RUNS)]
     feat, kern, pri, st, dlog = inputs[0]
     logits = rtmdet.dynhead_forward(feat, kern, pri, st)
     plain = rtmdet.dynamic_mask_heads_plain(feat, kern, pri, st)
@@ -4812,7 +4816,8 @@ def check_dynhead(gen: torch.Generator) -> dict:
                          bound_by=by, device_ms=graph_ms(kernel, inputs[0]))
         r = res[name]
         print(f'[kernel] {name} (K9t) B={B} K={K} {h}x{w}: kernel '
-              f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f} ms), plain '
+              f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f} ms, '
+              f'{bnd / r["device_ms"]:.0%} of the bound), plain '
               f'{r["plain_ms"]:.4f} ms, bound {bnd:.4f} ms ({by}), error '
               f'{err:.3g}', flush=True)
     res['dynhead_bwd']['repeat_bit_equal'] = same

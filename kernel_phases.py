@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of K10 (csrc/compact.cu) and K13a (csrc/pushpull.cu)
-goes, on one GPU.
+"""Where the time of K10 (csrc/compact.cu), K13a (csrc/pushpull.cu)
+and K9t (csrc/dynhead_fwd.cu, dynhead_bwd.cu) goes, on one GPU.
 
     python3 kernel_phases.py [--compact-inputs Q] [--seed N]
 
@@ -22,8 +22,11 @@ blocks of its SM cycles. K10 on the two synthetic masks and, with
 --save-compact-inputs``), on the shipped default clip's three appends;
 K13a at 448x768 on chip_smoke's image and seeded discs
 (``chip_smoke.fill_hole``), the push's phases over the tiles that hold
-a hole pixel. The marks cost a few cycles each; the copy's device
-times are not the shipped kernels'.
+a hole pixel; K9t at the training shape (B = 8, K = 8, 80x80,
+``chip_smoke.dynhead_case``): the forward's set-up and pixels a warp,
+the backward's pixels (warp 0 of a block, its two instances), slot
+tree and feature sums a block. The marks cost a few cycles each; the
+copy's device times are not the shipped kernels'.
 
 Prints the card and its power limit first and one JSON line last.
 Needs a CUDA card; exits non-zero without one.
@@ -92,6 +95,25 @@ MARKS = {
          '    push_tile(img, hole, p, t, scratch, out, sm, win, coarse_done);\n'
          '    __syncthreads();\n    MARK(9);\n'),
     ],
+    'dynhead_fwd': [
+        ('  const int lane = threadIdx.x;\n',
+         '  const int lane = threadIdx.x;\n  MARK(0);\n'),
+        ('  for (int q = lane; q < len; q += 32) {',
+         '  MARK(1);\n  for (int q = lane; q < len; q += 32) {'),
+        ('    dyn_advance(x, y, 32, w);\n  }\n',
+         '    dyn_advance(x, y, 32, w);\n  }\n  MARK(2);\n'),
+    ],
+    'dynhead_bwd': [
+        ('      reinterpret_cast<const float4*>(feat) + 2 * ((size_t)b * hw + q0);\n',
+         '      reinterpret_cast<const float4*>(feat) + 2 * ((size_t)b * hw + q0);\n'
+         '  MARK(0);\n'),
+        ("      // the 8 pixel slots' sums",
+         "      MARK(1);\n      // the 8 pixel slots' sums"),
+        ("    __syncthreads();\n    // the tile's feature gradients",
+         "    MARK(2);\n    __syncthreads();\n    // the tile's feature gradients"),
+        ('    if (!last_grp) __syncthreads();\n',
+         '    MARK(3);\n    if (!last_grp) __syncthreads();\n'),
+    ],
 }
 # each report: (its name, the marks it spans)
 PHASES = {
@@ -101,6 +123,10 @@ PHASES = {
     'pull': ('pull, grid barrier', [0, 1, 2]),
     'push': ('windows, loads issued, coarse levels, the windows\' sums '
              'landed, window levels, hole pixels', [3, 4, 5, 6, 7, 8, 9]),
+    'dynhead_fwd': ('weights and first features issued, pixels', [0, 1, 2]),
+    'dynhead_bwd': ("warp 0's two instances up to the second's slot "
+                    "tree, that tree and partial, the barrier and feature "
+                    'sums', [0, 1, 2, 3]),
 }
 
 
@@ -196,6 +222,13 @@ def main() -> None:
     for tag, h in holes.items():
         dm[f'pushpull {tag}'] = cs.graph_ms(
             lambda c: fill.push_pull_fill(c, h), x)
+    from cartoonsegmentation_torch.models import rtmdet
+    k9t = cs.dynhead_case(torch.Generator().manual_seed(args.seed), 8, 8, 80,
+                          80)
+    dm['dynhead_fwd 8x8 80x80'] = cs.graph_ms(
+        lambda x: rtmdet.dynhead_forward(*x[:4]), k9t)
+    dm['dynhead_bwd 8x8 80x80'] = cs.graph_ms(
+        lambda x: rtmdet.dynhead_backward(*x), k9t)
     dm['jitter_offsets 448x768 on the card (ms)'] = cs.time_ms(
         lambda _: fill.jitter_offsets(448, 768, device=dev), [None] * cs.RUNS)
     for k, v in dm.items():
@@ -240,6 +273,22 @@ def main() -> None:
         out['phases'][f'pushpull {key}'] = res
         print(f'[phases] pushpull 448x768, {float(discs.float().mean()):.1%} '
               f'hole, {key} ({name}; {int(pushed.sum())} tiles pushed): SM '
+              f'cycles median {res["median"]}, max {res["max"]}', flush=True)
+    from cartoonsegmentation_torch.models import rtmdet as mrtmdet
+    for _ in range(3):
+        mrtmdet.dynhead_forward(*k9t[:4])
+        mrtmdet.dynhead_backward(*k9t)
+    torch.cuda.synchronize()
+    sms = _cuda.sm_count(k9t[0])
+    _, chunks = mrtmdet.dynhead_fwd_plan(8, 8, 6400, sms)
+    _, tiles = mrtmdet.dynhead_bwd_plan(8, 8, 6400, sms)
+    k9t_marks = {'dynhead_fwd': read_marks(_cuda, 'dynhead_fwd', 64 * chunks),
+                 'dynhead_bwd': read_marks(_cuda, 'dynhead_bwd', 8 * tiles)}
+    for key, marks in k9t_marks.items():
+        name, points = PHASES[key]
+        res = phases(marks, points)
+        out['phases'][key] = res
+        print(f'[phases] {key} 8x8 80x80 ({name}; {len(marks)} blocks): SM '
               f'cycles median {res["median"]}, max {res["max"]}', flush=True)
     print(json.dumps(out), flush=True)
 

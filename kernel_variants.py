@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Design alternatives of K2 (csrc/coverage.cu) and K5b
-(csrc/colorize.cu) against the shipped kernels, and K8 (csrc/nms.cu)
-and K9 (csrc/maskhead.cu) against a parent checkout's, on one GPU.
+(csrc/colorize.cu) against the shipped kernels, and K8 (csrc/nms.cu),
+K9 (csrc/maskhead.cu) and K9t (csrc/dynhead_fwd.cu, dynhead_bwd.cu)
+against a parent checkout's, on one GPU.
 
     python3 kernel_variants.py [--fill-inputs F --coverage-inputs C]
                                [--parent DIR] [--turns N] [--seed N]
                                [--detector-inputs D --detector-parent DIR]
+                               [--dynhead-parent DIR]
 
 F and C are the inputs that ``render_kernel_times.py
 --save-fill-inputs F --save-coverage-inputs C`` saves from the shipped
@@ -44,6 +46,17 @@ call (K9 on 3 synthetic calls too: chip_smoke's 100 instances, 80 %
 valid), and times both against the parent's in turns: device time
 (``in_turns``) and ``ms`` (``chip_smoke.time_ms``, ``--turns`` times
 each).
+
+With ``--dynhead-parent DIR`` (a checkout of the parent) it builds
+that checkout's K9t, csrc/dynhead_fwd.cu and dynhead_bwd.cu against
+its own headers, calls them as its wrappers did, holds both versions
+against the plain one at the training shape (B = 8, K = 8, 80x80) and
+times the shipped forward and backward against the parent's in turns:
+device time (``in_turns``) and ``ms`` (``chip_smoke.time_ms``,
+``--turns`` times each). Two probes of the shipped backward, timed in
+turns with it and not checked (their results are wrong): its units
+gathered without shuffles, and its layers 1-2 fused, which say what the
+shuffles and the plain version's rounding cost.
 
 Prints the card and its power limit first and one JSON line last.
 Needs a CUDA card; exits non-zero without one.
@@ -102,6 +115,33 @@ VARIANTS = {
     'colorize scalar': ('colorize', [
         ('if (stride == 4) {', 'if (false) {'),
     ]),
+    # K9t's backward with a cost taken out, timed only (wrong results):
+    # the pixel's units gathered without shuffles; layers 1-2 fused
+    # (masks no longer the plain version's)
+    'dynhead_bwd no shuffles': ('dynhead_bwd', [
+        ('''    out[2 * u] = __shfl_sync(kFull, v[0], base + u);
+    out[2 * u + 1] = __shfl_sync(kFull, v[1], base + u);''',
+         '''    out[2 * u] = v[0] + (float)u;
+    out[2 * u + 1] = v[1] - (float)u;'''),
+    ]),
+    'dynhead_bwd fused layers': ('dynhead_bwd', [
+        ('''          float a = in[0] * w1[j][0];
+#pragma unroll
+          for (int c = 1; c < 10; ++c) a = a + in[c] * w1[j][c];
+          h1o[j] = dyn_relu(a + b1[j]);''',
+         '''          float a = b1[j];
+#pragma unroll
+          for (int c = 0; c < 10; ++c) a = __fmaf_rn(in[c], w1[j][c], a);
+          h1o[j] = dyn_relu(a);'''),
+        ('''          float a = h1[0] * w2[j][0];
+#pragma unroll
+          for (int c = 1; c < 8; ++c) a = a + h1[c] * w2[j][c];
+          const float h2o = dyn_relu(a + b2[j]);''',
+         '''          float a = b2[j];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) a = __fmaf_rn(h1[c], w2[j][c], a);
+          const float h2o = dyn_relu(a);'''),
+    ]),
 }
 
 
@@ -119,18 +159,20 @@ def build_variant(_cuda, name: str) -> str:
     return build_source(_cuda, name, text, *_cuda.SIGNATURES[kernel])
 
 
-def build_source(_cuda, name: str, text: str, entry: str, params: str
-                 ) -> str:
+def build_source(_cuda, name: str, text: str, entry: str, params: str,
+                 include: str = None) -> str:
     """Build ``text`` (a kernel source) with the shipped nvcc flags and
     bind its ``entry`` (``params`` as in ``_cuda.SIGNATURES``) into
-    ``_cuda`` under ``name``."""
+    ``_cuda`` under ``name``. Its headers come from ``include`` (a csrc
+    directory; this checkout's by default)."""
     tag = name.replace(' ', '_')
     cu = _cuda.BUILD_DIR / f'variant_{tag}.cu'
     so = _cuda.BUILD_DIR / f'libvariant_{tag}.so'
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu.write_text(text)
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-I', str(_cuda.CSRC),
-                    '-o', str(so), str(cu)], check=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-I',
+                    str(include or _cuda.CSRC), '-o', str(so), str(cu)],
+                   check=True)
     lib = ctypes.PyDLL(str(so))
     lib.kb_error_string.restype = ctypes.c_char_p
     lib.kb_error_string.argtypes = [ctypes.c_int]
@@ -165,6 +207,9 @@ def main() -> None:
     ap.add_argument('--detector-parent', help='a checkout whose K8 and K9 '
                     'the shipped ones are held against (with '
                     '--detector-inputs)')
+    ap.add_argument('--dynhead-parent', help="a checkout whose K9t "
+                    "(csrc/dynhead_fwd.cu, dynhead_bwd.cu) the shipped one "
+                    "is timed against")
     ap.add_argument('--turns', type=int, default=50)
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
@@ -184,6 +229,8 @@ def main() -> None:
             print(f'[{tag}] {n}: device median {statistics.median(v):.5f} '
                   f'ms ({" ".join(f"{t:.5f}" for t in v)})', flush=True)
         out[tag] = res
+    if args.dynhead_parent:
+        dynhead_parent(cs, _cuda, args, summary, out)
     if args.detector_inputs and args.detector_parent:
         detector_parent(cs, _cuda, args, summary, out)
     if args.fill_inputs and args.coverage_inputs:
@@ -300,6 +347,101 @@ def render_variants(cs, _cuda, discfill3, pointcloud, depth, args, summary,
               f'{statistics.median(d):.5f} ms, quartiles {q[0]:.5f} '
               f'{q[2]:.5f}', flush=True)
         out['K5b ms'] = ms
+
+
+def dynhead_parent(cs, _cuda, args, summary, out) -> None:
+    """K9t's forward and backward against the parent's kernels at the
+    training shape (B = 8, K = 8, 80x80, ``chip_smoke.check_dynhead``'s
+    draws): both held against the plain version (logits within 1e-5 of
+    their range, gradients within 1e-4 of their largest magnitude), then
+    device time (``in_turns``) and ``ms`` (``chip_smoke.time_ms``,
+    ``--turns`` times each) in turns."""
+    import torch
+    from cartoonsegmentation_torch.models import rtmdet
+    _cuda.build(['dynhead_fwd', 'dynhead_bwd'])
+    dev = torch.device('cuda')
+    B, K, h, w = 8, 8, 80, 80
+    gen = torch.Generator().manual_seed(args.seed)
+    xs = [cs.dynhead_case(gen, B, K, h, w) for _ in range(3)]
+    src = os.path.join(args.dynhead_parent, 'cartoonsegmentation_torch',
+                       'csrc')
+    for kernel, params in (('dynhead_fwd', 'ppppiiiipp'),
+                           ('dynhead_bwd', 'pppppiiiipppp')):
+        build_source(_cuda, f'{kernel} parent', open(os.path.join(
+            src, f'{kernel}.cu')).read(), f'kb_{kernel}', params,
+            include=src)
+
+    def fwd_parent(x):
+        feat, kern, pri, st = x[:4]
+        logits = torch.empty((B, K, h, w), dtype=torch.float32, device=dev)
+        _cuda.launch('dynhead_fwd parent', feat.data_ptr(), kern.data_ptr(),
+                     pri.data_ptr(), st.data_ptr(), B, K, h, w,
+                     logits.data_ptr(), _cuda.stream_ptr(feat))
+        return logits
+
+    def bwd_parent(x):
+        feat, kern, pri, st, dlog = x
+        partials = torch.empty((B, K, -(-h * w // 256), 169),
+                               dtype=torch.float32, device=dev)
+        dfeat, dkern = torch.empty_like(feat), torch.empty_like(kern)
+        _cuda.launch('dynhead_bwd parent', feat.data_ptr(), kern.data_ptr(),
+                     pri.data_ptr(), st.data_ptr(), dlog.data_ptr(), B, K, h,
+                     w, partials.data_ptr(), dfeat.data_ptr(),
+                     dkern.data_ptr(), _cuda.stream_ptr(feat))
+        return dfeat, dkern
+
+    fns = {'K9t fwd': lambda x: rtmdet.dynhead_forward(*x[:4]),
+           'K9t fwd parent': fwd_parent,
+           'K9t bwd': lambda x: rtmdet.dynhead_backward(*x),
+           'K9t bwd parent': bwd_parent}
+    for x in xs:
+        want = rtmdet.dynamic_mask_heads_plain(*x[:4])
+        f, k = x[0].clone().requires_grad_(), x[1].clone().requires_grad_()
+        gf, gk = torch.autograd.grad(
+            rtmdet.dynamic_mask_heads_plain(f, k, *x[2:4]), (f, k), x[4])
+        for n in ('K9t fwd', 'K9t fwd parent'):
+            err = float((fns[n](x) - want).abs().max()) / float(
+                want.max() - want.min())
+            if err > 1e-5:
+                cs.fail(f'{n}: logits {err} of their range off the plain')
+        for n in ('K9t bwd', 'K9t bwd parent'):
+            got = fns[n](x)
+            err = max(cs.rel_err(got[0], gf), cs.rel_err(got[1], gk))
+            if err > 1e-4:
+                cs.fail(f'{n}: gradients {err} off the plain version')
+    print('[K9t] new and parent kernels within their gates of the plain '
+          'version', flush=True)
+    for tag in ('fwd', 'bwd'):
+        summary(f'K9t {tag} device', in_turns(
+            cs, {'shipped': fns[f'K9t {tag}'],
+                 'parent': fns[f'K9t {tag} parent']}, xs))
+    probes = {'shipped': fns['K9t bwd']}
+    for name in ('dynhead_bwd no shuffles', 'dynhead_bwd fused layers'):
+        lib = build_variant(_cuda, name)
+
+        def probe(x, lib=lib):
+            tile, tiles = rtmdet.dynhead_bwd_plan(B, K, h * w,
+                                                  _cuda.sm_count(x[0]))
+            partials = torch.empty((B, K, tiles, 169), dtype=torch.float32,
+                                   device=dev)
+            dfeat, dkern = torch.empty_like(x[0]), torch.empty_like(x[1])
+            _cuda.launch(lib, *(t.data_ptr() for t in x), B, K, h, w, tile,
+                         partials.data_ptr(), dfeat.data_ptr(),
+                         dkern.data_ptr(), _cuda.stream_ptr(x[0]))
+            return dfeat, dkern
+        probes[name] = probe
+    summary('K9t bwd device, a cost taken out (timing only)',
+            in_turns(cs, probes, xs))
+    ms = {n: [] for n in fns}
+    for i in range(args.turns):
+        for n in (list(fns) if i % 2 else list(fns)[::-1]):
+            ms[n].append(cs.time_ms(fns[n], xs * 3))
+    for n, v in ms.items():
+        q = statistics.quantiles(v, n=4)
+        print(f'[K9t ms, {args.turns} turns] {n}: median '
+              f'{statistics.median(v):.5f} ms, quartiles {q[0]:.5f} '
+              f'{q[2]:.5f}', flush=True)
+    out['K9t ms'] = ms
 
 
 def detector_parent(cs, _cuda, args, summary, out) -> None:
